@@ -1,0 +1,29 @@
+"""Architecture registry: one module per ported architecture.
+
+Each module exposes CONFIG (exact published hyper-parameters) and
+REDUCED (same family, CPU-test sized).
+"""
+from repro_torch.configs.base import ArchConfig
+
+__all__ = ["ArchConfig", "ARCHS", "ARCH_NAMES", "get_config"]
+
+_ARCH_MODULES = ["qwen2_5_3b", "minicpm_2b"]
+
+
+def _load():
+    import importlib
+    archs = {}
+    for m in _ARCH_MODULES:
+        mod = importlib.import_module(f"repro_torch.configs.{m}")
+        archs[mod.CONFIG.name] = (mod.CONFIG, mod.REDUCED)
+    return archs
+
+
+ARCHS = _load()
+ARCH_NAMES = list(ARCHS.keys())
+
+
+def get_config(name: str, reduced: bool = False) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
+    return ARCHS[name][1 if reduced else 0]

@@ -1,0 +1,83 @@
+"""Parameters across the two packages, as numpy.
+
+The reference (``repro.models.registry.init_params``) yields, for a dense
+decoder arch, ``{"embed", "unit": (block,), "final_norm"[, "head"]}``
+where every leaf of ``block`` carries a leading ``n_repeats`` axis.  The
+port keeps a list of per-layer dicts (``models/lm.py``).  These two
+functions map one onto the other so both packages can be run on the same
+values; neither imports the reference — the caller hands over numpy
+arrays (``jax.tree.map(np.asarray, params)`` on the reference's side).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _check(cfg: ArchConfig) -> None:
+    if tuple(cfg.pattern) != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: only the single-block dense pattern ('attn',) "
+            f"is ported; got {cfg.pattern}")
+
+
+def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
+                    device="cuda") -> Dict[str, Any]:
+    """The reference's unboxed parameter tree (numpy leaves) -> the port's
+    parameters in ``cfg.param_dtype`` on ``device``."""
+    _check(cfg)
+    device = resolve_device(device)
+
+    def to_t(a):
+        return torch.from_numpy(np.array(a)).to(device=device,
+                                                dtype=cfg.pdtype)
+
+    block = numpy_tree["unit"][0]
+    params = {
+        "embed": to_t(numpy_tree["embed"]),
+        "layers": [_map(lambda a, i=i: to_t(np.asarray(a)[i]), block)
+                   for i in range(cfg.n_repeats)],
+        "final_norm": _map(to_t, numpy_tree["final_norm"]),
+    }
+    if "head" in numpy_tree:
+        params["head"] = to_t(numpy_tree["head"])
+    return params
+
+
+def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """The port's parameters -> the reference's layout (f32 numpy leaves,
+    layers stacked along a leading ``n_repeats`` axis)."""
+    _check(cfg)
+
+    def to_n(t):
+        return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    def stack(*leaves):
+        return np.stack([to_n(x) for x in leaves])
+
+    def zip_map(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_map([t[k] for t in trees]) for k in first}
+        return stack(*trees)
+
+    out = {
+        "embed": to_n(params["embed"]),
+        "unit": (zip_map(params["layers"]),),
+        "final_norm": _map(to_n, params["final_norm"]),
+    }
+    if "head" in params:
+        out["head"] = to_n(params["head"])
+    return out

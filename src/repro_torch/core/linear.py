@@ -1,0 +1,250 @@
+"""WTA-CRS linear layer: exact forward, sub-sampled weight-gradient backward.
+
+This implements the paper's core mechanism (Sec. 3.2, Algorithm 1):
+
+    forward:   Z = H @ W                         (exact -> unbiased network)
+    backward:  dH = dZ @ W^T                     (exact)
+               dW = H'^T @ (dZ[idx] * scale)     (WTA-CRS estimate of H^T dZ)
+
+Only the sub-sampled H' (k rows of H), the k indices and the k scales are
+saved for the backward pass, instead of the full H.  This is where the
+activation-memory reduction comes from.
+
+Sampling is PER-SAMPLE — each batch element draws its own k = budget*S
+column-row pairs over its S token rows; the contraction sum decomposes
+over batch elements, each estimated unbiasedly.
+
+The column-row distribution (Eq. 3) is p_i ∝ ||H_i,:|| * ||dZ_i,:||.  dZ
+is unknown at forward time, so the caller may supply ``znorm`` — cached
+per-token gradient-norm estimates from the previous step (Algorithm 1's
+Cache).  The cached term enters the probabilities only when
+``cfg.norm_source == NormSource.CACHED_GRAD``; with ``ACTIVATION_ONLY``
+the supplied znorm is ignored for sampling but the *gradient-norm tap*
+still flows: the gradient returned for ``znorm`` is the SQUARED per-token
+norm of dZ rather than a true derivative (sampling probabilities are
+treated as non-differentiable, exactly as in the paper).
+
+Randomness: ``key`` is a plain integer seed.  The dispatch builds one
+``torch.Generator`` on the activation's device from it, so the same key
+gives the same plan (also on a recomputed forward) and different keys
+give independent plans.  Tests may inject a ready ``plan=(idx, scale)``
+instead, e.g. one built by the JAX reference.
+
+On a CUDA tensor the row norms of the forward and the dW of the backward
+go through the hand-written kernels (``repro_torch.kernels.ops``); the
+large exact products stay ``torch.matmul``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import estimator_registry as registry
+from repro_torch.core import plans
+from repro_torch.core.config import WTACRSConfig
+from repro_torch.kernels import ops as kernel_ops
+
+Plan = Tuple[torch.Tensor, torch.Tensor]     # (idx (B,k) int32, scale (B,k))
+
+
+def _make_plans(h, znorm, gen, cfg: WTACRSConfig, k: int) -> Plan:
+    """Per-sample plans.  h: (B,S,D), znorm: (B,S) -> idx/scale (B,k).
+
+    Dispatches to the registered plan function for ``cfg.kind``.  The
+    znorm term enters the probabilities only under CACHED_GRAD.  All-zero
+    rows fall back to the uniform distribution.
+    """
+    weights = plans.batched_row_weights(h, znorm, cfg)        # (B, S)
+    p = plans.normalize_weights(weights)
+    plan = plans.build_batched_plans(p, k, gen, cfg)
+    return plan.idx, plan.scale
+
+
+def _rowgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, S, D)[B, k] -> (B, k, D); the index is expanded as a view, no
+    (B, k, D) index tensor is materialised."""
+    b, k = idx.shape
+    rows = idx.to(torch.int64)[:, :, None].expand(b, k, x.shape[-1])
+    return torch.gather(x, 1, rows)
+
+
+def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):
+    """dW = sum_b H'_b^T @ (dZ_b[idx_b] * scale_b): one launch of the
+    fused kernel, f32 out, cast to the (compute-dtype) weight's dtype."""
+    dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale,
+                                     tile=cfg.kernel.dw_tile)
+    return dw.to(out_dtype)
+
+
+def _sq_norm_tap(dz):
+    # Gradient-norm tap: NOT a derivative (see module doc).  Squared norms
+    # so per-sample caches broadcast over positions sum correctly.
+    return torch.linalg.vector_norm(dz, dim=-1, dtype=torch.float32) ** 2
+
+
+class _SampledLinear(torch.autograd.Function):
+    """(B, S, D) x (D, E) with a per-sample plan; saves (H', idx, scale, w)."""
+
+    @staticmethod
+    def forward(ctx, h, w, znorm, cfg, gen, plan):
+        z = torch.matmul(h, w)
+        k = cfg.budget_rows(h.shape[1])
+        idx, scale = plan if plan is not None else _make_plans(
+            h, znorm, gen, cfg, k)
+        ctx.save_for_backward(_rowgather(h, idx), idx, scale, w)
+        ctx.cfg = cfg
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        h_sub, idx, scale, w = ctx.saved_tensors
+        dz = dz.contiguous()
+        dh = torch.matmul(dz, w.t()).to(h_sub.dtype)
+        dw = _sampled_dw(h_sub, dz, idx, scale, ctx.cfg, w.dtype)
+        tap = _sq_norm_tap(dz) if ctx.needs_input_grad[2] else None
+        return dh, dw, tap, None, None, None
+
+
+class _SampledLinearShared(torch.autograd.Function):
+    """Several weights consuming the SAME activation (q/k/v, SwiGLU wi/wg)
+    share one plan and ONE stored H'.  Beyond-paper memory optimization:
+    sharing cuts attention-input residuals 3x and gated-MLP 2x at
+    identical unbiasedness (each dW_i is the Eq. 6 estimator under the
+    same, valid plan; only the variance coupling across the estimates
+    changes, not any mean)."""
+
+    @staticmethod
+    def forward(ctx, h, znorm, cfg, gen, plan, *ws):
+        zs = tuple(torch.matmul(h, w) for w in ws)
+        k = cfg.budget_rows(h.shape[1])
+        idx, scale = plan if plan is not None else _make_plans(
+            h, znorm, gen, cfg, k)
+        ctx.save_for_backward(_rowgather(h, idx), idx, scale, *ws)
+        ctx.cfg = cfg
+        return zs
+
+    @staticmethod
+    def backward(ctx, *dzs):
+        h_sub, idx, scale, *ws = ctx.saved_tensors
+        dh = None
+        tap = None
+        dws = []
+        for dz, w in zip(dzs, ws):
+            dz = dz.contiguous()
+            d = torch.matmul(dz, w.t())
+            dh = d if dh is None else dh + d
+            dws.append(_sampled_dw(h_sub, dz, idx, scale, ctx.cfg,
+                                   ws[0].dtype))
+            if ctx.needs_input_grad[1]:
+                t = _sq_norm_tap(dz)
+                tap = t if tap is None else tap + t
+        return (dh.to(h_sub.dtype), tap, None, None, None, *dws)
+
+
+# ---------------------------------------------------------------------------
+# Unified internal dispatch + thin public wrappers
+# ---------------------------------------------------------------------------
+
+def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
+                            key: Optional[int],
+                            znorm: Optional[torch.Tensor],
+                            cfg: WTACRSConfig,
+                            biases: Optional[Sequence] = None,
+                            shared: bool = False,
+                            plan: Optional[Plan] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The single sampled-dense path every public wrapper routes through.
+
+    Handles: leading-dim reshape to (B, S, D), the exact short-circuit
+    (EXACT kind or budget covering all rows), znorm normalization, key
+    requirements from the registered estimator's signature, and the
+    shared-plan vs per-weight choice.  Returns one output per weight.
+    """
+    lead = h.shape[:-1]
+    squeeze = h.ndim == 2
+    h3 = h[None] if squeeze else h.reshape((-1,) + h.shape[-2:])
+    b, s = h3.shape[0], h3.shape[1]
+
+    if cfg.is_exact or cfg.budget_rows(s) >= s:
+        zs = tuple(torch.matmul(h, w) for w in ws)
+    else:
+        spec = registry.get_estimator(cfg.kind)
+        gen = None
+        if plan is None and spec.needs_key:
+            if key is None:
+                raise ValueError(
+                    f"estimator {cfg.kind_name!r} requires a key")
+            gen = torch.Generator(device=h.device)
+            gen.manual_seed(int(key))
+        if plan is not None:
+            k = cfg.budget_rows(s)
+            idx, scale = plan
+            if tuple(idx.shape) != (b, k) or tuple(scale.shape) != (b, k):
+                raise ValueError(f"injected plan must be ({b}, {k}), got "
+                                 f"{tuple(idx.shape)} / {tuple(scale.shape)}")
+            plan = (idx.to(torch.int32).contiguous(),
+                    scale.to(torch.float32).contiguous())
+        # Without a caller's znorm there is nobody to read the tap: the
+        # placeholder carries no grad and the backward skips the tap.
+        zn = (torch.ones((b, s), dtype=torch.float32, device=h.device)
+              if znorm is None else znorm.reshape(b, s).to(torch.float32))
+        if shared and len(ws) > 1:
+            if not spec.supports_shared:
+                raise ValueError(f"estimator {cfg.kind_name!r} does not "
+                                 f"support shared plans")
+            z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, *ws)
+        else:
+            z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan)
+                        for w in ws)
+        zs = tuple(z[0] if squeeze else z.reshape(lead + (z.shape[-1],))
+                   for z in z3s)
+
+    if biases is not None:
+        zs = tuple(z if bias is None else z + bias
+                   for z, bias in zip(zs, biases))
+    return zs
+
+
+def wtacrs_linear(h: torch.Tensor, w: torch.Tensor,
+                  key: Optional[int] = None,
+                  znorm: Optional[torch.Tensor] = None,
+                  cfg: WTACRSConfig = WTACRSConfig(),
+                  bias: Optional[torch.Tensor] = None,
+                  plan: Optional[Plan] = None) -> torch.Tensor:
+    """Linear layer with estimator-approximated weight gradient.
+
+    Args:
+      h: activations (..., S, d_in); sampling happens over S per leading
+        index.  2-D inputs (n, d_in) are treated as one sample of n rows.
+      w: weight (d_in, d_out).
+      key: integer seed for the sampling plans (not needed for estimators
+        whose registry entry declares ``needs_key=False``, e.g.
+        EXACT/DET_TOPK, nor with ``plan``).
+      znorm: gradient-norm estimates, shape h.shape[:-1]; consulted for
+        sampling only under ``NormSource.CACHED_GRAD``, but the
+        gradient-norm tap always flows back through this argument (give
+        it ``requires_grad=True`` and read ``znorm.grad``).
+      cfg: estimator configuration.
+      bias: optional (d_out,), added exactly.
+      plan: optional ready (idx, scale) of shape (B, k) used instead of
+        building one.
+    """
+    return _dispatch_sampled_dense(h, (w,), key, znorm, cfg,
+                                   biases=(bias,), plan=plan)[0]
+
+
+def wtacrs_linear_shared(h: torch.Tensor, ws, key: Optional[int] = None,
+                         znorm=None, cfg: WTACRSConfig = WTACRSConfig(),
+                         biases=None, plan: Optional[Plan] = None):
+    """Shared-plan multi-linear: returns one output per weight in ``ws``.
+
+    h: (..., S, d_in); every w: (d_in, d_out_i).  One plan and ONE stored
+    H' serve all weights (see ``_SampledLinearShared``)."""
+    return _dispatch_sampled_dense(h, tuple(ws), key, znorm, cfg,
+                                   biases=biases, shared=True, plan=plan)
+
+
+def read_grad_norm_tap(grads_znorm: torch.Tensor) -> torch.Tensor:
+    """Convert tap gradients (squared norms) into gradient norms."""
+    return torch.sqrt(torch.clamp(grads_znorm, min=0.0))

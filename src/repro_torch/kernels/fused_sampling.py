@@ -1,0 +1,93 @@
+"""The fused sampled weight-gradient — the CUDA kernel's wrapper, its plain
+PyTorch version and its launch counter.
+
+    dW (d_in, d_out) f32 = sum_b hsub_b^T @ (dz_b[idx_b] * scale_b)
+
+Replaces the TPU kernel
+``repro/kernels/fused_sampling.py::fused_sampled_dw`` (and the idx/scale
+padding and divisor-tiling of ``repro/kernels/ops.py`` around it).  The
+kernel is ``csrc/fused_sampled_dw.cu``: one block per (BM, BN) tile of
+dW looping over every (b, k-block) with the f32 sum in registers, the dz
+rows gathered by the block's own idx slice, scale applied in f32 and
+rounded once to the input dtype in shared memory; the gathered dZ' is
+never written to device memory.  On an H100 in bf16 it is bound by
+operations at the wide projections (``2*B*k*d_in*d_out`` flops against
+989 TFLOP/s) and by bytes at the narrow ones
+(``2*(B*k*d_in + B*k*d_out) + 4*d_in*d_out`` against 3.35 TB/s).  Any
+positive shape is taken: the k tail and the d_in/d_out edges are
+predicated in the kernel.
+
+This is the backward of every sampled linear (``core/linear.py``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+TILES = (64, 128)
+
+
+def fused_sampled_dw_plain(hsub: torch.Tensor, dz: torch.Tensor,
+                           idx: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in tensor ops: gather, scale in f32,
+    round once to the input dtype, contract over (b, k) in f32."""
+    b, k, _ = hsub.shape
+    rows = idx.to(torch.int64)[:, :, None].expand(b, k, dz.shape[2])
+    dz_sub = torch.gather(dz, 1, rows)
+    dz_sub = (dz_sub.to(torch.float32) * scale[:, :, None]).to(dz.dtype)
+    return torch.einsum("bki,bkj->ij", hsub.to(torch.float32),
+                        dz_sub.to(torch.float32))
+
+
+def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
+                     idx: torch.Tensor, scale: torch.Tensor, *,
+                     tile: Optional[int] = None) -> torch.Tensor:
+    """hsub (B, k, d_in), dz (B, n, d_out) of one float dtype; idx (B, k)
+    int32 rows of dz; scale (B, k) f32 -> (d_in, d_out) f32.
+
+    ``tile`` pins the bf16/f16 output tile (64 or 128); ``None`` lets the
+    kernel choose from the shape.  A CUDA tensor launches the kernel (or
+    raises); only tensors that lie on the CPU take the plain version.
+    """
+    if hsub.ndim != 3 or dz.ndim != 3:
+        raise ValueError(f"fused_sampled_dw wants hsub (B, k, d_in) and dz "
+                         f"(B, n, d_out), got {tuple(hsub.shape)} / "
+                         f"{tuple(dz.shape)}")
+    if hsub.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"fused_sampled_dw takes float32/bfloat16/float16, "
+                        f"got {hsub.dtype}")
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES} or None, got {tile!r}")
+    b, k, d_in = hsub.shape
+    n, d_out = dz.shape[1], dz.shape[2]
+    if min(b, k, d_in, n, d_out) < 1:
+        raise ValueError("fused_sampled_dw wants non-empty operands")
+    dev = hsub.device
+    _build.check_operand("hsub", hsub)
+    _build.check_operand("dz", dz, dtype=hsub.dtype, shape=(b, n, d_out),
+                         device=dev)
+    _build.check_operand("idx", idx, dtype=torch.int32, shape=(b, k),
+                         device=dev)
+    _build.check_operand("scale", scale, dtype=torch.float32, shape=(b, k),
+                         device=dev)
+    if dev.type == "cpu":
+        return fused_sampled_dw_plain(hsub, dz, idx, scale)
+    if not hsub.is_cuda:
+        raise ValueError(f"fused_sampled_dw runs on cuda or cpu, not {dev}")
+    out = torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library().repro_fused_sampled_dw(
+            hsub.data_ptr(), dz.data_ptr(), idx.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), b, k, n, d_in, d_out,
+            _build.DTYPE_CODES[hsub.dtype], tile or 0,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "fused_sampled_dw")
+    fused_sampled_dw.launches += 1
+    return out
+
+
+fused_sampled_dw.launches = 0

@@ -1,0 +1,121 @@
+"""GQA attention: the flash-style training path in tensor ops.
+
+Online softmax over KV blocks with the reference's block numerics:
+scores and softmax statistics in f32 (q and k upcast before the score
+product), UNNORMALIZED probabilities rounded to the input dtype before
+the PV product, normalization by l afterwards.  Each q-row of blocks runs
+under ``torch.utils.checkpoint``, so the (bq, bk) probability blocks are
+recomputed in the backward and activation memory stays O(S * block)
+instead of O(S^2).
+
+``mode="full"`` visits every (q-block, kv-block) pair and masks;
+``mode="triangular"`` walks only the causal lower triangle of block
+pairs — the skipped blocks contribute exact zeros, so numerics are
+identical.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+NEG_INF = -1e30
+
+
+def _attend_block(qc, kc, vc, q0: int, k0: int, causal: bool, scale: float,
+                  m, l, acc):
+    """One online-softmax step.  qc: (B,bq,KVH,G,Dh), kc/vc: (B,bk,KVH,Dh);
+    q0/k0: absolute positions of the blocks' first rows."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qc.to(torch.float32),
+                     kc.to(torch.float32)) * scale
+    if causal:
+        qpos = torch.arange(qc.shape[1], device=qc.device) + q0
+        kpos = torch.arange(kc.shape[1], device=qc.device) + k0
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    # probabilities ride in the input dtype; softmax stats stay f32
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(qc.dtype),
+                      vc).to(torch.float32)
+    acc_new = acc * corr[..., None] + pv
+    return m_new, l_new, acc_new
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_block: int = 512,
+                    kv_block: int = 512, mode: str = "full",
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh).  Returns (B, Sq, H, Dh).
+
+    ``q_offset``: absolute position of q[0] (for chunked prefill).
+    """
+    if mode not in ("full", "triangular"):
+        raise ValueError(f"unknown flash mode {mode!r}")
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, skv)
+    if sq % q_block or skv % kv_block:
+        raise ValueError(f"sequence lengths ({sq}, {skv}) must tile by the "
+                         f"blocks ({q_block}, {kv_block})")
+    nq, nk = sq // q_block, skv // kv_block
+    scale = 1.0 / math.sqrt(dh)
+    qr = q.reshape(b, sq, kvh, g, dh)
+
+    def q_row(qc, k, v, qi: int):
+        m = torch.full((b, kvh, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, g, q_block), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, kvh, g, q_block, dh), dtype=torch.float32,
+                          device=q.device)
+        q0 = qi * q_block + q_offset
+        n_visit = nk
+        if causal and mode == "triangular":
+            # kv blocks that start after this q block's last position
+            # are wholly masked
+            n_visit = min(nk, (q0 + q_block - 1) // kv_block + 1)
+        for kj in range(n_visit):
+            ks = slice(kj * kv_block, (kj + 1) * kv_block)
+            m, l, acc = _attend_block(qc, k[:, ks], v[:, ks], q0,
+                                      kj * kv_block, causal, scale,
+                                      m, l, acc)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    rows = []
+    for qi in range(nq):
+        qc = qr[:, qi * q_block:(qi + 1) * q_block]
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            o = checkpoint(q_row, qc, k, v, qi, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            o = q_row(qc, k, v, qi)
+        rows.append(o)                               # (B,KVH,G,bq,Dh)
+    o = torch.cat(rows, dim=3)                       # (B,KVH,G,Sq,Dh)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+    return o.to(q.dtype)
+
+
+def attention_reference(q, k, v, *, causal=True, q_offset: int = 0):
+    """O(S^2)-memory oracle for flash_attention (tests only)."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qr = q.reshape(b, sq, kvh, g, dh).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.to(torch.float32))
+    s = s / math.sqrt(dh)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+    return o.to(q.dtype)

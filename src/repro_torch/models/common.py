@@ -1,0 +1,293 @@
+"""Common model substrate: norms, rotary embeddings, and the WTA-CRS
+linear context threaded through every block.
+
+Parameters are plain nested dicts of tensors (see ``models/lm.py`` for
+the tree); weights are stored (d_in, d_out) as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import estimator_registry as est_registry
+from repro_torch.core.config import EstimatorKind, WTACRSConfig
+from repro_torch.core.linear import wtacrs_linear, wtacrs_linear_shared
+from repro_torch.core.policy import PolicyRules
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
+    """Normal(0, scale^2), scale = 1/sqrt(fan_in) by default — the
+    reference's distribution (not its random stream)."""
+    if scale is None:
+        scale = 1.0 / shape[0] ** 0.5
+    v = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (v * scale).to(dtype)
+
+
+
+def init_norm(cfg, dtype, device):
+    p = {"gamma": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["beta"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def _mean_sq(x: torch.Tensor) -> torch.Tensor:
+    # f32-accumulated mean of squares without keeping an f32 copy of x
+    # for the backward (vector_norm converts on the fly)
+    nrm = torch.linalg.vector_norm(x, dim=-1, keepdim=True,
+                                   dtype=torch.float32)
+    return nrm * nrm / x.shape[-1]
+
+
+def rms_norm(x, gamma, eps: float):
+    inv = torch.rsqrt(_mean_sq(x) + eps).to(x.dtype)
+    return x * inv * gamma.to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float):
+    mu = torch.sum(x, dim=-1, keepdim=True, dtype=torch.float32) / x.shape[-1]
+    xc = x - mu.to(x.dtype)
+    inv = torch.rsqrt(_mean_sq(xc) + eps).to(x.dtype)
+    return xc * inv * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+def apply_norm(cfg, p, x):
+    if "beta" in p:
+        return layer_norm(x, p["gamma"], p["beta"], cfg.norm_eps)
+    return rms_norm(x, p["gamma"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)                       # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) integer."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (B,S,Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The per-forward context: policy + seed + gradient-norm cache plumbing
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """What estimator applies to this forward pass.
+
+    ``wtacrs`` is the network-wide default estimator config.  ``rules``
+    (optional) layers per-tag overrides and budget schedules on top:
+    every ``Ctx.linear`` resolves its fully-prefixed tag through
+    ``config_for``.  ``step`` is the concrete trainer step the rules'
+    budget schedules resolve against.  ``rule_budgets`` pins one budget
+    per rule (aligned with ``rules.rules``, ``None`` = unpinned).
+    ``remat`` only knows ``"none"`` here; ``flash_block`` / ``flash_mode``
+    set the attention block size and whether the causal upper triangle of
+    block pairs is skipped (``triangular``) or masked (``full``).
+    """
+    wtacrs: WTACRSConfig = WTACRSConfig(kind=EstimatorKind.EXACT)
+    rules: Optional[PolicyRules] = None
+    step: int = 0
+    rule_budgets: Optional[Tuple[Optional[float], ...]] = None
+    remat: str = "none"
+    flash_block: int = 512
+    flash_mode: str = "full"       # full | triangular
+
+    def config_for(self, tag: str) -> WTACRSConfig:
+        """Estimator config for one fully-prefixed linear tag."""
+        if self.rules is None:
+            return self.wtacrs
+        return self.rules.resolve(tag, step=self.step,
+                                  fallback=self.wtacrs,
+                                  rule_budgets=self.rule_budgets)
+
+    def at_step(self, step: int) -> "Policy":
+        """Resolve budget schedules against a concrete trainer step."""
+        return dataclasses.replace(self, step=int(step))
+
+    def with_rule_budgets(self, budgets) -> "Policy":
+        """Pin per-rule budgets (controller decisions resolved by the training loop)."""
+        budgets = None if budgets is None else tuple(budgets)
+        return dataclasses.replace(self, rule_budgets=budgets)
+
+    def schedule_signature(self) -> Tuple[float, ...]:
+        """Changes exactly when a schedule crosses a plateau boundary or
+        a pinned budget changes (empty for static policies)."""
+        if self.rules is None:
+            return ()
+        return self.rules.schedule_signature(self.step,
+                                             rule_budgets=self.rule_budgets,
+                                             fallback=self.wtacrs)
+
+
+def _tag_seed(tag: str) -> int:
+    return zlib.crc32(tag.encode()) & 0x7FFFFFFF
+
+
+_MASK63 = (1 << 63) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """Derive a child seed from (seed, data): a splitmix64-style mix in
+    plain integers, so seeds for different layers / tags / steps are
+    decorrelated and the derivation costs no device work.  Takes the
+    place of the reference's ``fold_in``; the streams it yields are not
+    the reference's."""
+    x = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & (2 ** 64 - 1)
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & (2 ** 64 - 1)
+    x ^= x >> 31
+    return x & _MASK63
+
+
+# Sampled-dimension tag metadata.  A linear whose input is (..., S, D)
+# draws one plan per leading index over the S (token) dim; a 2-D input
+# (N, D) is a single flattened sample over all N rows.  Consumers that
+# assume per-dataset-sample structure (the znorm cache) must check it.
+SAMPLED_DIM_TOKEN = "token"   # per-sample plans over the token dim
+SAMPLED_DIM_ROWS = "rows"     # one plan over all (flattened) rows
+
+
+class tag_recorder:
+    """Records every ``Ctx.linear`` tag of the contexts it is handed to,
+    in call order; ``.dims`` maps each recorded tag to its sampled
+    dimension (SAMPLED_DIM_*).  Pass the recorder as ``Ctx(recorder=...)``
+    — there is no module-level sink."""
+
+    def __init__(self):
+        self.tags: list = []
+        self.dims: Dict[str, str] = {}
+
+    def record(self, tag: str, sampled_dim: str) -> None:
+        if tag not in self.tags:
+            self.tags.append(tag)
+        prev = self.dims.setdefault(tag, sampled_dim)
+        if prev != sampled_dim:
+            raise ValueError(
+                f"linear tag {tag!r} sampled over {sampled_dim!r} but "
+                f"was previously recorded sampling over {prev!r}; one "
+                f"tag must sample one dimension")
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Threaded through blocks; routes every linear through the policy.
+
+    ``key`` is an integer seed (``None`` = no randomness available: only
+    keyless estimators can run).  znorms maps linear tags -> per-token
+    gradient-norm estimates with the token shape of the current
+    activation (e.g. (B, S)).  Missing tag -> activation-only
+    probabilities.
+    """
+    policy: Policy
+    key: Optional[int] = None
+    znorms: Optional[Dict[str, torch.Tensor]] = None
+    recorder: Optional[tag_recorder] = None
+    compute_dtype: Optional[torch.dtype] = None   # weights cast at use
+    tag_prefix: str = ""                          # disambiguates positions
+
+    def _key_for(self, tag: str) -> Optional[int]:
+        if self.key is None:
+            return None
+        return fold_seed(self.key, _tag_seed(tag))
+
+    def _record_tag(self, tag: str, h) -> None:
+        if self.recorder is not None:
+            self.recorder.record(tag, SAMPLED_DIM_TOKEN if h.ndim >= 3
+                                 else SAMPLED_DIM_ROWS)
+
+    def _znorm_for(self, tag: str, h):
+        if self.znorms is None or tag not in self.znorms:
+            return None
+        zn = self.znorms[tag]
+        lead = h.shape[:-1]
+        if zn.shape != lead:   # broadcast per-sample cache over positions
+            zn = zn.reshape(zn.shape + (1,) * (len(lead) - zn.ndim)
+                            ).expand(lead)
+        return zn
+
+    def _cast(self, t):
+        if t is None or self.compute_dtype is None:
+            return t
+        return t.to(self.compute_dtype)
+
+    def linear(self, tag: str, h, w, bias=None):
+        """Estimator linear.  The estimator config is resolved per
+        fully-prefixed tag through ``Policy.config_for``."""
+        tag = self.tag_prefix + tag
+        self._record_tag(tag, h)
+        cfg = self.policy.config_for(tag)
+        return wtacrs_linear(h, self._cast(w), key=self._key_for(tag),
+                             znorm=self._znorm_for(tag, h), cfg=cfg,
+                             bias=self._cast(bias))
+
+    def linear_shared(self, tags, h, ws, biases=None):
+        """Shared-plan multi-linear (one stored H' for all of ``ws``).
+
+        Per-tag resolution: sharing a plan requires all tags to resolve
+        to the SAME config whose estimator supports shared plans; when
+        rules split the group (e.g. attn_q sampled, attn_k exact) each
+        weight falls back to its own independent linear.  Fallback and
+        shared keys fold the PREFIXED tags, so plans never correlate
+        across blocks."""
+        full_tags = [self.tag_prefix + t for t in tags]
+        for tag in full_tags:
+            self._record_tag(tag, h)
+        cfgs = [self.policy.config_for(t) for t in full_tags]
+        ws = [self._cast(w) for w in ws]
+        if biases is not None:
+            biases = [self._cast(b) for b in biases]
+
+        shareable = (self.key is not None
+                     and all(c == cfgs[0] for c in cfgs)
+                     and not cfgs[0].is_exact
+                     and est_registry.get_estimator(
+                         cfgs[0].kind).supports_shared)
+        if not shareable:
+            outs = []
+            for i, w in enumerate(ws):
+                bias = None if biases is None else biases[i]
+                outs.append(wtacrs_linear(
+                    h, w, key=self._key_for(full_tags[i]),
+                    znorm=self._znorm_for(full_tags[i], h),
+                    cfg=cfgs[i], bias=bias))
+            return tuple(outs)
+        return wtacrs_linear_shared(
+            h, ws, key=self._key_for("+".join(full_tags)),
+            znorm=self._znorm_for(full_tags[0], h), cfg=cfgs[0],
+            biases=biases)
+
+    def fold(self, i: int) -> "Ctx":
+        """Sub-context for layer/repeat i (derives the child seed)."""
+        key = None if self.key is None else fold_seed(self.key, int(i))
+        return dataclasses.replace(self, key=key)
+
+
+EXACT_POLICY = Policy()
