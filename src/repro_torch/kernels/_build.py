@@ -42,6 +42,8 @@ _SIGNATURES = {
     "repro_row_norms": (_P, _P, _I, _I, _I, _P),
     "repro_fused_sampled_dw": (_P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_flash_attention_fwd": (_P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,4 +1,6 @@
-"""GQA attention: the flash-style training path in tensor ops.
+"""GQA attention: the flash-style training path and the cached decode
+path, in tensor ops (the prefill of the serving path runs the
+``flash_attention_fwd`` kernel instead, see ``models/lm.py::prefill``).
 
 Online softmax over KV blocks with the reference's block numerics:
 scores and softmax statistics in f32 (q and k upcast before the score
@@ -100,6 +102,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.cat(rows, dim=3)                       # (B,KVH,G,Sq,Dh)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
     return o.to(q.dtype)
+
+
+def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """Single-token attention against a (B, Smax, KVH, Dh) KV cache.
+
+    q1: (B, 1, H, Dh).  ``cache_len``: an int, a 0-dim or a (B,) tensor of
+    valid positions (the new token's K/V already written at
+    cache_len - 1).  The block numerics of ``flash_attention``: scores
+    and softmax statistics in f32, UNNORMALIZED probabilities rounded to
+    q1's dtype before the PV product, normalization by l afterwards;
+    masked positions contribute exact zeros, whatever the cache holds
+    there.
+    """
+    b, _, h, dh = q1.shape
+    smax, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qr = q1.reshape(b, kvh, g, dh).to(torch.float32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr,
+                     k_cache.to(torch.float32)) * scale
+    cache_len = torch.as_tensor(cache_len, device=q1.device)
+    valid = (torch.arange(smax, device=q1.device)[None]
+             < cache_len.reshape(-1, 1))
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1)
+    pv = torch.einsum("bhgk,bkhd->bhgd", p.to(q1.dtype),
+                      v_cache).to(torch.float32)
+    o = pv / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, 1, h, dh).to(q1.dtype)
 
 
 def attention_reference(q, k, v, *, causal=True, q_offset: int = 0):

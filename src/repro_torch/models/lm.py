@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly: block stacking, embeddings, loss.
+"""Decoder-only LM assembly: block stacking, embeddings, loss, and the
+serving path (prefill through the flash kernel, cached single-token decode).
 
 Parameter tree (plain dicts of tensors, weights (d_in, d_out))::
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
@@ -178,12 +180,144 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
                 sub, znorms={t: z[ridx] for t, z in znorms.items()})
         h, _ = apply_block(cfg, cfg.pattern[j], layer, sub, h, positions)
     h = cm.apply_norm(cfg, params["final_norm"], h)
+    return _logits(cfg, params, h), {
+        "lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+
+
+def _logits(cfg, params, h):
     if cfg.tie_embeddings:
-        logits = torch.matmul(h, params["embed"].t().to(cfg.cdtype))
-    else:
-        logits = torch.matmul(h, params["head"].to(cfg.cdtype))
-    return logits, {"lb_loss": torch.zeros((), dtype=torch.float32,
-                                           device=h.device)}
+        return torch.matmul(h, params["embed"].t().to(cfg.cdtype))
+    return torch.matmul(h, params["head"].to(cfg.cdtype))
+
+
+# ---------------------------------------------------------------------------
+# Prefill: forward + decode-state emission + last-token logits
+# ---------------------------------------------------------------------------
+
+def _flash_prefill(q, k, v):
+    """(B,S,H,Dh) q and (B,S,KVH,Dh) k/v through the flash kernel's
+    (BH, S, Dh) layout: query head b*H + h reads kv head b*KVH + h//group.
+    Returns (B, S, H*Dh)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+
+    def heads_first(x):
+        return x.permute(0, 2, 1, 3).reshape(-1, s, dh).contiguous()
+
+    o = kernel_ops.flash_attention_fwd(heads_first(q), heads_first(k),
+                                       heads_first(v), group=h // kvh,
+                                       causal=True)
+    return o.reshape(b, h, s, dh).permute(0, 2, 1, 3).reshape(b, s, h * dh)
+
+
+def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
+    """Run the prompt through the stack, returning (last_logits, states).
+
+    Attention is the ``flash_attention_fwd`` kernel (its plain version on
+    the CPU).  ``states`` has ``decode_state_init``'s layout with
+    max_len == prompt length: a tuple over ``cfg.pattern`` of {"k", "v"}
+    stacked over repeats as (n_repeats, B, S, KVH, Dh) in the compute
+    dtype (the serving layer adds head-room by padding the KV axis).  Only
+    the last position goes through the final norm and the head.
+    """
+    _check_ported(cfg)
+    ctx = cm.Ctx(policy=policy, key=None, znorms=None,
+                 compute_dtype=cfg.cdtype)
+    h, positions = embed_inputs(cfg, params, batch, ctx)
+    b, s = h.shape[0], h.shape[1]
+    n_pat = len(cfg.pattern)
+    caches = [{"k": [], "v": []} for _ in cfg.pattern]
+    for i, p in enumerate(params["layers"]):
+        ridx, j = divmod(i, n_pat)
+        ctx_r = ctx.fold(ridx)
+        x = cm.apply_norm(cfg, p["norm1"], h)
+        q, k, v = _project_qkv(cfg, p["attn"], ctx_r, x, positions)
+        o = ctx_r.linear("attn_o", _flash_prefill(q, k, v), p["attn"]["wo"])
+        h = h + cfg.residual_scale * o
+        x = cm.apply_norm(cfg, p["norm2"], h)
+        h = h + cfg.residual_scale * mlp_lib.apply_mlp(cfg, p["mlp"], ctx_r, x)
+        caches[j]["k"].append(k.to(cfg.cdtype))
+        caches[j]["v"].append(v.to(cfg.cdtype))
+    states = tuple({"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
+                   for c in caches)
+    h = cm.apply_norm(cfg, params["final_norm"], h[:, -1:])
+    return _logits(cfg, params, h)[:, 0], states
+
+
+# ---------------------------------------------------------------------------
+# Decode (single-token serve step with per-block state)
+# ---------------------------------------------------------------------------
+
+def block_decode_init(cfg, btype, batch_size: int, max_len: int,
+                      device="cuda"):
+    """Decode state for ONE block type, un-stacked (no repeat axis):
+    a (B, max_len, KVH, Dh) KV cache in the compute dtype for attention
+    blocks.  The serving slot pool builds its per-block pools from it."""
+    if btype != "attn":
+        raise NotImplementedError(_LATER.format(btype=btype))
+    device = resolve_device(device)
+    shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
+                      device="cuda"):
+    """Decode state of every block in the unit, stacked over repeats:
+    a tuple over ``cfg.pattern`` of {"k", "v"} (n_repeats, B, max_len,
+    KVH, Dh) zeros."""
+    _check_ported(cfg)
+    states = []
+    for btype in cfg.pattern:
+        one = block_decode_init(cfg, btype, batch_size, max_len, device)
+        states.append({name: x[None].repeat((cfg.n_repeats,) + (1,) * x.ndim)
+                       for name, x in one.items()})
+    return tuple(states)
+
+
+def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
+    """h1: (B,1,D); k_cache/v_cache: (B, Smax, KVH, Dh) views into the
+    stacked states, written IN PLACE at (row, pos[row]); pos: (B,)."""
+    b = h1.shape[0]
+    hh, dh = cfg.n_heads, cfg.head_dim
+    x = cm.apply_norm(cfg, p["norm1"], h1)
+    q, k, v = _project_qkv(cfg, p["attn"], ctx, x, pos[:, None])
+    rows = torch.arange(b, device=h1.device)
+    k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
+    v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
+    o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
+    o = ctx.linear("attn_o", o.reshape(b, 1, hh * dh), p["attn"]["wo"])
+    h1 = h1 + cfg.residual_scale * o
+    x = cm.apply_norm(cfg, p["norm2"], h1)
+    m = mlp_lib.apply_mlp(cfg, p["mlp"], ctx, x)
+    return h1 + cfg.residual_scale * m
+
+
+def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
+                policy: cm.Policy):
+    """One serve step: token (B,) integer -> logits (B, V), states.
+
+    ``pos`` is a scalar (every row at the same position) or a (B,) vector
+    of per-row positions (continuous batching: each row writes its KV at
+    its own offset and attends over its own prefix).  The scalar is
+    broadcast, so both share one set of numerics.  Each row's new K/V is
+    written into ``states`` in place (no copy of the caches per step);
+    the returned states are that same object.
+    """
+    _check_ported(cfg)
+    ctx = cm.Ctx(policy=policy, key=None, znorms=None,
+                 compute_dtype=cfg.cdtype)
+    token = token.to(torch.int64)
+    pos = torch.as_tensor(pos, device=token.device).to(torch.int64)
+    pos = pos.reshape(-1).expand(token.shape)
+    h = params["embed"][token][:, None, :].to(cfg.cdtype)
+    n_pat = len(cfg.pattern)
+    for i, p in enumerate(params["layers"]):
+        ridx, j = divmod(i, n_pat)
+        h = _attn_decode(cfg, p, ctx, h, states[j]["k"][ridx],
+                         states[j]["v"][ridx], pos)
+    h = cm.apply_norm(cfg, params["final_norm"], h)
+    return _logits(cfg, params, h)[:, 0], states
 
 
 def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,

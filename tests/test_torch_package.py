@@ -16,8 +16,10 @@ from repro_torch import convert
 from repro_torch.core import KernelConfig, WTACRSConfig, policy
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import train_steps
+from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.models.registry import get_config
+from repro_torch.serve import ServeSpec, pool
 
 torch.set_num_threads(1)
 
@@ -73,18 +75,39 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     assert '"ok"' not in done.stdout
 
 
+SERVE_ENTRIES = ["make_prefill_step", "make_serve_step",
+                 "make_prefill_chunk_step", "make_slot_serve_step",
+                 "make_slot_prefill_step", "make_slot_reset_step",
+                 "decode_state_init", "init_pool", "ServeSpec"]
+
+
 @pytest.mark.parametrize("entry", ["init_params", "init_train_state",
-                                   "make_train_step", "params_from_jax"])
+                                   "make_train_step", "params_from_jax"]
+                         + SERVE_ENTRIES)
 def test_device_cuda_raises_instead_of_falling_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
     cfg = get_config("qwen2.5-3b", reduced=True)
+    p = cm.Policy()
     calls = {
         "init_params": lambda: lm.init_params(cfg, 0),
         "init_train_state": lambda: train_steps.init_train_state(cfg, 0),
         "make_train_step": lambda: train_steps.make_train_step(
             cfg, None, train_steps.optim.AdamWConfig(), lambda s: 1e-3),
         "params_from_jax": lambda: convert.params_from_jax(cfg, {}),
+        "make_prefill_step": lambda: train_steps.make_prefill_step(cfg, p),
+        "make_serve_step": lambda: train_steps.make_serve_step(cfg, p),
+        "make_prefill_chunk_step": lambda:
+            train_steps.make_prefill_chunk_step(cfg, p, 4),
+        "make_slot_serve_step": lambda:
+            train_steps.make_slot_serve_step(cfg, p),
+        "make_slot_prefill_step": lambda:
+            train_steps.make_slot_prefill_step(cfg, p, 4, True),
+        "make_slot_reset_step": lambda: train_steps.make_slot_reset_step(cfg),
+        "decode_state_init": lambda: lm.decode_state_init(cfg, 2, 8),
+        "init_pool": lambda: pool.init_pool(
+            cfg, ServeSpec(arch="qwen2.5-3b", device="cpu")),
+        "ServeSpec": lambda: ServeSpec(arch="qwen2.5-3b"),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()          # the default device is "cuda"
@@ -137,9 +160,11 @@ def test_row_norms_wrapper_refuses_what_the_kernel_does_not_take(x, error):
 
 def test_kernel_sources_are_packaged_and_hashed():
     names = sorted(p.name for p in _build.CSRC.iterdir())
-    assert names == ["common.cuh", "fused_sampled_dw.cu", "row_norms.cu"]
+    assert names == ["common.cuh", "flash_attention_fwd.cu",
+                     "fused_sampled_dw.cu", "row_norms.cu"]
     assert set(_build._SIGNATURES) == {"repro_row_norms",
-                                       "repro_fused_sampled_dw"}
+                                       "repro_fused_sampled_dw",
+                                       "repro_flash_attention_fwd"}
     for name in _build._SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in _build.CSRC.glob("*.cu"))
