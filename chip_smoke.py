@@ -12,7 +12,10 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
   kernels  every kernel against its plain PyTorch version ON THE CARD, at
            the main path's shapes and at ragged ones, bf16/f32/f16; timed
            with CUDA events beside the plain version, a library
-           composition and the card's bound
+           composition and the card's bound; the reference's unfused
+           composition row_norms -> plan -> gather_scale -> sampled_matmul
+           against fused_sampled_dw at full width; a plan index outside
+           [0, n) ends each gathering kernel in a device-side assert
   parity   one det_topk train step of a reduced config: card (kernels)
            against CPU (plain versions), f32
   train    qwen2.5-3b at published width, depth cut to 12 layers, B=4,
@@ -20,6 +23,12 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            get_config -> init_train_state -> make_train_step -> train_step;
            losses finite and falling, launch counts as expected
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side
+  adaptive Algorithm 1's whole loop at the same width on 8 samples: 10
+           make_scheduled_train_step steps with the znorm cache and budget
+           statistics, WTA-CRS on the MLP linears at a fixed 0.3 and under
+           an ESSProportional controller; cache, stats and launch counts
+           checked against what the resolved policies imply
+  accumulate  the fixed policy for 3 steps at microbatches=2
   serve_parity  one prefill_step + 4 serve_steps of a reduced config: card
            (flash kernel) against CPU (plain version), f32
   prefill  qwen2.5-3b at published width and full depth (36 layers), B=4
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -54,18 +64,23 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.core import EXACT_CONFIG, WTACRSConfig  # noqa: E402
+from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
+                              ESSProportional, PolicyRules, Rule,
+                              WTACRSConfig, plans)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_sampling, ops  # noqa: E402
+from repro_torch.kernels import gather_scale as gather_scale_mod  # noqa: E402
 from repro_torch.kernels import row_norms as row_norms_mod  # noqa: E402
+from repro_torch.kernels import \
+    sampled_matmul as sampled_matmul_mod  # noqa: E402
 from repro_torch.launch import train_steps  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.serve import ServeSession, ServeSpec, sampling  # noqa: E402
 from repro_torch.serve import pool as pool_lib  # noqa: E402
-from repro_torch.train import data, optim  # noqa: E402
+from repro_torch.train import data, optim, znorm  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), the yardstick
 # every bound below is computed against.
@@ -74,7 +89,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}    # f32 outside the tensor cores
 
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
-              "serve_parity", "prefill", "decode", "pool")
+              "adaptive", "accumulate", "serve_parity", "prefill", "decode",
+              "pool")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -92,6 +108,17 @@ FLASH_MAIN = (4, 16, 2, 2048, 2048, 128, True)
 FLASH_MINICPM = (4, 36, 36, 2048, 2048, 64, True)
 FLASH_RAGGED = [(3, 2, 1, 50, 50, 16, True), (1, 4, 4, 33, 70, 64, False),
                 (1, 4, 4, 32, 64, 128, True)]
+# gather_scale: H' of the train path (B=4, n=1024, k=307) at both input
+# widths; the reference sweep's 2-D (n, d, k) shapes; a batched
+# (B, n, d, k) shape with repeated rows
+GATHER_MAIN_D = (2048, 11008)
+GATHER_RAGGED_2D = [(64, 96, 16), (50, 130, 20)]
+GATHER_RAGGED_BATCHED = (3, 7, 5, 4)
+# sampled_matmul: the reference sweeps as 2-D (k, d_in, d_out, n) and
+# batched (B, k, n, d_in, d_out)
+SMM_SWEEP_2D = [(16, 32, 24, 64), (20, 130, 70, 50), (8, 16, 16, 16),
+                (64, 128, 96, 200)]
+SMM_SWEEP_BATCHED = [(2, 20, 50, 130, 70), (8, 12, 30, 33, 17)]
 
 
 def emit(obj) -> None:
@@ -111,11 +138,18 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# GPU clock cycles the card spins before each timed group (about 10 ms on
+# an H100): long enough for the host to enqueue the whole group behind it.
+HOST_LEAD_CYCLES = 20_000_000
+
+
 def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
     """Median over ``reps`` of (CUDA-event time of ``inner`` back-to-back
-    calls) / inner, after ``warmup`` calls.  Inputs stay L2-warm between
-    calls, as they are for the real caller (dz and h come straight out of
-    the preceding matmul)."""
+    calls) / inner, after ``warmup`` calls.  Each group is enqueued behind
+    a spin of the card (``torch.cuda._sleep``), so the events time the
+    device's work and not the host's dispatch, which is slower than a
+    small kernel.  Inputs stay L2-warm between calls, as they are for the
+    real caller (dz and h come straight out of the preceding matmul)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -123,6 +157,7 @@ def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -202,7 +237,60 @@ def library_dw(hsub, dz, idx, scale):
     return torch.einsum("bki,bkj->ij", hsub, dz_sub)
 
 
-def fused_case(b, k, n, d_in, d_out, dtype, gen, timed):
+def unique_rows(idx):
+    """Distinct rows a (B, k) plan names, summed over the batch: the rows a
+    gather must read at least once."""
+    return sum(int(torch.unique(idx[i]).numel()) for i in range(idx.shape[0]))
+
+
+def gather_scale_case(b, n, d, k, dtype, gen, timed, two_d=False):
+    """``gather_scale`` against its plain version, bit for bit; the plan
+    repeats rows (slot 1 names slot 0's row), as sampling with
+    replacement does."""
+    x = torch.randn((b, n, d), generator=gen, device="cuda",
+                    dtype=torch.float32).to(dtype)
+    idx = torch.randint(0, n, (b, k), generator=gen, device="cuda"
+                        ).to(torch.int32)
+    if k > 1:
+        idx[:, 1] = idx[:, 0]
+    scale = torch.rand((b, k), generator=gen, device="cuda") * 2.0 + 0.25
+    args = (x[0], idx[0], scale[0]) if two_d else (x, idx, scale)
+    got = ops.gather_scale(*args)
+    torch.cuda.synchronize()
+    want = gather_scale_mod.gather_scale_plain(x, idx, scale)
+    # kernel and plain version make the same single f32 multiply and the
+    # same single rounding of every element: equal to the bit (atol 0)
+    case = {
+        "name": "gather_scale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gather_scale.cu",
+        "replaces": "src/repro/kernels/gather_scale.py:43",
+        "shape": {"B": None if two_d else b, "n": n, "d": d, "k": k},
+        "dtype": DTYPE_NAMES[dtype],
+        "max_abs_err": check_close(
+            f"gather_scale B={b} n={n} d={d} k={k} 2d={two_d} {dtype}",
+            got, want[0] if two_d else want, 0.0, 0.0),
+        "tol": {"rtol": 0.0, "atol": 0.0},
+    }
+    if timed:
+        item = x.element_size()
+        nbytes = item * d * (unique_rows(idx) + b * k) + 8 * b * k
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = b * k * d / PEAK_FLOPS[torch.float32]
+        case.update({
+            "ms": time_ms(lambda: ops.gather_scale(x, idx, scale)),
+            "plain_ms": time_ms(lambda: gather_scale_mod.gather_scale_plain(
+                x, idx, scale)),
+            "library_ms": time_ms(lambda: torch.gather(
+                x, 1, idx.to(torch.int64)[:, :, None].expand(b, k, d))),
+            "library": "torch.gather(x, 1, idx.long()[:, :, None]"
+                       ".expand(B, k, d)) (the plain H' gather)",
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        })
+    return case
+
+
+def dw_inputs(b, k, n, d_in, d_out, dtype, gen):
     def rnd(shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
@@ -210,7 +298,48 @@ def fused_case(b, k, n, d_in, d_out, dtype, gen, timed):
     idx = torch.randint(0, n, (b, k), generator=gen, device="cuda"
                         ).to(torch.int32)
     scale = torch.rand((b, k), generator=gen, device="cuda") * 2.0 + 0.25
-    want = fused_sampling.fused_sampled_dw_plain(hsub, dz, idx, scale)
+    return hsub, dz, idx, scale
+
+
+def dw_bound(hsub, dz, idx):
+    """(bound seconds, bound_by) of the sampled weight gradient: the plan's
+    distinct dz rows, H' and idx/scale read once, dW written once, against
+    2*B*k*d_in*d_out flops on the unpadded k."""
+    b, k, d_in = hsub.shape
+    d_out = dz.shape[2]
+    item = hsub.element_size()
+    nbytes = (item * (b * k * d_in + unique_rows(idx) * d_out) + 8 * b * k
+              + 4 * d_in * d_out)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * b * k * d_in * d_out / PEAK_FLOPS[hsub.dtype]
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# The two kernels of the sampled weight gradient: wrapper, plain version,
+# source, the TPU kernel it replaces.
+DW_KERNELS = {
+    "fused_sampled_dw": (ops.fused_sampled_dw,
+                         fused_sampling.fused_sampled_dw_plain,
+                         "src/repro_torch/kernels/csrc/fused_sampled_dw.cu",
+                         "src/repro/kernels/fused_sampling.py:127"),
+    "sampled_matmul": (ops.sampled_matmul,
+                       sampled_matmul_mod.sampled_matmul_plain,
+                       "src/repro_torch/kernels/csrc/sampled_matmul.cu",
+                       "src/repro/kernels/sampled_matmul.py:111"),
+}
+
+
+def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
+    """A sampled weight-gradient kernel of ``DW_KERNELS`` against its plain
+    version (``fused_sampled_dw`` at both pinned tiles too, for bf16/f16;
+    ``sampled_matmul`` picks its own, 128 at the wide main shapes and 64 at
+    2048 x 256); ``two_d`` calls its 2-D form.  Timed: beside its bound,
+    plain version, the library composition, each pinned tile
+    (``fused_sampled_dw``), and (``sampled_matmul``) the fused kernel at
+    the same shape."""
+    kernel, plain, source, replaces = DW_KERNELS[name]
+    hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen)
+    want = plain(hsub, dz, idx, scale)
     # Kernel and plain version round dz*scale to the input dtype by the
     # same f32 multiply, so the factors of every product are bit-identical
     # and each product is exact in f32 (bf16/f16) or rounded alike (f32);
@@ -220,48 +349,155 @@ def fused_case(b, k, n, d_in, d_out, dtype, gen, timed):
     # difference would show, so a dropped slot or a misplaced rounding
     # fails.
     rtol, atol = 1e-4, 1e-4 * math.sqrt(b * k)
-    tiles = (None,) if dtype == torch.float32 else (None, 64, 128)
+    args = (hsub[0], dz[0], idx[0], scale[0]) if two_d \
+        else (hsub, dz, idx, scale)
+    pinned = name == "fused_sampled_dw" and dtype != torch.float32
     max_err = 0.0
-    for tile in tiles:
-        got = ops.fused_sampled_dw(hsub, dz, idx, scale, tile=tile)
+    for tile in (None, 64, 128) if pinned else (None,):
+        got = (kernel(*args, tile=tile) if tile else kernel(*args))
         torch.cuda.synchronize()
         max_err = max(max_err, check_close(
-            f"fused_sampled_dw B={b} k={k} n={n} ({d_in},{d_out}) {dtype} "
+            f"{name} B={b} k={k} n={n} ({d_in},{d_out}) 2d={two_d} {dtype} "
             f"tile={tile}", got, want, rtol, atol))
     case = {
-        "name": "fused_sampled_dw", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_sampled_dw.cu",
-        "replaces": "src/repro/kernels/fused_sampling.py:127",
-        "shape": {"B": b, "k": k, "n": n, "d_in": d_in, "d_out": d_out},
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "shape": {"B": None if two_d else b, "k": k, "n": n, "d_in": d_in,
+                  "d_out": d_out},
         "dtype": DTYPE_NAMES[dtype], "max_abs_err": max_err,
         "tol": {"rtol": rtol, "atol": atol},
     }
     if timed:
-        item = hsub.element_size()
-        # each input read once: only the dz rows this plan names, once each
-        rows = sum(int(torch.unique(idx[i]).numel()) for i in range(b))
-        nbytes = (item * (b * k * d_in + rows * d_out) + 8 * b * k
-                  + 4 * d_in * d_out)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 2 * b * k * d_in * d_out / PEAK_FLOPS[dtype]
+        bound_s, bound_by = dw_bound(hsub, dz, idx)
         case.update({
-            "ms": time_ms(lambda: ops.fused_sampled_dw(hsub, dz, idx,
-                                                       scale)),
-            "plain_ms": time_ms(
-                lambda: fused_sampling.fused_sampled_dw_plain(
-                    hsub, dz, idx, scale)),
+            "ms": time_ms(lambda: kernel(hsub, dz, idx, scale)),
+            "plain_ms": time_ms(lambda: plain(hsub, dz, idx, scale)),
             "library_ms": time_ms(lambda: library_dw(hsub, dz, idx, scale)),
             "library": "torch.gather + scale + torch.einsum('bki,bkj->ij') "
                        "in the input dtype",
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
         })
-        if dtype != torch.float32:
+        if pinned:
             for tile in (64, 128):
                 case[f"ms_tile{tile}"] = time_ms(
-                    lambda: ops.fused_sampled_dw(hsub, dz, idx, scale,
-                                                 tile=tile))
+                    lambda: kernel(hsub, dz, idx, scale, tile=tile))
+        if name == "sampled_matmul":
+            case["fused_sampled_dw_ms"] = time_ms(
+                lambda: ops.fused_sampled_dw(hsub, dz, idx, scale))
     return case
+
+
+def composition_case(gen):
+    """The reference's unfused composition at the train path's widest
+    shape (B=4, n=1024, k=307, 2048 x 11008, bf16): row_norms -> WTA-CRS
+    plan -> gather_scale(H', ones) -> sampled_matmul, against
+    fused_sampled_dw on the same plan; and the benchmark's unfused form
+    (per-sample gather_scale of dZ with the scale, then sampled_matmul on
+    the identity plan).  The launches of this one untimed run are the
+    sampled_matmul count of the summary.  Returns (case, launches)."""
+    dtype, d_in, d_out = torch.bfloat16, 2048, 11008
+    h = torch.randn((B, S, d_in), generator=gen, device="cuda").to(dtype)
+    dz = torch.randn((B, S, d_out), generator=gen, device="cuda").to(dtype)
+    cfg = WTACRSConfig(kind="wta_crs", budget=K / S, min_rows=4)
+    plan_gen = torch.Generator(device="cuda")
+    plan_gen.manual_seed(1)
+    ones = torch.ones((B, K), dtype=torch.float32, device="cuda")
+    eye = torch.arange(K, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+
+    def unfused_bench(hsub, idx, scale):
+        dzg = torch.stack([ops.gather_scale(dz[i], idx[i], scale[i])
+                           for i in range(B)])
+        return ops.sampled_matmul(hsub, dzg, eye, ones)
+
+    reset_launches()
+    norms = ops.row_norms(h.reshape(-1, d_in)).reshape(B, S)
+    plan = plans.build_batched_plans(plans.normalize_weights(norms), K,
+                                     plan_gen, cfg)
+    idx, scale = plan.idx, plan.scale
+    hsub = ops.gather_scale(h, idx, ones)
+    unfused = ops.sampled_matmul(hsub, dz, idx, scale)
+    fused = ops.fused_sampled_dw(hsub, dz, idx, scale)
+    bench = unfused_bench(hsub, idx, scale)
+    torch.cuda.synchronize()
+    launches = expect_launches("composition", {
+        "row_norms": 1, "gather_scale": 1 + B, "sampled_matmul": 2,
+        "fused_sampled_dw": 1})
+    # H' at unit scale is the plain row gather bit for bit
+    rows = torch.gather(h, 1, idx.to(torch.int64)[:, :, None].expand(
+        B, K, d_in))
+    check_close("composition H' vs torch.gather", hsub, rows, 0.0, 0.0)
+    # same factors (dZ*scale rounded once to bf16 on every route), f32 sums
+    # in another order
+    rtol, atol = 1e-4, 1e-4 * math.sqrt(B * K)
+    err = check_close("composition sampled_matmul vs fused_sampled_dw",
+                      unfused, fused, rtol, atol)
+    err_bench = check_close("unfused bench form vs fused_sampled_dw",
+                            bench, fused, rtol, atol)
+    fused_ms = time_ms(lambda: ops.fused_sampled_dw(hsub, dz, idx, scale))
+    unfused_ms = time_ms(lambda: unfused_bench(hsub, idx, scale))
+    return {"name": "composition", "shape": {"B": B, "n": S, "k": K,
+                                             "d_in": d_in, "d_out": d_out},
+            "dtype": "bfloat16", "max_abs_err_vs_fused": err,
+            "max_abs_err_bench_form_vs_fused": err_bench,
+            "tol": {"rtol": rtol, "atol": atol},
+            "fused_ms": fused_ms, "unfused_bench_form_ms": unfused_ms,
+            "fused_vs_unfused": unfused_ms / fused_ms,
+            "reference_floor": 1.2, "launches": launches}, launches
+
+
+# The child of ``bad_index_cases``: one kernel handed a plan index outside
+# [0, n); prints the first line of the error the synchronisation raises.
+BAD_INDEX_CHILD = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import ops
+name = sys.argv[2]
+x = torch.ones((2, 8, 64), dtype=torch.bfloat16, device="cuda")
+hsub = torch.ones((2, 32, 64), dtype=torch.bfloat16, device="cuda")
+idx = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
+idx[1, 5] = 8
+scale = torch.ones((2, 32), device="cuda")
+try:
+    if name == "gather_scale":
+        ops.gather_scale(x, idx, scale)
+    else:
+        getattr(ops, name)(hsub, x, idx, scale)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print(str(err).strip().splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+BAD_INDEX_KERNELS = ("gather_scale", "sampled_matmul", "fused_sampled_dw")
+
+
+def bad_index_cases():
+    """Every kernel that gathers by a plan index, handed one outside
+    [0, n): the launch must end in a device-side assert, raised at the
+    next synchronisation, never in a row of zeros or a read out of range.
+    One child process a kernel, all started together, since the assert
+    ends its process's CUDA context."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", BAD_INDEX_CHILD, src, name],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        for name in BAD_INDEX_KERNELS}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=300)
+            out[name] = (proc.returncode, text.strip())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (code, msg) in out.items():
+        if code != 0 or "device-side assert" not in msg:
+            fail(f"bad index: {name} ended with {msg!r} (exit {code}), "
+                 f"expected a device-side assert")
+    return {name: msg for name, (_, msg) in out.items()}
 
 
 def flash_bound(bh, bkvh, sq, skv, dh, causal, dtype):
@@ -342,31 +578,68 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         for n, d in ROW_NORM_MAIN:
             cases.append(row_norms_case(n, d, dtype, gen, timed=True))
-        for d_in, d_out in FUSED_MAIN:
-            cases.append(fused_case(B, K, S, d_in, d_out, dtype, gen,
-                                    timed=True))
+        for name in DW_KERNELS:
+            for d_in, d_out in FUSED_MAIN:
+                cases.append(dw_case(name, B, K, S, d_in, d_out, dtype, gen,
+                                     timed=True))
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for n, d in ROW_NORM_RAGGED:
             cases.append(row_norms_case(n, d, dtype, gen, timed=False))
         for shape in FUSED_RAGGED:
-            cases.append(fused_case(*shape, dtype, gen, timed=False))
+            cases.append(dw_case("fused_sampled_dw", *shape, dtype, gen,
+                                 timed=False))
     # a view that starts off a 16-byte boundary takes the element-wise path
     flat = torch.randn((64 * 256 + 8,), generator=gen, device="cuda")
     x = flat.to(torch.bfloat16)[1:1 + 64 * 256].reshape(64, 256)
     check_close("row_norms misaligned", ops.row_norms(x),
                 row_norms_mod.row_norms_plain(x), 1e-5, 1e-5)
-    emit({"phase": "kernels", "cases": cases})
-    return cases
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for d in GATHER_MAIN_D:
+            cases.append(gather_scale_case(
+                B, S, d, K, dtype, gen, timed=dtype != torch.float16))
+        for n, d, k in GATHER_RAGGED_2D:
+            cases.append(gather_scale_case(1, n, d, k, dtype, gen,
+                                           timed=False, two_d=True))
+        cases.append(gather_scale_case(*GATHER_RAGGED_BATCHED, dtype, gen,
+                                       timed=False))
+    for dtype in (torch.bfloat16, torch.float32):
+        for k, d_in, d_out, n in SMM_SWEEP_2D:
+            cases.append(dw_case("sampled_matmul", 1, k, n, d_in, d_out,
+                                 dtype, gen, timed=False, two_d=True))
+        for shape in SMM_SWEEP_BATCHED:
+            cases.append(dw_case("sampled_matmul", *shape, dtype, gen,
+                                 timed=False))
+    composition, comp_launches = composition_case(gen)
+    emit({"phase": "kernels", "cases": cases, "composition": composition,
+          "bad_index": bad_index_cases()})
+    return cases, comp_launches
 
 
 # ---------------------------------------------------------------------------
 # model phases
 # ---------------------------------------------------------------------------
 
+KERNEL_NAMES = ("row_norms", "gather_scale", "sampled_matmul",
+                "fused_sampled_dw", "flash_attention_fwd")
+
+
 def reset_launches():
-    ops.row_norms.launches = 0
-    ops.fused_sampled_dw.launches = 0
-    ops.flash_attention_fwd.launches = 0
+    for name in KERNEL_NAMES:
+        getattr(ops, name).launches = 0
+
+
+def launch_counts():
+    return {name: getattr(ops, name).launches for name in KERNEL_NAMES}
+
+
+def expect_launches(what, want):
+    """Fail unless the counts since the last reset are ``want`` (kernels
+    not named there: 0)."""
+    want = {name: want.get(name, 0) for name in KERNEL_NAMES}
+    got = launch_counts()
+    if got != want:
+        fail(f"{what}: kernel launches {got}, expected {want}")
+    return got
 
 
 def phase_parity():
@@ -402,11 +675,8 @@ def phase_parity():
         out[dev] = (float(m["loss"]), float(m["grad_norm"]),
                     [p.detach().cpu() for p in
                      optim.tree_leaves(state["params"])])
-        want = (4 * cfg.n_layers, 7 * cfg.n_layers) if dev == "cuda" \
-            else (0, 0)
-        got = (ops.row_norms.launches, ops.fused_sampled_dw.launches)
-        if got != want:
-            fail(f"parity on {dev}: launches {got}, expected {want}")
+        expect_launches(f"parity on {dev}", launches_per_step(
+            cfg, policy, 64) if dev == "cuda" else {})
     # f32 everywhere; card and CPU differ in summation order only: 1e-4
     rel = [abs(a - b) / max(abs(b), 1e-12)
            for a, b in zip(out["cuda"][:2], out["cpu"][:2])]
@@ -418,6 +688,29 @@ def phase_parity():
     emit({"phase": "parity", "loss": out["cuda"][0],
           "loss_cpu": out["cpu"][0], "rel_loss_gnorm": rel,
           "max_param_diff": perr})
+
+
+# one meta-device trace per configuration, however many steps are counted
+trace_linears = functools.lru_cache(maxsize=None)(znorm.trace_linears)
+
+
+def launches_per_step(cfg, policy, seq, microbatches=1):
+    """Kernel launches one train step implies under a resolved ``policy``,
+    read off the model's own linear calls (``znorm.trace_linears``) split
+    into plans as ``Ctx.linear_shared`` splits them (``cm.plan_groups``): a
+    plan whose tags sample at ``seq`` (``znorm.sampling_active_tags``)
+    launches row_norms and gather_scale once and fused_sampled_dw once per
+    weight; an exact one launches nothing."""
+    rec = trace_linears(cfg)
+    active = znorm.sampling_active_tags(policy, rec.tags, seq_len=seq)
+    out = {"row_norms": 0, "gather_scale": 0, "fused_sampled_dw": 0}
+    for call in rec.calls:
+        for group in cm.plan_groups(policy, call):
+            if group[0] in active:
+                out["row_norms"] += 1
+                out["gather_scale"] += 1
+                out["fused_sampled_dw"] += len(group)
+    return {name: n * microbatches for name, n in out.items()}
 
 
 def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds):
@@ -455,8 +748,7 @@ def phase_train(cfg, ds, n_steps):
     wta = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=4)
     losses, times, peak, changed, n_leaves, n_params = run_steps(
         cfg, wta, n_steps, B, S, ds)
-    launches = {"row_norms": ops.row_norms.launches,
-                "fused_sampled_dw": ops.fused_sampled_dw.launches}
+    launches = launch_counts()
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "n_params": n_params, "batch": B, "seq": S, "budget": 0.3,
           "losses": losses, "step_ms": times,
@@ -466,14 +758,137 @@ def phase_train(cfg, ds, n_steps):
         fail(f"train: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
         fail(f"train: loss did not fall: {losses}")
-    want = {"row_norms": 4 * cfg.n_layers * n_steps,
-            "fused_sampled_dw": 7 * cfg.n_layers * n_steps}
-    if launches != want:
-        fail(f"train: kernel launches {launches}, expected {want}")
+    per_step = launches_per_step(cfg, cm.Policy(wtacrs=wta), S)
+    expect_launches("train", {name: n * n_steps
+                              for name, n in per_step.items()})
     # gamma of the norms and the biases move too: every leaf must change
     if changed != n_leaves:
         fail(f"train: only {changed} of {n_leaves} parameter leaves changed")
     return launches, peak
+
+
+def mlp_policies():
+    """The fixed and adaptive policies of the reference's convergence
+    benchmark: WTA-CRS on the MLP linears with the dataset gradient-norm
+    cache driving the probabilities, exact attention; budget 0.3 fixed, or
+    pinned by an ESS-proportional controller."""
+    rule_cfg = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=2,
+                            norm_source="cached_grad")
+    ctrl = ESSProportional(b_min=0.1, b_max=0.6, levels=6, warmup=2)
+    fixed = cm.Policy(rules=PolicyRules.of(
+        Rule.of("*mlp*", rule_cfg, BudgetSchedule.constant(0.3))))
+    adaptive = cm.Policy(rules=PolicyRules.of(
+        Rule.of("*mlp*", rule_cfg, ctrl)))
+    return fixed, adaptive, ctrl
+
+
+def resolved_policy(policy, step_fn, step):
+    """The policy ``step_fn`` ran ``step`` under: schedules at the step,
+    controller rules pinned to the budgets it decided."""
+    pol = policy.at_step(step)
+    budgets = step_fn.schedule_state.budgets
+    if budgets:
+        pol = pol.with_rule_budgets(
+            tuple(budgets.get(i) for i in range(len(policy.rules.rules))))
+    return pol
+
+
+def run_cached(cfg, policy, n_steps, ds, microbatches=1):
+    """Algorithm 1's whole loop: znorm cache over ``ds``'s sample ids,
+    budget statistics, ``n_steps`` steps of make_scheduled_train_step.
+    Returns what the gates and the report need."""
+    tags = znorm.collect_linear_tags(cfg, policy=policy)
+    state = train_steps.init_train_state(cfg, 0, znorm_tags=tags,
+                                         n_dataset=ds.n_samples,
+                                         budget_stats=True)
+    step = train_steps.make_scheduled_train_step(
+        cfg, policy, optim.AdamWConfig(),
+        optim.linear_warmup_constant(1e-4, 2), use_znorm_cache=True,
+        microbatches=microbatches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    want = {}
+    losses, times, seen, sampled_steps = [], [], set(), {t: 0 for t in tags}
+    for i in range(n_steps):
+        batch = ds.batch_at(i, B)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        seen.update(int(s) for s in batch["sample_ids"])
+        pol = resolved_policy(policy, step, i)
+        for name, n in launches_per_step(cfg, pol, S, microbatches).items():
+            want[name] = want.get(name, 0) + n
+        for t in znorm.sampling_active_tags(pol, tags, seq_len=S):
+            sampled_steps[t] += 1
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_launches(f"{cfg.name} cached loop", want)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"cached loop: non-finite loss in {losses}")
+    ids = sorted(seen)
+    cache = {t: state["znorm"][t].cpu() for t in tags}
+    counts = {t: float(state["budget_stats"][t][znorm.STAT_COUNT])
+              for t in tags}
+    for t in tags:
+        if sampled_steps[t] and not bool((cache[t][:, ids] != 1.0).all()):
+            fail(f"cached loop: cache of {t} not rewritten for every seen "
+                 f"sample")
+        if counts[t] != sampled_steps[t]:
+            fail(f"cached loop: stats of {t} count {counts[t]} updates for "
+                 f"{sampled_steps[t]} sampled steps")
+    out = {"losses": losses, "step_ms": times,
+           "step_ms_median_after_first": statistics.median(times[1:]),
+           "peak_bytes": peak, "launches": launches, "tags": len(tags),
+           "seen_samples": len(ids), "stats_count": counts,
+           "replans": step.replans, "compiled": len(step.compiled),
+           "trajectory": step.budget_trajectory}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_adaptive(cfg, n_steps=10):
+    """The fixed and the adaptive (ESSProportional) policy, 10 steps each
+    through make_scheduled_train_step with the znorm cache, on 8 samples."""
+    ds = data.SyntheticLM(cfg.vocab_size, S, 8, seed=0)
+    fixed_pol, adaptive_pol, ctrl = mlp_policies()
+    fixed = run_cached(cfg, fixed_pol, n_steps, ds)
+    adaptive = run_cached(cfg, adaptive_pol, n_steps, ds)
+    emit({"phase": "adaptive", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "batch": B, "seq": S, "samples": ds.n_samples, "steps": n_steps,
+          "controller": "ESSProportional(b_min=0.1, b_max=0.6, levels=6, "
+                        "warmup=2)",
+          "fixed": fixed, "adaptive": adaptive,
+          "final_loss_fixed": fixed["losses"][-1],
+          "final_loss_adaptive": adaptive["losses"][-1]})
+    for name, run in (("fixed", fixed), ("adaptive", adaptive)):
+        if not run["losses"][-1] < run["losses"][0]:
+            fail(f"adaptive: the {name} run's loss did not fall: "
+                 f"{run['losses']}")
+        if run["compiled"] > run["replans"] + 1:
+            fail(f"adaptive: {run['compiled']} step functions for "
+                 f"{run['replans']} re-plans in the {name} run")
+    for rec in adaptive["trajectory"]:
+        if not ctrl.b_min <= rec["budget"] <= ctrl.b_max:
+            fail(f"adaptive: pinned budget {rec['budget']} outside "
+                 f"[{ctrl.b_min}, {ctrl.b_max}]")
+    return fixed["peak_bytes"]
+
+
+def phase_accumulate(cfg, peak_m1, n_steps=3, microbatches=2):
+    """The fixed cached-grad policy at microbatches=2: one stats update per
+    optimizer step, the cache rewritten for all 4 samples."""
+    ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+    fixed_pol, _, _ = mlp_policies()
+    run = run_cached(cfg, fixed_pol, n_steps, ds, microbatches=microbatches)
+    emit({"phase": "accumulate", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "batch": B, "seq": S, "microbatches": microbatches,
+          "steps": n_steps, "run": run, "peak_bytes": run["peak_bytes"],
+          "peak_bytes_microbatches_1": peak_m1})
+    if run["seen_samples"] != B:
+        fail(f"accumulate: saw {run['seen_samples']} of {B} samples")
 
 
 def phase_memory(cfg, ds, wta_peak):
@@ -488,19 +903,6 @@ def phase_memory(cfg, ds, wta_peak):
 # ---------------------------------------------------------------------------
 # serving phases
 # ---------------------------------------------------------------------------
-
-def launch_counts():
-    return {"row_norms": ops.row_norms.launches,
-            "fused_sampled_dw": ops.fused_sampled_dw.launches,
-            "flash_attention_fwd": ops.flash_attention_fwd.launches}
-
-
-def expect_launches(what, want):
-    got = launch_counts()
-    if got != want:
-        fail(f"{what}: kernel launches {got}, expected {want}")
-    return got
-
 
 def device_busy(fn, n):
     """``n`` calls of ``fn`` under torch.profiler: host wall time a call
@@ -828,8 +1230,8 @@ def main() -> int:
               "cuda": torch.version.cuda,
               "device_name": torch.cuda.get_device_name(0),
               "capability": list(torch.cuda.get_device_capability(0))})
-    if set(phases) & {"build", "kernels", "train", "serve_parity",
-                      "prefill"}:
+    if set(phases) & {"build", "kernels", "parity", "train", "adaptive",
+                      "accumulate", "serve_parity", "prefill"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -839,22 +1241,30 @@ def main() -> int:
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
 
-    cases = phase_kernels() if "kernels" in phases else []
+    cases, launches = [], {}
+    if "kernels" in phases:
+        cases, comp_launches = phase_kernels()
+        launches["sampled_matmul"] = comp_launches["sampled_matmul"]
     if "parity" in phases:
         phase_parity()
 
-    launches = {}
-    if "train" in phases or "memory" in phases:
+    if set(phases) & {"train", "memory", "adaptive", "accumulate"}:
         cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
         # as many samples as the batch holds: every step sees the same
         # sequences, so a falling loss is the optimizer's doing and not
         # the luck of the next batch
         ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
-        wta_peak = None
+        wta_peak = peak_m1 = None
         if "train" in phases:
-            launches, wta_peak = phase_train(cfg, ds, n_steps=6)
+            train_launches, wta_peak = phase_train(cfg, ds, n_steps=6)
+            for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
+                launches[name] = train_launches[name]
         if "memory" in phases:
             phase_memory(cfg, ds, wta_peak)
+        if "adaptive" in phases:
+            peak_m1 = phase_adaptive(cfg)
+        if "accumulate" in phases:
+            phase_accumulate(cfg, peak_m1)
         del ds
         torch.cuda.empty_cache()
 
@@ -878,8 +1288,9 @@ def main() -> int:
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
         # main paths' shapes in bf16, with the launches the train phase
-        # (row_norms, fused_sampled_dw) and the prefill phase
-        # (flash_attention_fwd) counted
+        # (row_norms, gather_scale, fused_sampled_dw), the composition
+        # (sampled_matmul) and the prefill phase (flash_attention_fwd)
+        # counted
         summary = []
         for c in cases:
             if ("ms" in c and c["dtype"] == "bfloat16"

@@ -55,6 +55,25 @@ def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
     return params
 
 
+def cache_from_jax(numpy_state: Dict[str, Any], device="cuda"
+                   ) -> Dict[str, Any]:
+    """The reference train state's ``znorm`` cache and ``budget_stats``
+    (numpy leaves, ``{tag: (n_repeats, N)}`` and ``{tag: (N_STATS,)}``) ->
+    the same entries of the port's state, f32 on ``device``.  Entries the
+    reference state does not hold are left out, so
+    ``state.update(cache_from_jax(...))`` starts both packages' whole loop
+    from the same state (``ScheduleState`` crosses as its
+    JSON)."""
+    device = resolve_device(device)
+    out = {}
+    for name in ("znorm", "budget_stats"):
+        if name in numpy_state:
+            out[name] = {t: torch.from_numpy(np.array(a, dtype=np.float32)
+                                             ).to(device)
+                         for t, a in numpy_state[name].items()}
+    return out
+
+
 def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
                     ) -> Dict[str, Any]:
     """The port's parameters -> the reference's layout (f32 numpy leaves,

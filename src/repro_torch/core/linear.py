@@ -30,12 +30,14 @@ gives the same plan (also on a recomputed forward) and different keys
 give independent plans.  Tests may inject a ready ``plan=(idx, scale)``
 instead, e.g. one built by the JAX reference.
 
-On a CUDA tensor the row norms of the forward and the dW of the backward
-go through the hand-written kernels (``repro_torch.kernels.ops``); the
-large exact products stay ``torch.matmul``.
+On a CUDA tensor the row norms and the H' gather of the forward and the
+dW of the backward go through the hand-written kernels
+(``repro_torch.kernels.ops``); the large exact products stay
+``torch.matmul``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -61,12 +63,19 @@ def _make_plans(h, znorm, gen, cfg: WTACRSConfig, k: int) -> Plan:
     return plan.idx, plan.scale
 
 
+@functools.lru_cache(maxsize=32)
+def _unit_scale(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """One read-only f32 tensor of ones per plan shape and device, so a
+    step's H' gathers allocate and fill no scale of their own."""
+    return torch.ones(shape, dtype=torch.float32, device=device)
+
+
 def _rowgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, S, D)[B, k] -> (B, k, D); the index is expanded as a view, no
-    (B, k, D) index tensor is materialised."""
-    b, k = idx.shape
-    rows = idx.to(torch.int64)[:, :, None].expand(b, k, x.shape[-1])
-    return torch.gather(x, 1, rows)
+    """(B, S, D)[B, k] -> (B, k, D): H' through the ``gather_scale``
+    kernel at unit scale (x * 1.0f in f32 rounds back exactly, so H' is
+    the plain row gather bit for bit)."""
+    return kernel_ops.gather_scale(x.contiguous(), idx,
+                                   _unit_scale(tuple(idx.shape), x.device))
 
 
 def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):

@@ -107,12 +107,12 @@ class Rule:
     applied on top (use :meth:`Rule.of` to pass a dict).  ``schedule``:
     optional BudgetSchedule replacing the config's static budget.
     ``controller``: optional adaptive budget controller
-    (duck-typed: ``propose`` / ``initial_budget``) replacing the budget
-    with a statistics-driven one — mutually exclusive with ``schedule``.
-    A controller needs a training loop that feeds it znorm statistics and pins
-    the decided budget (the scheduled train step; not part of this
-    package yet); undriven, the rule resolves to the controller's
-    initial budget.
+    (``repro_torch.core.controller.BudgetController``) replacing the
+    budget with a statistics-driven one — mutually exclusive with
+    ``schedule``.  A controller needs a loop that feeds it znorm
+    statistics and pins the decided budget
+    (``launch.train_steps.make_scheduled_train_step``); undriven, the
+    rule resolves to the controller's initial budget.
     """
 
     pattern: str

@@ -1,6 +1,6 @@
 // Shared device helpers for the repro_torch kernels: dtype codes, f32
-// conversion with a single rounding, and the predicated 16-byte chunk load
-// every tile loader is built from.
+// conversion with a single rounding, the row-index check, and the
+// predicated 16-byte chunk load every tile loader is built from.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,7 +8,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cassert>
+
+// The row-index check below is part of the kernels' contract, not a debug
+// aid, so the build must keep assert() alive.
+#ifdef NDEBUG
+#error "the repro_torch kernels check plan indices with assert(); build without NDEBUG"
+#endif
+
 namespace repro {
+
+// A plan's index must name a row of the operand it gathers from.  One
+// outside [0, n) stops the kernel with a device-side assert, so the next
+// synchronisation raises "device-side assert triggered" (as torch's own
+// CUDA gather does); the plain versions on the CPU raise from torch.gather
+// on the same input.  A bad plan is reported on both devices, never turned
+// into a row of zeros.
+__device__ __forceinline__ void assert_row(int r, int n) {
+  assert((unsigned)r < (unsigned)n && "plan index outside [0, n)");
+}
+
+// assert_row on each of `count` plan indices once, spread over all threads
+// of a 2-D grid of 1-D blocks.  For the dW kernels, whose every block
+// reads every index: an assert inside their unrolled tile loader made them
+// 8-14 % slower at the wide projections on an H100; here it runs once per
+// index, in the prologue.
+__device__ __forceinline__ void assert_rows(const int* __restrict__ idx,
+                                            long long count, int n) {
+  const long long threads = (long long)gridDim.x * gridDim.y * blockDim.x;
+  const long long first =
+      ((long long)blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x +
+      threadIdx.x;
+  for (long long i = first; i < count; i += threads) {
+    assert_row(__ldg(idx + i), n);
+  }
+}
 
 // dtype codes of the C interface (kept in step with kernels/_build.py).
 enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };

@@ -20,9 +20,12 @@
 // multiplied, which overlaps the gather with the math without a second
 // shared-memory buffer.
 //
-// Ragged everything: the k tail, the d_in/d_out edges and out-of-range idx
-// are predicates that put ZEROS into shared memory (a select, never
-// 0 * garbage), so the caller pads nothing and no divisor constraint exists.
+// Ragged everything: the k tail and the d_in/d_out edges are predicates
+// that put ZEROS into shared memory (a select, never 0 * garbage), so the
+// caller pads nothing and no divisor constraint exists.  An idx outside
+// [0, n) is read as a zero row too, and the prologue's check of every
+// index (common.cuh: assert_rows) stops the kernel with a device-side
+// assert, so such a launch reports an error and returns no result.
 //
 // Bound on an H100 (bf16): the larger of 2*B*k*d_in*d_out flops against
 // 989 TFLOP/s and 2*(B*k*d_in + B*k*d_out) + 4*d_in*d_out bytes against
@@ -88,8 +91,7 @@ struct TileLoader {
       float s = 0.f;
       if (valid) {
         r = __ldg(idx + (long long)b * k + ks);
-        // an index outside [0, n) contributes nothing instead of reading
-        // outside dz
+        // keeps the read inside dz; assert_rows reports the index
         valid = (unsigned)r < (unsigned)n;
         if (valid) s = __ldg(scale + (long long)b * k + ks);
       }
@@ -159,6 +161,7 @@ fused_dw_mma_kernel(const T* __restrict__ hsub, const T* __restrict__ dz,
   const int wn = warp % WARPS_N;
   const int i0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BN;
+  assert_rows(idx, (long long)nb * k, n);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
@@ -247,6 +250,7 @@ fused_dw_f32_kernel(const float* __restrict__ hsub,
   const int ty = threadIdx.x >> 4;
   const int i0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BN;
+  assert_rows(idx, (long long)nb * k, n);
 
   float acc[4][4];
 #pragma unroll

@@ -51,7 +51,9 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
 
     ``tile`` pins the bf16/f16 output tile (64 or 128); ``None`` lets the
     kernel choose from the shape.  A CUDA tensor launches the kernel (or
-    raises); only tensors that lie on the CPU take the plain version.
+    raises); only tensors that lie on the CPU take the plain version.  An
+    index outside [0, n) raises: on the CPU at once, on the card as a
+    device-side assert at the next synchronisation.
     """
     if hsub.ndim != 3 or dz.ndim != 3:
         raise ValueError(f"fused_sampled_dw wants hsub (B, k, d_in) and dz "

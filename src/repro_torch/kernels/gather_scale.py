@@ -1,0 +1,85 @@
+"""The row gather that builds H' — the CUDA kernel's wrapper, its plain
+PyTorch version and its launch counter.
+
+    out[b, t, :] = (x[b, idx[b, t], :] in f32 * scale[b, t]) rounded once
+                   to x.dtype
+
+Replaces the TPU kernel ``repro/kernels/gather_scale.py::gather_scale``
+(and the ``block_d`` column padding ``repro/kernels/ops.py`` wrapped
+around it).  The kernel is ``csrc/gather_scale.cu``: one warp per output
+row, 16-byte loads and stores, an element-wise loop where a ragged ``d``
+breaks the alignment.  On an H100 it is bound by bytes — the distinct
+source rows read once and the ``B*k`` output rows written once
+(``2*B*k*d*itemsize + 8*B*k`` at most) against 3.35 TB/s.
+
+This is the forward half of WTA-CRS: every sampled linear builds its
+stored H' through it with unit scale (``core/linear.py``), which is
+bit-for-bit the plain row gather since ``x * 1.0f`` rounds back exactly.
+Plans sample with replacement, so ``idx`` may repeat rows.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def gather_scale_plain(x: torch.Tensor, idx: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in tensor ops on the batched form: gather,
+    scale in f32, round once to ``x.dtype``."""
+    b, k = idx.shape
+    rows = idx.to(torch.int64)[:, :, None].expand(b, k, x.shape[2])
+    sub = torch.gather(x, 1, rows)
+    return (sub.to(torch.float32) * scale[:, :, None]).to(x.dtype)
+
+
+def gather_scale(x: torch.Tensor, idx: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """x (n, d), idx (k,), scale (k,) -> (k, d); or the batched form
+    x (B, n, d), idx (B, k), scale (B, k) -> (B, k, d).  ``x`` is
+    f32/bf16/f16, ``idx`` int32 rows of ``x``, ``scale`` f32; the result
+    has ``x``'s dtype.
+
+    A CUDA tensor launches the kernel (or raises); only tensors that lie
+    on the CPU take the plain version.  An index outside [0, n) raises: on
+    the CPU at once, on the card as a device-side assert at the next
+    synchronisation.
+    """
+    if x.ndim not in (2, 3) or idx.ndim != x.ndim - 1:
+        raise ValueError(f"gather_scale wants x (n, d) with idx (k,) or x "
+                         f"(B, n, d) with idx (B, k), got {tuple(x.shape)} / "
+                         f"{tuple(idx.shape)}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"gather_scale takes float32/bfloat16/float16, "
+                        f"got {x.dtype}")
+    single = x.ndim == 2
+    x3, idx2, scale2 = (x[None], idx[None], scale[None]) if single \
+        else (x, idx, scale)
+    b, n, d = x3.shape
+    k = idx2.shape[1]
+    if min(b, n, d, k) < 1:
+        raise ValueError("gather_scale wants non-empty operands")
+    dev = x.device
+    _build.check_operand("x", x3)
+    _build.check_operand("idx", idx2, dtype=torch.int32, shape=(b, k),
+                         device=dev)
+    _build.check_operand("scale", scale2, dtype=torch.float32, shape=(b, k),
+                         device=dev)
+    if dev.type == "cpu":
+        out = gather_scale_plain(x3, idx2, scale2)
+        return out[0] if single else out
+    if not x.is_cuda:
+        raise ValueError(f"gather_scale runs on cuda or cpu, not {dev}")
+    out = torch.empty((b, k, d), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library().repro_gather_scale(
+            x3.data_ptr(), idx2.data_ptr(), scale2.data_ptr(), out.data_ptr(),
+            b, n, k, d, _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "gather_scale")
+    gather_scale.launches += 1
+    return out[0] if single else out
+
+
+gather_scale.launches = 0

@@ -2,8 +2,11 @@
 
 ``make_train_step`` returns a ``(state, batch) -> (state, metrics)``
 function.  There is no jit: the step runs eagerly, the layer stack is a
-Python loop, and the optimizer updates the state in place (see
-``train/optim.py``), so the returned state is the caller's own object.
+Python loop, and the optimizer updates the parameters in place (see
+``train/optim.py``); the znorm cache and budget statistics come back as
+new tensors in the same state dict, which is the caller's own object.
+``make_scheduled_train_step`` drives budget schedules and adaptive
+budget controllers on top of it (Algorithm 1's whole loop).
 
 The serve and prefill step makers below return eager functions with the
 reference's signatures.  Each step enters ``torch.no_grad()`` itself
@@ -12,33 +15,50 @@ and decode steps write the new token's K/V into the caches in place.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import controller as controller_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import registry
-from repro_torch.train import optim
+from repro_torch.train import optim, znorm
 
-_LATER = "{what} is not ported yet (znorm cache, budget statistics, " \
-         "scheduled step and microbatches are next in ROADMAP.md)"
+_NO_OPTIM_SPEC = ("only the legacy AdamWConfig is ported; optimizer-state "
+                  "layouts (OptimSpec) and their rank dynamics are not "
+                  "ported yet")
 
 
-def init_train_state(cfg: ArchConfig, seed: int, device="cuda"
-                     ) -> Dict[str, Any]:
+def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
+                     n_dataset: int = 0, budget_stats: bool = False,
+                     device="cuda") -> Dict[str, Any]:
     """Parameters from ``seed`` on ``device``, zeroed f32 AdamW moments,
-    step 0 and the base seed every step's sampling seed derives from."""
+    step 0 and the base seed every step's sampling seed derives from.
+
+    ``znorm_tags`` (from ``znorm.collect_linear_tags``): also carry the
+    dataset gradient-norm cache over ``n_dataset`` samples; with
+    ``budget_stats`` the per-tag controller statistics too (only useful —
+    and only paid for — when the policy carries adaptive budget
+    controllers; see ``repro_torch.core.controller``)."""
     device = resolve_device(device)
     params = registry.init_params(cfg, seed, device=device)
-    return {
+    state = {
         "params": params,
         "opt": optim.adamw_init(params),
         "step": 0,
         "base_seed": cm.fold_seed(int(seed), 7),
     }
+    if znorm_tags:
+        state["znorm"] = znorm.init_cache(cfg, znorm_tags, n_dataset,
+                                          device=device)
+        if budget_stats:
+            state["budget_stats"] = znorm.init_stats(znorm_tags,
+                                                     device=device)
+    return state
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -66,47 +86,355 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy,
                     device="cuda"):
     """(state, batch) -> (state, metrics).  Paper-faithful WTA-CRS step.
 
-    ``batch`` holds ``tokens`` / ``labels`` as numpy arrays or tensors
-    (moved to ``device``); ``metrics`` holds 0-dim tensors ``loss`` and
-    ``grad_norm`` (no host sync is forced here) and the float ``lr``.
-    Sampling seeds derive from ``(state["base_seed"], state["step"])``,
-    so a step is reproducible and steps are independent.
+    ``batch`` holds ``tokens`` / ``labels`` (and ``sample_ids``) as numpy
+    arrays or tensors (moved to ``device``); ``metrics`` holds 0-dim
+    tensors ``loss`` and ``grad_norm`` (no host sync is forced here) and
+    the float ``lr``.  Sampling seeds derive from
+    ``(state["base_seed"], state["step"])``, so a step is reproducible and
+    steps are independent.
+
+    With ``use_znorm_cache`` the batch must carry ``sample_ids`` and the
+    state a ``znorm`` cache; gradient-norm taps refresh it every step
+    (Algorithm 1), and ``budget_stats``, where the state has them, take
+    one update a step.  Configure the sampled layers with
+    ``norm_source=NormSource.CACHED_GRAD`` so the cache drives the
+    probabilities (ACTIVATION_ONLY ignores it but still warms it).
+    ``microbatches`` > 1 accumulates the gradients in f32 over that many
+    equal slices of the batch (activation memory for 4 bytes a
+    parameter), each with its own seed ``fold_seed(step seed, i)``; with
+    the cache each slice gathers and scatters its own sample ids, and the
+    statistics still take ONE update per optimizer step, over the whole
+    batch's taps.
+
+    This builder runs ONE policy resolution (``policy.step`` as given);
+    ``make_scheduled_train_step`` re-resolves schedules and controllers
+    per step.
     """
     device = resolve_device(device)
-    if use_znorm_cache:
-        raise NotImplementedError(_LATER.format(what="use_znorm_cache=True"))
-    if microbatches != 1:
-        raise NotImplementedError(_LATER.format(what="microbatches > 1"))
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if not isinstance(opt_cfg, optim.AdamWConfig):
-        raise NotImplementedError(
-            "only the legacy AdamWConfig is ported; optimizer-state "
-            "layouts (OptimSpec) are not ported yet")
+        raise NotImplementedError(_NO_OPTIM_SPEC)
     _no_tf32()
+
+    def grads_of(params, leaves, zn, batch, key):
+        """Loss, parameter gradients and (with a cache) the tap of every
+        cache tag — zeros for a tag whose linear took no znorm."""
+        zn_leaves = []
+        if zn is not None:
+            zn = {t: z.detach().requires_grad_(True) for t, z in zn.items()}
+            zn_leaves = list(zn.values())
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
+                                       znorms=zn)
+            grads = torch.autograd.grad(loss, leaves + zn_leaves,
+                                        allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, leaves + zn_leaves)]
+        taps = (None if zn is None else
+                dict(zip(zn, grads[len(leaves):])))
+        return loss.detach(), grads[:len(leaves)], taps
 
     def train_step(state, batch):
         params = state["params"]
         step = int(state["step"])
         key = cm.fold_seed(state["base_seed"], step)
         model_batch = _to_device(batch, device)
-
         leaves = optim.tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss, _ = registry.loss_fn(cfg, params, model_batch, policy,
-                                       key=key)
-            flat_g = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
+        cache = state.get("znorm") if use_znorm_cache else None
+        if use_znorm_cache:
+            if cache is None or "sample_ids" not in batch:
+                raise ValueError(
+                    "use_znorm_cache=True needs a state with a 'znorm' "
+                    "cache (init_train_state(znorm_tags=...)) and a batch "
+                    "with 'sample_ids'")
+            ids = _tokens(batch["sample_ids"], device)
+            active = znorm.sampling_active_tags(
+                policy, cache, seq_len=model_batch["tokens"].shape[-1])
+
+        if microbatches == 1:
+            zn = znorm.gather(cache, ids) if use_znorm_cache else None
+            loss, grads, taps = grads_of(params, leaves, zn, model_batch,
+                                         key)
+            if use_znorm_cache:
+                cache = znorm.scatter(cache, ids, taps, active_tags=active)
+        else:
+            b = model_batch["tokens"].shape[0]
+            if b % microbatches:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches")
+            mb = b // microbatches
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            tap_parts = []
+            for i in range(microbatches):
+                rows = slice(i * mb, (i + 1) * mb)
+                mb_batch = {n: x[rows] for n, x in model_batch.items()}
+                zn = (znorm.gather(cache, ids[rows]) if use_znorm_cache
+                      else None)
+                loss_i, g_i, taps_i = grads_of(
+                    params, leaves, zn, mb_batch, cm.fold_seed(key, i))
+                for acc, g in zip(grads, g_i):
+                    acc.add_(g.to(torch.float32) / microbatches)
+                del g_i
+                loss = loss + loss_i / microbatches
+                if use_znorm_cache:
+                    # each microbatch gathers its own columns and scatters
+                    # its own tap; sample ids within a batch are disjoint,
+                    # so this equals gathering everything up front
+                    cache = znorm.scatter(cache, ids[rows], taps_i,
+                                          active_tags=active)
+                    tap_parts.append(taps_i)
+            if use_znorm_cache:
+                taps = {t: torch.cat([p[t] for p in tap_parts], dim=1)
+                        for t in tap_parts[0]}
 
         lr = schedule(step)
-        _, _, om = optim.adamw_update(list(flat_g), state["opt"], leaves,
-                                      lr, opt_cfg)
+        _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
+                                      opt_cfg)
         state["step"] = step + 1
-        return state, {"loss": loss.detach(), "lr": lr, **om}
+        if use_znorm_cache:
+            state["znorm"] = cache
+            if "budget_stats" in state:
+                # ONE update per optimizer step over the whole batch's taps
+                # (the stat atoms are normalized, so the per-microbatch
+                # loss normalization cancels)
+                budgets = {t: policy.config_for(t).budget
+                           for t in state["budget_stats"]}
+                state["budget_stats"] = znorm.update_stats(
+                    state["budget_stats"], taps, budgets, active_tags=active)
+        return state, {"loss": loss, "lr": lr, **om}
 
     return train_step
+
+
+@dataclasses.dataclass
+class ScheduleState:
+    """Host-side, checkpointable state of the scheduled train step.
+
+    Everything the scheduled step accumulates across steps lives here — the
+    controller-pinned budget per rule (the hysteresis band position),
+    the re-plan counter, and the budget trajectory log — so a run
+    restored through :func:`make_scheduled_train_step`'s
+    ``schedule_state`` argument continues its budget trajectory exactly
+    where it stopped.  ``to_json``/``from_json`` round-trip the
+    reference's record (version 2; ``ranks``/``rank_trajectory`` stay
+    empty here, as optimizer-state layouts are not ported).
+    """
+
+    VERSION = 2
+
+    budgets: Dict[int, float] = dataclasses.field(default_factory=dict)
+    replans: int = 0
+    trajectory: List[dict] = dataclasses.field(default_factory=list)
+    ranks: Dict[int, int] = dataclasses.field(default_factory=dict)
+    rank_trajectory: List[dict] = dataclasses.field(default_factory=list)
+
+    def to_json(self) -> dict:
+        return {"version": self.VERSION,
+                "budgets": {str(i): float(b)
+                            for i, b in self.budgets.items()},
+                "replans": int(self.replans),
+                "trajectory": [dict(r) for r in self.trajectory],
+                "ranks": {str(i): int(r)
+                          for i, r in self.ranks.items()},
+                "rank_trajectory": [dict(r)
+                                    for r in self.rank_trajectory]}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ScheduleState":
+        v = d.get("version")
+        if v not in (1, cls.VERSION):
+            raise ValueError(
+                f"schedule-state record version {v!r} is not "
+                f"{cls.VERSION}; this checkpoint was written by an "
+                f"incompatible scheduled step")
+        return cls(budgets={int(i): float(b)
+                            for i, b in d["budgets"].items()},
+                   replans=int(d["replans"]),
+                   trajectory=[dict(r) for r in d["trajectory"]],
+                   ranks={int(i): int(r)
+                          for i, r in d.get("ranks", {}).items()},
+                   rank_trajectory=[dict(r) for r
+                                    in d.get("rank_trajectory", [])])
+
+
+class ScheduledStepFn:
+    """(state, batch) -> (state, metrics) with budget schedules AND
+    adaptive budget controllers resolved against the live step counter.
+
+    Budgets fix the plan shapes, so the policy is re-resolved at the step
+    read from ``state["step"]`` and one step function is kept per
+    resolved schedule signature (eagerly, a new signature costs only new
+    plan shapes; the cache keeps the reference's bookkeeping).
+    Controller-carrying rules additionally read the per-tag statistics
+    the cached step accumulates in ``state["budget_stats"]`` — ONE host
+    read a step for all tags — and a decision is pinned into the policy
+    via ``with_rule_budgets``; re-planning happens exactly when a
+    controller crosses its hysteresis band.
+
+    All cross-step state lives in ``self.schedule_state`` (a
+    :class:`ScheduleState`).  Introspection:
+
+      * ``step_fn.compiled``           — signature -> step function
+      * ``step_fn.replans``            — controller-driven budget changes
+      * ``step_fn.budget_trajectory``  — [{step, rule, budget, prev}, ...]
+        (initial pins carry ``prev=None``, are logged on the first
+        invocation at whatever step that is, and do not count as
+        re-plans)
+      * ``step_fn.owned_tags``         — controller rule -> the stat tags
+        it governs under first-match-wins
+    """
+
+    def __init__(self, cfg: ArchConfig, policy: cm.Policy, opt_cfg,
+                 schedule: Callable[[int], float],
+                 schedule_state: Optional[ScheduleState] = None,
+                 device="cuda", **train_step_kwargs):
+        if not isinstance(opt_cfg, optim.AdamWConfig):
+            raise NotImplementedError(_NO_OPTIM_SPEC)
+        self._cfg = cfg
+        self._policy = policy
+        self._opt_cfg = opt_cfg
+        self._schedule = schedule
+        self._device = resolve_device(device)
+        self._train_step_kwargs = train_step_kwargs
+        self.compiled: Dict[tuple, Callable] = {}
+
+        rules = policy.rules.rules if policy.rules is not None else ()
+        self._rules = rules
+        self._ctrl_idx = (policy.rules.controller_rule_indices()
+                          if policy.rules is not None else ())
+        # same default-first base config as PolicyRules.resolve/signature
+        base_cfg = (policy.rules.default
+                    if policy.rules is not None
+                    and policy.rules.default is not None else policy.wtacrs)
+        self.schedule_state = (schedule_state if schedule_state is not None
+                               else ScheduleState())
+        if not self.schedule_state.budgets:
+            self.schedule_state.budgets = {
+                i: rules[i].controller.initial_budget(
+                    rules[i].static_budget(base_cfg))
+                for i in self._ctrl_idx}
+        elif set(self.schedule_state.budgets) != set(self._ctrl_idx):
+            raise ValueError(
+                f"restored schedule state pins budgets for controller "
+                f"rules {sorted(self.schedule_state.budgets)} but the "
+                f"policy's controller rules are "
+                f"{sorted(self._ctrl_idx)}; the policy changed between "
+                f"save and restore")
+        if self.schedule_state.ranks:
+            raise ValueError("restored schedule state pins optimizer ranks; "
+                             + _NO_OPTIM_SPEC)
+        self._stats_needed = any(
+            getattr(rules[i].controller, "needs_stats", True)
+            for i in self._ctrl_idx)
+        if self._stats_needed and not train_step_kwargs.get(
+                "use_znorm_cache"):
+            # without the cache the tap never refreshes budget_stats:
+            # every count stays 0, controllers hold forever, and the
+            # "adaptive" run silently trains at its initial budget
+            raise ValueError(
+                "policy has stats-driven budget-controller rules; pass "
+                "use_znorm_cache=True (and init the state with "
+                "znorm_tags and budget_stats=True) so the tap "
+                "statistics they feed on actually update")
+        # tags GOVERNED by each controller rule under first-match-wins;
+        # stat keys are fixed per state structure, so resolve once
+        self.owned_tags: Dict[int, list] = {}
+
+    @property
+    def replans(self) -> int:
+        return self.schedule_state.replans
+
+    @property
+    def budget_trajectory(self) -> List[dict]:
+        return self.schedule_state.trajectory
+
+    def _owned(self, stats_keys):
+        if not self.owned_tags:
+            self.owned_tags.update({i: [] for i in self._ctrl_idx})
+            for t in stats_keys:
+                for i, r in enumerate(self._rules):
+                    if r.matches(t):
+                        if i in self.owned_tags:
+                            self.owned_tags[i].append(t)
+                        break
+        return self.owned_tags
+
+    def __call__(self, state, batch):
+        step = int(state["step"])
+        st = self.schedule_state
+        rule_budgets = None
+        if self._ctrl_idx:
+            if self._stats_needed and "budget_stats" not in state:
+                raise ValueError(
+                    "policy has stats-driven budget-controller rules "
+                    "but the train state carries no 'budget_stats'; "
+                    "init the state with znorm_tags and "
+                    "budget_stats=True (the controllers feed on the "
+                    "znorm cache's tap statistics) and pass "
+                    "use_znorm_cache=True")
+            stats_host = {}
+            names = list(state.get("budget_stats", {}))
+            if names:
+                # one device-to-host read for every tag's vector
+                vecs = torch.stack([state["budget_stats"][t]
+                                    for t in names]).cpu().numpy()
+                stats_host = dict(zip(names, vecs))
+            owned = self._owned(list(stats_host))
+            for i in self._ctrl_idx:
+                r = self._rules[i]
+                agg = controller_lib.TagStats.aggregate(stats_host,
+                                                        tags=owned[i])
+                nb = float(r.controller.propose(agg, st.budgets[i], step))
+                if not any(rec["rule"] == i for rec in st.trajectory):
+                    # initial pin, logged on the FIRST invocation
+                    st.trajectory.append(
+                        {"step": step, "rule": i, "pattern": r.pattern,
+                         "budget": st.budgets[i], "prev": None})
+                if nb != st.budgets[i]:
+                    st.replans += 1
+                    st.trajectory.append(
+                        {"step": step, "rule": i, "pattern": r.pattern,
+                         "budget": nb, "prev": st.budgets[i]})
+                    st.budgets[i] = nb
+            rule_budgets = tuple(st.budgets.get(i)
+                                 for i in range(len(self._rules)))
+        pol = self._policy.at_step(step)
+        if rule_budgets is not None:
+            pol = pol.with_rule_budgets(rule_budgets)
+        sig = pol.schedule_signature()
+        fn = self.compiled.get(sig)
+        if fn is None:
+            fn = make_train_step(self._cfg, pol, self._opt_cfg,
+                                 self._schedule, device=self._device,
+                                 **self._train_step_kwargs)
+            self.compiled[sig] = fn
+        return fn(state, batch)
+
+
+def make_scheduled_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
+                              schedule: Callable[[int], float],
+                              schedule_state: Optional[ScheduleState] = None,
+                              device="cuda",
+                              **train_step_kwargs) -> ScheduledStepFn:
+    """Build a :class:`ScheduledStepFn` (see its docstring).
+
+    ``schedule_state``: a restored :class:`ScheduleState` (e.g.
+    ``ScheduleState.from_json`` of the reference's record) to resume a
+    controller-carrying run; ``None`` starts fresh at every controller's
+    initial budget.  ``train_step_kwargs`` go to ``make_train_step``
+    (``use_znorm_cache``, ``microbatches``).
+    """
+    return ScheduledStepFn(cfg, policy, opt_cfg, schedule,
+                           schedule_state=schedule_state, device=device,
+                           **train_step_kwargs)
 
 
 # ---------------------------------------------------------------------------

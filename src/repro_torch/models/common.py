@@ -178,12 +178,15 @@ SAMPLED_DIM_ROWS = "rows"     # one plan over all (flattened) rows
 class tag_recorder:
     """Records every ``Ctx.linear`` tag of the contexts it is handed to,
     in call order; ``.dims`` maps each recorded tag to its sampled
-    dimension (SAMPLED_DIM_*).  Pass the recorder as ``Ctx(recorder=...)``
-    — there is no module-level sink."""
+    dimension (SAMPLED_DIM_*), and ``.calls`` holds the tags of every
+    ``Ctx.linear`` / ``Ctx.linear_shared`` call, one tuple a call, repeats
+    included.  Pass the recorder as ``Ctx(recorder=...)`` — there is no
+    module-level sink."""
 
     def __init__(self):
         self.tags: list = []
         self.dims: Dict[str, str] = {}
+        self.calls: list = []
 
     def record(self, tag: str, sampled_dim: str) -> None:
         if tag not in self.tags:
@@ -218,10 +221,12 @@ class Ctx:
             return None
         return fold_seed(self.key, _tag_seed(tag))
 
-    def _record_tag(self, tag: str, h) -> None:
+    def _record_call(self, tags, h) -> None:
         if self.recorder is not None:
-            self.recorder.record(tag, SAMPLED_DIM_TOKEN if h.ndim >= 3
-                                 else SAMPLED_DIM_ROWS)
+            for tag in tags:
+                self.recorder.record(tag, SAMPLED_DIM_TOKEN if h.ndim >= 3
+                                     else SAMPLED_DIM_ROWS)
+            self.recorder.calls.append(tuple(tags))
 
     def _znorm_for(self, tag: str, h):
         if self.znorms is None or tag not in self.znorms:
@@ -242,7 +247,7 @@ class Ctx:
         """Estimator linear.  The estimator config is resolved per
         fully-prefixed tag through ``Policy.config_for``."""
         tag = self.tag_prefix + tag
-        self._record_tag(tag, h)
+        self._record_call((tag,), h)
         cfg = self.policy.config_for(tag)
         return wtacrs_linear(h, self._cast(w), key=self._key_for(tag),
                              znorm=self._znorm_for(tag, h), cfg=cfg,
@@ -258,19 +263,14 @@ class Ctx:
         shared keys fold the PREFIXED tags, so plans never correlate
         across blocks."""
         full_tags = [self.tag_prefix + t for t in tags]
-        for tag in full_tags:
-            self._record_tag(tag, h)
+        self._record_call(full_tags, h)
         cfgs = [self.policy.config_for(t) for t in full_tags]
         ws = [self._cast(w) for w in ws]
         if biases is not None:
             biases = [self._cast(b) for b in biases]
 
-        shareable = (self.key is not None
-                     and all(c == cfgs[0] for c in cfgs)
-                     and not cfgs[0].is_exact
-                     and est_registry.get_estimator(
-                         cfgs[0].kind).supports_shared)
-        if not shareable:
+        if len(plan_groups(self.policy, full_tags,
+                           keyed=self.key is not None)) > 1:
             outs = []
             for i, w in enumerate(ws):
                 bias = None if biases is None else biases[i]
@@ -288,6 +288,18 @@ class Ctx:
         """Sub-context for layer/repeat i (derives the child seed)."""
         key = None if self.key is None else fold_seed(self.key, int(i))
         return dataclasses.replace(self, key=key)
+
+
+def plan_groups(policy: Policy, tags, keyed: bool = True) -> list:
+    """How ``Ctx.linear_shared`` splits its (fully prefixed) ``tags`` into
+    plans: one group sharing one plan and one stored H' when every tag
+    resolves to the same sampling config whose estimator supports shared
+    plans and a key is there to draw it; else one group a tag."""
+    cfgs = [policy.config_for(t) for t in tags]
+    if (keyed and all(c == cfgs[0] for c in cfgs) and not cfgs[0].is_exact
+            and est_registry.get_estimator(cfgs[0].kind).supports_shared):
+        return [tuple(tags)]
+    return [(t,) for t in tags]
 
 
 EXACT_POLICY = Policy()

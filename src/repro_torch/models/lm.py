@@ -120,11 +120,16 @@ def _check_ported(cfg: ArchConfig) -> None:
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
     """Fresh parameters in ``cfg.param_dtype`` on ``device``, drawn from
     ``torch.Generator(device).manual_seed(seed)`` with the reference's
-    shapes, names and distributions (not its random stream)."""
+    shapes, names and distributions (not its random stream).
+    ``device="meta"`` gives the tree's shapes without storage (the tag
+    trace of ``train/znorm.py``)."""
     _check_ported(cfg)
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    if str(device) == "meta":
+        device, gen = torch.device("meta"), None
+    else:
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     dtype = cfg.pdtype
     params = {
         "embed": cm.dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,

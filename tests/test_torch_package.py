@@ -82,7 +82,9 @@ SERVE_ENTRIES = ["make_prefill_step", "make_serve_step",
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_train_state",
-                                   "make_train_step", "params_from_jax"]
+                                   "make_train_step",
+                                   "make_scheduled_train_step",
+                                   "params_from_jax", "cache_from_jax"]
                          + SERVE_ENTRIES)
 def test_device_cuda_raises_instead_of_falling_back(entry):
     if torch.cuda.is_available():
@@ -94,7 +96,11 @@ def test_device_cuda_raises_instead_of_falling_back(entry):
         "init_train_state": lambda: train_steps.init_train_state(cfg, 0),
         "make_train_step": lambda: train_steps.make_train_step(
             cfg, None, train_steps.optim.AdamWConfig(), lambda s: 1e-3),
+        "make_scheduled_train_step": lambda:
+            train_steps.make_scheduled_train_step(
+                cfg, p, train_steps.optim.AdamWConfig(), lambda s: 1e-3),
         "params_from_jax": lambda: convert.params_from_jax(cfg, {}),
+        "cache_from_jax": lambda: convert.cache_from_jax({}),
         "make_prefill_step": lambda: train_steps.make_prefill_step(cfg, p),
         "make_serve_step": lambda: train_steps.make_serve_step(cfg, p),
         "make_prefill_chunk_step": lambda:
@@ -161,10 +167,16 @@ def test_row_norms_wrapper_refuses_what_the_kernel_does_not_take(x, error):
 def test_kernel_sources_are_packaged_and_hashed():
     names = sorted(p.name for p in _build.CSRC.iterdir())
     assert names == ["common.cuh", "flash_attention_fwd.cu",
-                     "fused_sampled_dw.cu", "row_norms.cu"]
+                     "fused_sampled_dw.cu", "gather_scale.cu", "row_norms.cu",
+                     "sampled_matmul.cu"]
     assert set(_build._SIGNATURES) == {"repro_row_norms",
+                                       "repro_gather_scale",
+                                       "repro_sampled_matmul",
                                        "repro_fused_sampled_dw",
                                        "repro_flash_attention_fwd"}
+    assert set(ops.__all__) == {"row_norms", "gather_scale",
+                                "sampled_matmul", "fused_sampled_dw",
+                                "flash_attention_fwd"}
     for name in _build._SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in _build.CSRC.glob("*.cu"))

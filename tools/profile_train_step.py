@@ -6,10 +6,13 @@
 
 Runs the configuration ``chip_smoke.py`` trains (qwen2.5-3b at published
 width, depth cut to ``--layers``, B=4, S=1024, budget 0.3, one fixed batch),
-warms up two steps, then traces two steps with ``torch.profiler`` (CPU +
-CUDA activities) and prints: the wall time of the traced steps, the
-device-busy time (sum of kernel durations) and its share of the wall time,
-kernel time by category, and the 30 kernels with the most device time.
+warms up two steps, times six untraced steps on the host's clock
+(``host_ms``: until the step call returns, i.e. the host's dispatch;
+``wall_ms``: until the card has finished it; medians), then traces two
+steps with ``torch.profiler`` (CPU + CUDA activities) and prints: the wall
+time of the traced steps, the device-busy time (sum of kernel durations)
+and its share of the wall time, kernel time by category, and the 30
+kernels with the most device time.
 Needs one NVIDIA GPU; exits 1 without one or if the trace holds no device
 time (then time with CUDA events instead).
 """
@@ -19,6 +22,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -35,11 +39,13 @@ from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.train import data, optim  # noqa: E402
 
 B, S = 4, 1024
+N_UNTRACED = 6
 
 # first match wins; names are substrings of CUDA kernel names
 CATEGORIES = [
     ("fused_sampled_dw (hand kernel)", ("fused_dw_",)),
     ("row_norms (hand kernel)", ("row_norms_kernel",)),
+    ("gather_scale (hand kernel)", ("gather_scale_kernel",)),
     ("matmul (cuBLAS/cutlass)", ("gemm", "cutlass", "cublas", "xmma", "gemv",
                                  "nvjet")),
     ("sort / scan / search (plans)", ("sort", "scan", "searchsorted",
@@ -82,6 +88,16 @@ def main() -> int:
         state, _ = step(state, ds.batch_at(i, B))
     torch.cuda.synchronize()
 
+    host_ms, wall_ms_untraced = [], []
+    for i in range(N_UNTRACED):
+        batch = ds.batch_at(i, B)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (t1 - t0))
+        wall_ms_untraced.append(1e3 * (time.perf_counter() - t0))
+
     n_traced = 2
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -111,6 +127,10 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(0), "kind": args.kind,
         "layers": args.layers, "batch": B, "seq": S,
+        "steps_untraced": N_UNTRACED,
+        "host_ms_per_step_untraced": statistics.median(host_ms),
+        "wall_ms_per_step_untraced": statistics.median(wall_ms_untraced),
+        "host_ms_untraced": host_ms, "wall_ms_untraced": wall_ms_untraced,
         "steps_traced": n_traced,
         "wall_ms_per_step_traced": wall_ms / n_traced,
         "device_busy_ms_per_step": busy_ms / n_traced,
