@@ -15,13 +15,18 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            composition and the card's bound; the reference's unfused
            composition row_norms -> plan -> gather_scale -> sampled_matmul
            against fused_sampled_dw at full width; a plan index outside
-           [0, n) ends each gathering kernel in a device-side assert
+           [0, n) ends each gathering kernel in a device-side assert.
+           flash_attention_fwd and fused_sampled_dw report the route each
+           case took (launches_by_route; wgmma wherever the shape allows,
+           edge shapes and misaligned operands included); flash bf16 is
+           also held against the tensor-op models/attention.py
   parity   one det_topk train step of a reduced config: card (kernels)
            against CPU (plain versions), f32
   train    qwen2.5-3b at published width, depth cut to 12 layers, B=4,
            S=1024, WTA-CRS at budget 0.3: 6 steps through
            get_config -> init_train_state -> make_train_step -> train_step;
-           losses finite and falling, launch counts as expected
+           losses finite and falling, launch counts as expected, every
+           fused_sampled_dw launch on the wgmma route
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side
   adaptive Algorithm 1's whole loop at the same width on 8 samples: 10
            make_scheduled_train_step steps with the znorm cache and budget
@@ -33,7 +38,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            (flash kernel) against CPU (plain version), f32
   prefill  qwen2.5-3b at published width and full depth (36 layers), B=4
            prompts of S=2048 through make_prefill_step: 36 flash launches a
-           call, last logits against the model's own forward
+           call, all on the wgmma route, last logits against the model's
+           own forward
   decode   64 greedy serve_steps from the prefill's (padded) caches, the
            first 8 positions against a teacher-forced forward
   pool     ServeSession (8 slots, paged KV, chunked prefill) on its
@@ -75,6 +81,7 @@ from repro_torch.kernels import row_norms as row_norms_mod  # noqa: E402
 from repro_torch.kernels import \
     sampled_matmul as sampled_matmul_mod  # noqa: E402
 from repro_torch.launch import train_steps  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
@@ -101,6 +108,10 @@ FUSED_MAIN = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 ROW_NORM_RAGGED = [(33, 130), (7, 5)]
 # (B, k, n, d_in, d_out)
 FUSED_RAGGED = [(2, 20, 50, 130, 70), (1, 16, 64, 32, 24), (3, 13, 40, 33, 17)]
+# the wgmma route's edges: the k tail 307, d_in and d_out multiples of 8
+# but not of 64 (plan slot 1 repeats slot 0: duplicate indices)
+FUSED_EDGE = [(4, 307, 1024, 136, 200), (2, 307, 300, 2056, 72),
+              (1, 65, 70, 8, 1032)]
 # flash_attention_fwd as (B, H, KVH, Sq, Skv, Dh, causal): the prefill of
 # qwen2.5-3b at B=4, S=2048; the same for minicpm-2b's heads (Dh 64,
 # group 1); ragged and odd shapes
@@ -108,6 +119,10 @@ FLASH_MAIN = (4, 16, 2, 2048, 2048, 128, True)
 FLASH_MINICPM = (4, 36, 36, 2048, 2048, 64, True)
 FLASH_RAGGED = [(3, 2, 1, 50, 50, 16, True), (1, 4, 4, 33, 70, 64, False),
                 (1, 4, 4, 32, 64, 128, True)]
+# the wgmma route's edges: Sq != Skv, neither a multiple of its 128-row
+# tiles, group 8 at both of its head dims, causal and not
+FLASH_EDGE = [(1, 8, 1, 200, 333, 128, True), (1, 8, 1, 333, 200, 64, True),
+              (2, 8, 1, 130, 130, 128, False), (1, 16, 2, 257, 129, 64, False)]
 # gather_scale: H' of the train path (B=4, n=1024, k=307) at both input
 # widths; the reference sweep's 2-D (n, d, k) shapes; a batched
 # (B, n, d, k) shape with repeated rows
@@ -290,13 +305,17 @@ def gather_scale_case(b, n, d, k, dtype, gen, timed, two_d=False):
     return case
 
 
-def dw_inputs(b, k, n, d_in, d_out, dtype, gen):
+def dw_inputs(b, k, n, d_in, d_out, dtype, gen, dup=False):
+    """Random operands of the sampled weight gradient; ``dup``: plan slot 1
+    names slot 0's row, as sampling with replacement does."""
     def rnd(shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
     hsub, dz = rnd((b, k, d_in)), rnd((b, n, d_out))
     idx = torch.randint(0, n, (b, k), generator=gen, device="cuda"
                         ).to(torch.int32)
+    if dup and k > 1:
+        idx[:, 1] = idx[:, 0]
     scale = torch.rand((b, k), generator=gen, device="cuda") * 2.0 + 0.25
     return hsub, dz, idx, scale
 
@@ -329,7 +348,17 @@ DW_KERNELS = {
 }
 
 
-def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
+def routes_taken(name, run):
+    """Call ``run()``; return the routes (``launches_by_route``) of kernel
+    ``name`` whose counts it raised."""
+    counts = getattr(ops, name).launches_by_route
+    before = dict(counts)
+    run()
+    return sorted(r for r, c in counts.items() if c != before[r])
+
+
+def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
+            dup=False):
     """A sampled weight-gradient kernel of ``DW_KERNELS`` against its plain
     version (``fused_sampled_dw`` at both pinned tiles too, for bf16/f16;
     ``sampled_matmul`` picks its own, 128 at the wide main shapes and 64 at
@@ -338,7 +367,7 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
     (``fused_sampled_dw``), and (``sampled_matmul``) the fused kernel at
     the same shape."""
     kernel, plain, source, replaces = DW_KERNELS[name]
-    hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen)
+    hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen, dup)
     want = plain(hsub, dz, idx, scale)
     # Kernel and plain version round dz*scale to the input dtype by the
     # same f32 multiply, so the factors of every product are bit-identical
@@ -352,13 +381,18 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
     args = (hsub[0], dz[0], idx[0], scale[0]) if two_d \
         else (hsub, dz, idx, scale)
     pinned = name == "fused_sampled_dw" and dtype != torch.float32
-    max_err = 0.0
+    max_err, routes = 0.0, set()
     for tile in (None, 64, 128) if pinned else (None,):
-        got = (kernel(*args, tile=tile) if tile else kernel(*args))
+        out = []
+        if name == "fused_sampled_dw":
+            routes.update(routes_taken(name, lambda: out.append(
+                kernel(*args, tile=tile))))
+        else:
+            out.append(kernel(*args))
         torch.cuda.synchronize()
         max_err = max(max_err, check_close(
             f"{name} B={b} k={k} n={n} ({d_in},{d_out}) 2d={two_d} {dtype} "
-            f"tile={tile}", got, want, rtol, atol))
+            f"tile={tile}", out[0], want, rtol, atol))
     case = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "shape": {"B": None if two_d else b, "k": k, "n": n, "d_in": d_in,
@@ -366,6 +400,9 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
         "dtype": DTYPE_NAMES[dtype], "max_abs_err": max_err,
         "tol": {"rtol": rtol, "atol": atol},
     }
+    if name == "fused_sampled_dw":
+        case["kernel_route"] = "+".join(sorted(routes))
+        case["duplicate_indices"] = dup
     if timed:
         bound_s, bound_by = dw_bound(hsub, dz, idx)
         case.update({
@@ -384,6 +421,34 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False):
             case["fused_sampled_dw_ms"] = time_ms(
                 lambda: ops.fused_sampled_dw(hsub, dz, idx, scale))
     return case
+
+
+def dw_misaligned_case(dtype, gen):
+    """``fused_sampled_dw`` on operands that start 2 bytes off a 16-byte
+    boundary at a shape the wgmma route takes: the wmma route, held to the
+    plain version at the dW tolerance."""
+    b, k, n, d_in, d_out = 2, 70, 90, 128, 192
+    hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        flat[1:] = x.flatten()
+        return flat[1:].view(x.shape)
+    hsub, dz = shifted(hsub), shifted(dz)
+    out = []
+    routes = routes_taken("fused_sampled_dw", lambda: out.append(
+        ops.fused_sampled_dw(hsub, dz, idx, scale)))
+    torch.cuda.synchronize()
+    rtol, atol = 1e-4, 1e-4 * math.sqrt(b * k)
+    want = fused_sampling.fused_sampled_dw_plain(hsub, dz, idx, scale)
+    return {"name": "fused_sampled_dw", "route": "cuda",
+            "kernel_route": "+".join(routes), "misaligned": True,
+            "shape": {"B": b, "k": k, "n": n, "d_in": d_in, "d_out": d_out},
+            "dtype": DTYPE_NAMES[dtype],
+            "max_abs_err": check_close(
+                f"fused_sampled_dw misaligned {dtype}", out[0], want, rtol,
+                atol),
+            "tol": {"rtol": rtol, "atol": atol}}
 
 
 def composition_case(gen):
@@ -514,36 +579,63 @@ def flash_bound(bh, bkvh, sq, skv, dh, causal, dtype):
 
 
 def flash_case(b, h, kvh, sq, skv, dh, causal, dtype, gen, timed,
-               in_summary=False):
+               in_summary=False, vs_tensor_op=False, misaligned=False):
+    """The flash kernel against its plain version; ``vs_tensor_op`` also
+    against the port's tensor-op ``models/attention.py::flash_attention``
+    (bf16/f16: it rounds p to the input dtype as the kernel does);
+    ``misaligned``: q/k/v start 2 bytes off a 16-byte boundary."""
     bh, bkvh, group = b * h, b * kvh, h // kvh
 
     def rnd(shape):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.float32).to(dtype)
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        if not misaligned:
+            return x
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        flat[1:] = x.flatten()
+        return flat[1:].view(shape)
     q, k, v = rnd((bh, sq, dh)), rnd((bkvh, skv, dh)), rnd((bkvh, skv, dh))
-    got = ops.flash_attention_fwd(q, k, v, group=group, causal=causal)
+    out = []
+    routes = routes_taken("flash_attention_fwd", lambda: out.append(
+        ops.flash_attention_fwd(q, k, v, group=group, causal=causal)))
+    got = out[0]
     torch.cuda.synchronize()
     want = flash_mod.flash_attention_fwd_plain(q, k, v, group=group,
                                                causal=causal)
-    # Kernel and plain version both compute scores, softmax and the product
-    # with v in f32 from the same inputs and round the output once, so they
-    # differ by f32 summation order (f32: 2e-4, the reference's own
-    # tolerance) plus, in bf16/f16, at most one ulp of that final rounding
-    # (1e-2: a misplaced rounding of p or a dropped kv block shows as ~3e-2
-    # and more).
+    # Kernel and plain version both compute scores and the softmax
+    # statistics in f32 from the same inputs and round the output once, so
+    # in f32 they differ by summation order (2e-4, the reference's own
+    # tolerance).  In bf16/f16 the kernel also rounds p once to the input
+    # dtype before P V, as the model's own attention does, where the plain
+    # version keeps it in f32: a relative 2^-9 (bf16) on each term, which
+    # averages out over the keys, plus one ulp of the output's rounding
+    # (1e-2: a dropped kv block or a wrong mask shows as ~3e-2 and more).
     rtol = atol = 2e-4 if dtype == torch.float32 else 1e-2
+    what = (f"flash_attention_fwd BH={bh} BKVH={bkvh} Sq={sq} Skv={skv} "
+            f"Dh={dh} causal={causal} {dtype} misaligned={misaligned}")
     case = {
         "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": "+".join(routes),
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98",
         "shape": {"BH": bh, "BKVH": bkvh, "Sq": sq, "Skv": skv, "Dh": dh,
                   "causal": causal},
-        "dtype": DTYPE_NAMES[dtype],
-        "max_abs_err": check_close(
-            f"flash_attention_fwd BH={bh} BKVH={bkvh} Sq={sq} Skv={skv} "
-            f"Dh={dh} causal={causal} {dtype}", got, want, rtol, atol),
+        "dtype": DTYPE_NAMES[dtype], "misaligned": misaligned,
+        "max_abs_err": check_close(what, got, want, rtol, atol),
         "tol": {"rtol": rtol, "atol": atol},
     }
+    if vs_tensor_op:
+        # (BH, S, Dh) -> (B, S, H, Dh) and back; p rounded alike, the
+        # running maxima taken over other blocks (512 against 128 keys):
+        # the same 1e-2
+        def bshd(x):
+            return x.view(b, -1, x.shape[1], dh).transpose(1, 2)
+        with torch.no_grad():
+            tensor_op = attention_mod.flash_attention(
+                bshd(q), bshd(k), bshd(v), causal=causal)
+        case["max_abs_err_vs_tensor_op"] = check_close(
+            what + " vs models/attention.py::flash_attention", got,
+            tensor_op.transpose(1, 2).reshape(bh, sq, dh), rtol, atol)
     if timed:
         bound_s, bound_by = flash_bound(bh, bkvh, sq, skv, dh, causal, dtype)
         q4, k4, v4 = (t.view(b, -1, t.shape[1], dh) for t in (q, k, v))
@@ -570,11 +662,20 @@ def phase_kernels():
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         cases.append(flash_case(*FLASH_MAIN, dtype, gen, timed=True,
-                                in_summary=dtype == torch.bfloat16))
-    cases.append(flash_case(*FLASH_MINICPM, torch.bfloat16, gen, timed=True))
+                                in_summary=dtype == torch.bfloat16,
+                                vs_tensor_op=dtype == torch.bfloat16))
+    cases.append(flash_case(*FLASH_MINICPM, torch.bfloat16, gen, timed=True,
+                            vs_tensor_op=True))
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for shape in FLASH_RAGGED:
             cases.append(flash_case(*shape, dtype, gen, timed=False))
+    for dtype in (torch.bfloat16, torch.float16):
+        for shape in FLASH_EDGE:
+            cases.append(flash_case(*shape, dtype, gen, timed=False))
+        # a wgmma shape whose operands start off a 16-byte boundary takes
+        # the mma route
+        cases.append(flash_case(*FLASH_EDGE[0], dtype, gen, timed=False,
+                                misaligned=True))
     for dtype in (torch.bfloat16, torch.float32):
         for n, d in ROW_NORM_MAIN:
             cases.append(row_norms_case(n, d, dtype, gen, timed=True))
@@ -588,6 +689,11 @@ def phase_kernels():
         for shape in FUSED_RAGGED:
             cases.append(dw_case("fused_sampled_dw", *shape, dtype, gen,
                                  timed=False))
+    for dtype in (torch.bfloat16, torch.float16):
+        for shape in FUSED_EDGE:
+            cases.append(dw_case("fused_sampled_dw", *shape, dtype, gen,
+                                 timed=False, dup=True))
+        cases.append(dw_misaligned_case(dtype, gen))
     # a view that starts off a 16-byte boundary takes the element-wise path
     flat = torch.randn((64 * 256 + 8,), generator=gen, device="cuda")
     x = flat.to(torch.bfloat16)[1:1 + 64 * 256].reshape(64, 256)
@@ -610,6 +716,21 @@ def phase_kernels():
             cases.append(dw_case("sampled_matmul", *shape, dtype, gen,
                                  timed=False))
     composition, comp_launches = composition_case(gen)
+    # the route each case must have taken: the wgmma route wherever its
+    # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case)
+    for c in cases:
+        if "kernel_route" not in c:
+            continue
+        dtype = getattr(torch, c["dtype"])
+        aligned = not c.get("misaligned", False)
+        sh = c["shape"]
+        want = (flash_mod.flash_route(sh["Dh"], dtype, aligned)
+                if c["name"] == "flash_attention_fwd" else
+                fused_sampling.dw_route(sh["d_in"], sh["d_out"], dtype,
+                                        aligned))
+        if c["kernel_route"] != want:
+            fail(f"{c['name']} {sh} {c['dtype']}: took the "
+                 f"{c['kernel_route']} route, expected {want}")
     emit({"phase": "kernels", "cases": cases, "composition": composition,
           "bad_index": bad_index_cases()})
     return cases, comp_launches
@@ -625,7 +746,21 @@ KERNEL_NAMES = ("row_norms", "gather_scale", "sampled_matmul",
 
 def reset_launches():
     for name in KERNEL_NAMES:
-        getattr(ops, name).launches = 0
+        fn = getattr(ops, name)
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
+
+
+def expect_route(what, name, route):
+    """Fail unless every launch of kernel ``name`` since the last reset (at
+    least one) took ``route``; returns its launches by route."""
+    fn = getattr(ops, name)
+    by_route = dict(fn.launches_by_route)
+    if fn.launches == 0 or by_route[route] != fn.launches:
+        fail(f"{what}: {name} launches by route {by_route}, expected all "
+             f"{fn.launches} on the {route} route")
+    return by_route
 
 
 def launch_counts():
@@ -749,11 +884,13 @@ def phase_train(cfg, ds, n_steps):
     losses, times, peak, changed, n_leaves, n_params = run_steps(
         cfg, wta, n_steps, B, S, ds)
     launches = launch_counts()
+    by_route = dict(ops.fused_sampled_dw.launches_by_route)
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "n_params": n_params, "batch": B, "seq": S, "budget": 0.3,
           "losses": losses, "step_ms": times,
           "step_ms_median_after_first": statistics.median(times[1:]),
-          "peak_bytes": peak, "launches": launches})
+          "peak_bytes": peak, "launches": launches,
+          "fused_sampled_dw_launches_by_route": by_route})
     if not all(math.isfinite(x) for x in losses):
         fail(f"train: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -761,6 +898,7 @@ def phase_train(cfg, ds, n_steps):
     per_step = launches_per_step(cfg, cm.Policy(wtacrs=wta), S)
     expect_launches("train", {name: n * n_steps
                               for name, n in per_step.items()})
+    expect_route("train", "fused_sampled_dw", "wgmma")
     # gamma of the norms and the biases move too: every leaf must change
     if changed != n_leaves:
         fail(f"train: only {changed} of {n_leaves} parameter leaves changed")
@@ -1011,12 +1149,14 @@ def phase_prefill(cfg, params, batch, seq):
     launches = expect_launches("prefill", {
         "row_norms": 0, "fused_sampled_dw": 0,
         "flash_attention_fwd": 4 * cfg.n_layers})
+    by_route = expect_route("prefill", "flash_attention_fwd", "wgmma")
     if not bool(torch.isfinite(last.float()).all()):
         fail("prefill: non-finite last logits")
     trace = device_busy(lambda: prefill(params, {"tokens": tokens}), 1)
     tt = torch.from_numpy(tokens).cuda()
-    # bf16: the kernel keeps p in f32 where the forward's tensor-op flash
-    # rounds it to bf16.  The reference holds prefill to its forward at
+    # bf16: the kernel rounds p to bf16 as the forward's tensor-op flash
+    # does, under running maxima over other blocks (128 keys against 512).
+    # The reference holds prefill to its forward at
     # 3e-2 (vocab 256, 2 layers); at vocab 151936 the forward differs from
     # itself under another block size by more than that, so the floor is
     # measured beside it (close_to_forward)
@@ -1030,11 +1170,12 @@ def phase_prefill(cfg, params, batch, seq):
           "prefill_ms_median_after_first": ms,
           "prompt_tokens_per_s": batch * seq / (ms / 1e3),
           "peak_bytes": peak, "launches": launches,
+          "flash_launches_by_route": by_route,
           "flash_launches_per_call": cfg.n_layers,
           "max_abs_err_vs_forward": err,
           "forward_vs_itself_other_block": floor, "atol_used": atol,
           "profile": trace})
-    return launches, tokens, last, states
+    return (launches, by_route), tokens, last, states
 
 
 def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8):
@@ -1241,7 +1382,7 @@ def main() -> int:
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
 
-    cases, launches = [], {}
+    cases, launches, by_route = [], {}, {}
     if "kernels" in phases:
         cases, comp_launches = phase_kernels()
         launches["sampled_matmul"] = comp_launches["sampled_matmul"]
@@ -1259,6 +1400,8 @@ def main() -> int:
             train_launches, wta_peak = phase_train(cfg, ds, n_steps=6)
             for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
                 launches[name] = train_launches[name]
+            by_route["fused_sampled_dw"] = dict(
+                ops.fused_sampled_dw.launches_by_route)
         if "memory" in phases:
             phase_memory(cfg, ds, wta_peak)
         if "adaptive" in phases:
@@ -1276,9 +1419,11 @@ def main() -> int:
         cfg = get_config("qwen2.5-3b")
         params = registry.init_params(cfg, 0)
         if "prefill" in phases or "decode" in phases:
-            serve_launches, *prefilled = phase_prefill(cfg, params, B, 2 * S)
+            (serve_launches, flash_routes), *prefilled = phase_prefill(
+                cfg, params, B, 2 * S)
             launches["flash_attention_fwd"] = \
                 serve_launches["flash_attention_fwd"]
+            by_route["flash_attention_fwd"] = flash_routes
             if "decode" in phases:
                 phase_decode(cfg, params, *prefilled)
             del prefilled
@@ -1295,7 +1440,10 @@ def main() -> int:
         for c in cases:
             if ("ms" in c and c["dtype"] == "bfloat16"
                     and c.get("in_summary", True)):
-                summary.append(dict(c, launches=launches[c["name"]]))
+                entry = dict(c, launches=launches[c["name"]])
+                if c["name"] in by_route:
+                    entry["launches_by_route"] = by_route[c["name"]]
+                summary.append(entry)
         emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -41,9 +41,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_row_norms": (_P, _P, _I, _I, _I, _P),
     "repro_fused_sampled_dw": (_P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_fwd": (_P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_gather_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_sampled_matmul": (_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P),
@@ -138,6 +138,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (what TMA
+    and 16-byte vector loads need)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check_launch(code: int, what: str) -> None:

@@ -12,13 +12,37 @@
 //
 // Per k-block the block loads the hsub tile (contiguous along d_in) and the
 // dz rows its own slice of idx names (each contiguous along d_out), applies
-// scale in f32 and rounds ONCE to the input dtype on the way into shared
-// memory, then multiplies with f32 accumulation: tensor cores (mma through
-// nvcuda::wmma, 16x16x16) for bf16/f16, f32 FMAs for f32 inputs (TF32 would
-// cost three decimal digits that the f32 callers are promised).  The next
-// tile's global loads are issued into registers before the current tile is
-// multiplied, which overlaps the gather with the math without a second
-// shared-memory buffer.
+// scale in f32 and rounds ONCE to the input dtype in shared memory, then
+// multiplies with f32 accumulation.  Three routes, chosen by the caller
+// (kernels/fused_sampling.py::dw_route) and passed in; a route the shape
+// does not fit returns -2:
+//  * wgmma (bf16/f16, d_in and d_out multiples of 8, 16-byte-aligned hsub
+//    and dz): the Hopper kernel.  kTile/64 consumer warpgroups own 64 rows
+//    each of a kTile x kTile dW tile (kTile 128 or 64); a loader and a
+//    converter warpgroup fill a four-stage shared-memory ring of 64-slot
+//    steps.  The blocks are persistent (one an SM, tiles round-robin), so
+//    the ring runs on from one tile into the next and the next tile's
+//    loads overlap this tile's epilogue.  The loader brings the H' tile by
+//    TMA from a 3-D tensor map (d_in, k, B), so the k tail and the d_in
+//    edge arrive as zeros.  TMA cannot gather rows, so it copies the named
+//    dz rows' 16-byte chunks with cp.async straight into the
+//    128-byte-swizzled stage and has their landing signalled on the
+//    stage's `landed` barrier; it fetches each step's plan (row indices,
+//    scales) once per block, four steps ahead, into a shared plan slot.
+//    The converter scales the landed chunks in place in f32, rounds them
+//    once (packed bf16x2/f16x2 conversions), fences the async proxy and
+//    arrives on the stage's `full` barrier.  The consumers run wgmma with
+//    A = H'^T and B = dZ', both MN-major from shared memory, keep the sum
+//    in registers, release each stage as soon as its products are done,
+//    and write the f32 tile with 16-byte stores.  The tensor map is
+//    encoded on the host at each call (a few microseconds).  On an H100
+//    this route is bound by L2-to-SM traffic: every column tile reads all
+//    of H' and every row tile all of dZ' (PERF.md).
+//  * wmma (bf16/f16 shapes the wgmma route does not take): nvcuda::wmma
+//    16x16x16, one 32-slot shared-memory buffer, the next tile's global
+//    loads issued into registers before the current tile is multiplied.
+//  * fma (f32): f32 FMAs (TF32 would cost three decimal digits that the
+//    f32 callers are promised).
 //
 // Ragged everything: the k tail and the d_in/d_out edges are predicates
 // that put ZEROS into shared memory (a select, never 0 * garbage), so the
@@ -32,11 +56,10 @@
 // 3.35 TB/s.  At the MLP up-projection of qwen2.5-3b (B=4, k=307,
 // 2048 x 11008) that is 55 GFLOP = 56 us against 122 MB = 36 us: operations
 // bind there, bytes bind at the narrow k/v projections (2048 x 256).
-// This first version does not use wgmma or TMA; its measured distance from
-// the bound is recorded in PERF.md.
+// The measured distance of each route from the bound is in PERF.md.
 #include <mma.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -132,7 +155,7 @@ struct TileLoader {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 / f16: tensor cores.  WARPS_M x WARPS_N warps, each owning a
+// bf16 / f16, the wmma route.  WARPS_M x WARPS_N warps, each owning a
 // (BM/WARPS_M) x (BN/WARPS_N) piece of the tile as 16x16 f32 fragments.
 // ---------------------------------------------------------------------------
 template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
@@ -230,6 +253,264 @@ fused_dw_mma_kernel(const T* __restrict__ hsub, const T* __restrict__ dz,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / f16, the wgmma route: a (kTile x kTile) dW tile, kTile/64 consumer
+// warpgroups of 64 rows and one producer warpgroup, a kWgStages-deep ring.
+// ---------------------------------------------------------------------------
+constexpr int kWgBK = 64;                // contraction slots a step
+constexpr int kWgStages = 4;             // ring depth
+constexpr int kWgPlanAhead = 4;          // steps a plan is fetched early
+// plan slots: step g's plan lands kWgPlanAhead steps before its issue and
+// is read until its stage is converted, at most kWgStages steps later
+constexpr int kWgPlanSlots = 16;
+static_assert(kWgPlanSlots >= kWgPlanAhead + kWgStages,
+              "a plan slot is rewritten only after its last read");
+
+// A stage is H' (kTile/64 atom columns of 64 slots x 128 bytes) then dZ'
+// (the same).  After the ring come the plan slots (kWgBK row indices, then
+// kWgBK scales, each), then the barriers.  The base is rounded up to 1024
+// bytes for the swizzle.
+template <int kTile>
+struct DwLayout {
+  static constexpr int kConsumers = kTile / 64;
+  static constexpr int kThreads = (kConsumers + 2) * 128;
+  static constexpr int kAtom = kWgBK * 128;           // one atom column
+  static constexpr int kB = kAtom * (kTile / 64);     // dZ' offset = H' bytes
+  static constexpr int kStage = 2 * kB;
+  // 16-byte dZ' chunks a producer thread moves (or converts) a step
+  static constexpr int kChunks = kWgBK * kTile / 8 / 128;
+  static constexpr int kPlan = kWgStages * kStage;
+  static constexpr int kBars = kPlan + kWgPlanSlots * kWgBK * 8;
+  static constexpr int kBytes = kBars + 3 * 8 * kWgStages + 1024;
+};
+
+// A block's steps in order: k-block, then sample, then the block's tile.
+struct StepCursor {
+  int kb = 0, b = 0, tile = 0;
+  __device__ __forceinline__ void next(int nkb, int nb) {
+    if (++kb == nkb) {
+      kb = 0;
+      if (++b == nb) {
+        b = 0;
+        ++tile;
+      }
+    }
+  }
+};
+
+// Two 16-bit values times s in f32, each rounded once back to T.
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float s,
+                                           __nv_bfloat16) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __uint_as_float(w << 16) * s, __uint_as_float(w & 0xffff0000u) * s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float s, __half) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  const __half2 r = __floats2half2_rn(f.x * s, f.y * s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+template <typename T, int kTile>
+__global__ void __launch_bounds__(DwLayout<kTile>::kThreads, 1)
+fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                      const T* __restrict__ dz, const int* __restrict__ idx,
+                      const float* __restrict__ scale,
+                      float* __restrict__ out, int nb, int k, int n,
+                      int d_in, int d_out) {
+  using namespace repro::hopper;
+  using L = DwLayout<kTile>;
+  constexpr int kCpr = kTile / 8;          // 16-byte chunks of a dZ' row
+  constexpr int kRowStep = 128 / kCpr;     // slots between a thread's chunks
+  // chunk q of a producer thread sits kRowStep * 128 bytes after chunk
+  // q - 1: the swizzle phase (slot % 8) is the same for all its chunks
+  static_assert(kRowStep % 8 == 0, "one swizzle phase a thread");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* landed = full + kWgStages;
+  uint64_t* empty = landed + kWgStages;
+  // plan slot of step g: kWgBK row indices, then kWgBK scales
+  auto plan = [&](int g) {
+    return reinterpret_cast<int*>(sm + L::kPlan) +
+           (g % kWgPlanSlots) * 2 * kWgBK;
+  };
+
+  // A persistent block: tiles blockIdx.x, + gridDim.x, ... (d_in tiles
+  // fastest, so the blocks running together share dZ' columns in L2), all
+  // through one ring, so the next tile's loads overlap this one's epilogue.
+  // g counts the block's steps over all its tiles.
+  const int n_m = (d_in + kTile - 1) / kTile;
+  const int n_tiles = n_m * ((d_out + kTile - 1) / kTile);
+  const int my_tiles = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int nkb = (k + kWgBK - 1) / kWgBK;
+  const int steps = nb * nkb;
+  const int total = my_tiles * steps;
+  assert_rows(idx, (long long)nb * k, n);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 128 + 1);    // every converter + the TMA's tx
+      mbar_init(&landed[s], 128);      // every loader's cp.async
+      mbar_init(&empty[s], 4 * L::kConsumers);  // one per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x >> 7;  // warpgroup
+  // the producer warpgroups' chunk of a dZ' step: column jc of slots
+  // kk0 + q * kRowStep
+  const int pt = threadIdx.x & 127;
+  const int jc = pt % kCpr;
+  const int kk0 = pt / kCpr;
+  const int chunk0 =
+      L::kB + (jc >> 3) * L::kAtom + swizzle128(kk0, (jc & 7) * 8);
+
+  if (role == L::kConsumers) {
+    // ---- loader: H' by TMA, the named dZ rows by cp.async straight into
+    // the swizzled stage, then an arrival on the stage's `landed` barrier
+    // once they are in.  The plan (row indices, scales) of a step is
+    // fetched kWgPlanAhead steps early by the loader's 128 threads (one
+    // value each) through its cp.async groups, and a named barrier of the
+    // loaders makes it visible to all of them.  The loader waits on nothing
+    // but a free stage and a plan fetched steps ago.
+    StepCursor fetch, issue;
+    auto fetch_plan = [&](int g) {
+      const int kk = pt % kWgBK;
+      const int ks = fetch.kb * kWgBK + kk;
+      const long long at = (long long)fetch.b * k + min(ks, k - 1);
+      cp_async4(plan(g) + pt,
+                pt < kWgBK ? static_cast<const void*>(idx + at)
+                           : static_cast<const void*>(scale + at),
+                ks < k);  // slots past k: index and scale 0
+      fetch.next(nkb, nb);
+    };
+    for (int g = 0; g < kWgPlanAhead; ++g) {
+      if (g < total) fetch_plan(g);
+      cp_async_commit();
+    }
+    int tile_seen = -1, i0 = 0, col = 0;
+    for (int g = 0; g < total; ++g) {
+      const int st = g % kWgStages;
+      if (issue.tile != tile_seen) {
+        tile_seen = issue.tile;
+        const int tile = (int)blockIdx.x + tile_seen * (int)gridDim.x;
+        i0 = (tile % n_m) * kTile;
+        col = (tile / n_m) * kTile + jc * 8;
+      }
+      unsigned char* stage = sm + st * L::kStage;
+      cp_async_wait<kWgPlanAhead - 1>();  // step g's plan has landed ...
+      named_barrier(1, 128);              // ... for every loader
+      const int* rows = plan(g);
+      mbar_wait(&empty[st], ((g / kWgStages) & 1) ^ 1);
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full[st], L::kB);
+#pragma unroll
+        for (int c = 0; c < kTile / 64; ++c) {
+          tma_load_3d(stage + c * L::kAtom, &map_h, &full[st], i0 + 64 * c,
+                      issue.kb * kWgBK, issue.b);
+        }
+      }
+      const int ks0 = issue.kb * kWgBK + kk0;
+      const T* zb = dz + (long long)issue.b * n * d_out + col;
+      const bool col_ok = col < d_out;
+#pragma unroll
+      for (int q = 0; q < L::kChunks; ++q) {
+        const int ks = ks0 + q * kRowStep;
+        const int r = rows[kk0 + q * kRowStep];
+        // keeps the read inside dz; assert_rows reports the index
+        const bool ok = col_ok && ks < k && (unsigned)r < (unsigned)n;
+        cp_async16(stage + chunk0 + q * kRowStep * 128,
+                   ok ? zb + (long long)r * d_out : dz, ok);
+      }
+      issue.next(nkb, nb);
+      if (g + kWgPlanAhead < total) fetch_plan(g + kWgPlanAhead);
+      cp_async_mbar_arrive(&landed[st]);
+      cp_async_commit();
+    }
+  } else if (role == L::kConsumers + 1) {
+    // ---- converter: once a stage's dZ rows have landed, scale them in
+    // place in f32, round once to T (packed conversions), fence the async
+    // proxy and arrive on the stage's `full` barrier
+    for (int u = 0; u < total; ++u) {
+      const int st = u % kWgStages;
+      unsigned char* stage = sm + st * L::kStage;
+      const float* scales = reinterpret_cast<const float*>(plan(u) + kWgBK);
+      mbar_wait(&landed[st], (u / kWgStages) & 1);
+#pragma unroll
+      for (int q = 0; q < L::kChunks; ++q) {
+        uint4* c =
+            reinterpret_cast<uint4*>(stage + chunk0 + q * kRowStep * 128);
+        const float sc = scales[kk0 + q * kRowStep];
+        uint4 v = *c;
+        v.x = scale2(v.x, sc, T());
+        v.y = scale2(v.y, sc, T());
+        v.z = scale2(v.z, sc, T());
+        v.w = scale2(v.w, sc, T());
+        *c = v;
+      }
+      fence_proxy_async();
+      mbar_arrive(&full[st]);
+    }
+  } else {
+    // ---- consumers: dW rows [i0 + 64 wg, +64) x [j0, j0 + kTile) ----
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g4 = lane >> 2;
+    const int t4 = lane & 3;
+    const bool odd = t4 & 1;
+    float acc[kTile / 2];
+    for (int g = 0; g < total; g += steps) {
+      const int tile = (int)blockIdx.x + (g / steps) * (int)gridDim.x;
+      const int i0 = (tile % n_m) * kTile;
+      const int j0 = (tile / n_m) * kTile;
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) acc[i] = 0.f;
+      for (int u = g; u < g + steps; ++u) {
+        const int st = u % kWgStages;
+        const unsigned char* stage = sm + st * L::kStage;
+        mbar_wait(&full[st], (u / kWgStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          // A = H'^T and B = dZ', both MN-major: 16 slots = 2048 bytes
+          wgmma_ss<T, kTile, 1, 1>(
+              acc,
+              desc_sw128(stage + wg * L::kAtom + kk * 2048, L::kAtom, 1024),
+              desc_sw128(stage + L::kB + kk * 2048, L::kAtom, 1024), 1);
+        }
+        wgmma_commit();
+        // release the stage as soon as its products are done, so the
+        // producer never waits on a round trip through this warpgroup
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+
+      // 16-byte stores: each lane pair swaps halves so the even lane
+      // writes four columns of row g4 and the odd lane four of row g4 + 8
+      const int row = i0 + wg * 64 + warp * 16 + g4 + (odd ? 8 : 0);
+#pragma unroll
+      for (int nb8 = 0; nb8 < kTile / 8; ++nb8) {
+        const float a0 = acc[4 * nb8], a1 = acc[4 * nb8 + 1];
+        const float a2 = acc[4 * nb8 + 2], a3 = acc[4 * nb8 + 3];
+        const float y0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : a2, 1);
+        const float y1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : a3, 1);
+        const int c = j0 + nb8 * 8 + 2 * (t4 & 2);
+        if (row < d_in && c < d_out) {
+          *reinterpret_cast<float4*>(out + (long long)row * d_out + c) =
+              odd ? make_float4(y0, y1, a2, a3) : make_float4(a0, a1, y0, y1);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: a 64x64 tile, 256 threads, 4x4 outputs a thread, plain FMAs.
 // ---------------------------------------------------------------------------
 constexpr int kF32Tile = 64;
@@ -300,20 +581,24 @@ fused_dw_f32_kernel(const float* __restrict__ hsub,
 
 inline unsigned cdiv(int a, int b) { return (unsigned)((a + b - 1) / b); }
 
+// tile 0 lets the shape decide: 128x128 tiles reuse each loaded element
+// twice as often as 64x64, but a narrow dW (the k/v projections) would
+// leave most SMs without a tile.
+int pick_tile(int tile, int d_in, int d_out) {
+  if (tile != 0) return tile;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (cdiv(d_in, 128) * cdiv(d_out, 128) >= (unsigned)sms) ? 128 : 64;
+}
+
 template <typename T>
 int launch_mma(const void* hsub, const void* dz, const void* idx,
                const void* scale, void* out, int nb, int k, int n, int d_in,
                int d_out, int tile, cudaStream_t stream) {
   const int vec_a = aligned16(hsub) && (d_in % Chunk<T>::kElems == 0);
   const int vec_b = aligned16(dz) && (d_out % Chunk<T>::kElems == 0);
-  if (tile == 0) {
-    // 128x128 tiles reuse each loaded element twice as often, but a narrow
-    // dW (the k/v projections) would leave most SMs without a tile.
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    tile = (cdiv(d_in, 128) * cdiv(d_out, 128) >= (unsigned)sms) ? 128 : 64;
-  }
+  tile = pick_tile(tile, d_in, d_out);
   const T* h = static_cast<const T*>(hsub);
   const T* z = static_cast<const T*>(dz);
   const int* ix = static_cast<const int*>(idx);
@@ -323,14 +608,51 @@ int launch_mma(const void* hsub, const void* dz, const void* idx,
     dim3 grid(cdiv(d_in, 128), cdiv(d_out, 128));
     fused_dw_mma_kernel<T, 128, 128, 4, 2><<<grid, 256, 0, stream>>>(
         h, z, ix, sc, o, nb, k, n, d_in, d_out, vec_a, vec_b);
-  } else if (tile == 64) {
+  } else {
     dim3 grid(cdiv(d_in, 64), cdiv(d_out, 64));
     fused_dw_mma_kernel<T, 64, 64, 2, 2><<<grid, 128, 0, stream>>>(
         h, z, ix, sc, o, nb, k, n, d_in, d_out, vec_a, vec_b);
-  } else {
-    return -2;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int kTile>
+int launch_wgmma_tile(const void* hsub, const void* dz, const void* idx,
+                      const void* scale, void* out, int nb, int k, int n,
+                      int d_in, int d_out, cudaStream_t stream) {
+  using L = DwLayout<kTile>;
+  CUtensorMap map_h;
+  if (!hopper::make_map_3d(&map_h, hsub, d_in, k, nb, kWgBK)) return -4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_dw_wgmma_kernel<T, kTile>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (long long)cdiv(d_in, kTile) * cdiv(d_out, kTile);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  fused_dw_wgmma_kernel<T, kTile><<<grid, L::kThreads, L::kBytes, stream>>>(
+      map_h, static_cast<const T*>(dz), static_cast<const int*>(idx),
+      static_cast<const float*>(scale), static_cast<float*>(out), nb, k, n,
+      d_in, d_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgmma(const void* hsub, const void* dz, const void* idx,
+                 const void* scale, void* out, int nb, int k, int n, int d_in,
+                 int d_out, int tile, cudaStream_t stream) {
+  // TMA needs 16-byte strides and base; dZ' rows go in 16-byte chunks
+  if (d_in % 8 != 0 || d_out % 8 != 0 || !aligned16(hsub) || !aligned16(dz)) {
+    return -2;
+  }
+  if (pick_tile(tile, d_in, d_out) == 128) {
+    return launch_wgmma_tile<T, 128>(hsub, dz, idx, scale, out, nb, k, n,
+                                     d_in, d_out, stream);
+  }
+  return launch_wgmma_tile<T, 64>(hsub, dz, idx, scale, out, nb, k, n, d_in,
+                                  d_out, stream);
 }
 
 int launch_f32(const void* hsub, const void* dz, const void* idx,
@@ -346,31 +668,46 @@ int launch_f32(const void* hsub, const void* dz, const void* idx,
   return (int)cudaGetLastError();
 }
 
+// Routes of the C interface (kept in step with kernels/fused_sampling.py).
+enum Route : int { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+
 }  // namespace
 
 // hsub (nb, k, d_in) and dz (nb, n, d_out) of `dtype`, idx (nb, k) int32,
 // scale (nb, k) f32, out (d_in, d_out) f32; all contiguous.  `tile`: 0 lets
 // the shape decide, 64 or 128 pins the bf16/f16 output tile (f32 inputs
-// always take the 64x64 FMA kernel).  Returns cudaGetLastError() of the
-// launch (0 = accepted), -1 unknown dtype, -2 unknown tile.  Does not
-// synchronise and allocates nothing.
+// always take the 64x64 FMA kernel).  `route`: 0 fma (f32), 1 wmma, 2
+// wgmma (bf16/f16; d_in and d_out multiples of 8, hsub and dz 16-byte
+// aligned).  Returns cudaGetLastError() of the launch (0 = accepted), -1
+// unknown dtype, -2 unknown tile or a route the shape does not fit, -4 a
+// tensor map that cuTensorMapEncodeTiled refused.  Does not synchronise
+// and allocates nothing.
 extern "C" int repro_fused_sampled_dw(const void* hsub, const void* dz,
                                       const void* idx, const void* scale,
                                       void* out, int nb, int k, int n,
                                       int d_in, int d_out, int dtype, int tile,
-                                      void* stream) {
+                                      int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile != 0 && tile != 64 && tile != 128) return -2;
-  switch (dtype) {
-    case repro::kF32:
+  if (dtype != repro::kF32 && dtype != repro::kBF16 && dtype != repro::kF16) {
+    return -1;
+  }
+  if ((dtype == repro::kF32) != (route == kRouteFma)) return -2;
+  const bool bf16 = dtype == repro::kBF16;
+  switch (route) {
+    case kRouteFma:
       return launch_f32(hsub, dz, idx, scale, out, nb, k, n, d_in, d_out, s);
-    case repro::kBF16:
-      return launch_mma<__nv_bfloat16>(hsub, dz, idx, scale, out, nb, k, n,
+    case kRouteWmma:
+      return bf16 ? launch_mma<__nv_bfloat16>(hsub, dz, idx, scale, out, nb,
+                                              k, n, d_in, d_out, tile, s)
+                  : launch_mma<__half>(hsub, dz, idx, scale, out, nb, k, n,
                                        d_in, d_out, tile, s);
-    case repro::kF16:
-      return launch_mma<__half>(hsub, dz, idx, scale, out, nb, k, n, d_in,
-                                d_out, tile, s);
+    case kRouteWgmma:
+      return bf16 ? launch_wgmma<__nv_bfloat16>(hsub, dz, idx, scale, out, nb,
+                                                k, n, d_in, d_out, tile, s)
+                  : launch_wgmma<__half>(hsub, dz, idx, scale, out, nb, k, n,
+                                         d_in, d_out, tile, s);
     default:
-      return -1;
+      return -2;
   }
 }

@@ -5,13 +5,18 @@ plain PyTorch version and its launch counter.
     out[h] = softmax(q[h] k[h // group]^T / sqrt(Dh), causal) v[h // group]
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::
-flash_attention_fwd`` (and its even-tiling requirement).  The kernel is
-``csrc/flash_attention_fwd.cu``: one block per (bh, 64-row q tile) walking
-the kv tiles up to the causal bound with the online-softmax state
+flash_attention_fwd`` (and its even-tiling requirement).  The kernels are
+in ``csrc/flash_attention_fwd.cu``: one block per (bh, q tile) walking the
+kv tiles up to the causal bound with the online-softmax state
 ``(m, l, acc)`` in f32 registers; kv head ``h // group`` is read in place,
-no repeated K/V copy is made.  bf16/f16 run both products on tensor cores
-(Q K^T exact products with f32 accumulation, P V with p kept in f32 by a
-hi/lo split); f32 inputs take an FMA kernel.  On an H100 it is bound by
+no repeated K/V copy is made.  ``flash_route`` picks one of three routes
+for a shape: ``wgmma`` (bf16/f16 at Dh 64 or 128 with 16-byte-aligned
+q/k/v: TMA ring, warp-specialised wgmma), ``mma`` (other bf16/f16:
+mma.sync) or ``fma`` (f32).  Every bf16/f16 route rounds p once to the
+input dtype before P V with f32 statistics, as ``models/attention.py``
+does; the f32 route keeps p in f32.  ``flash_attention_fwd.launches``
+counts launches, ``.launches_by_route`` splits them by route.  On an H100
+it is bound by
 operations: ``4 * BH * Dh * sum_i(#visible keys)`` flops against
 989 TFLOP/s (bf16/f16) or 67 TFLOP/s (f32), with bytes
 ``(2 * BH * Sq + 2 * BKVH * Skv) * Dh * itemsize`` far below at the
@@ -30,6 +35,21 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+# C route codes are the positions (csrc/flash_attention_fwd.cu: enum Route)
+ROUTES = ("fma", "mma", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def flash_route(dh: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The one kernel route a shape takes: ``fma`` for float32, ``wgmma``
+    for bfloat16/float16 at a head dim of 64 or 128 with every operand
+    starting on a 16-byte boundary (``aligned``), ``mma`` for the other
+    bfloat16/float16 shapes."""
+    if dtype == torch.float32:
+        return "fma"
+    if dh in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "mma"
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -87,15 +107,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, group=group, causal=causal)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {dev}")
+    route = flash_route(dh, q.dtype, _build.aligned16(q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         code = _build.library().repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bh, bkvh, sq, skv, dh, int(causal), _build.DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "flash_attention_fwd")
+            ROUTES.index(route), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, f"flash_attention_fwd ({route} route)")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -6,11 +6,16 @@ PyTorch version and its launch counter.
 Replaces the TPU kernel
 ``repro/kernels/fused_sampling.py::fused_sampled_dw`` (and the idx/scale
 padding and divisor-tiling of ``repro/kernels/ops.py`` around it).  The
-kernel is ``csrc/fused_sampled_dw.cu``: one block per (BM, BN) tile of
-dW looping over every (b, k-block) with the f32 sum in registers, the dz
-rows gathered by the block's own idx slice, scale applied in f32 and
+kernels are in ``csrc/fused_sampled_dw.cu``: one block per (BM, BN) tile
+of dW looping over every (b, k-block) with the f32 sum in registers, the
+dz rows gathered by the block's own idx slice, scale applied in f32 and
 rounded once to the input dtype in shared memory; the gathered dZ' is
-never written to device memory.  On an H100 in bf16 it is bound by
+never written to device memory.  ``dw_route`` picks one of three routes
+for a shape: ``wgmma`` (bf16/f16 with d_in and d_out multiples of 8 and
+16-byte-aligned hsub/dz: H' by TMA, dZ' by cp.async, a four-stage ring,
+warp-specialised wgmma), ``wmma`` (other bf16/f16) or ``fma`` (f32).
+``fused_sampled_dw.launches`` counts launches, ``.launches_by_route``
+splits them by route.  On an H100 in bf16 it is bound by
 operations at the wide projections (``2*B*k*d_in*d_out`` flops against
 989 TFLOP/s) and by bytes at the narrow ones
 (``2*(B*k*d_in + B*k*d_out) + 4*d_in*d_out`` against 3.35 TB/s).  Any
@@ -28,6 +33,22 @@ import torch
 from repro_torch.kernels import _build
 
 TILES = (64, 128)
+# C route codes are the positions (csrc/fused_sampled_dw.cu: enum Route)
+ROUTES = ("fma", "wmma", "wgmma")
+
+
+def dw_route(d_in: int, d_out: int, dtype: torch.dtype,
+             aligned: bool = True) -> str:
+    """The one kernel route a shape takes: ``fma`` for float32, ``wgmma``
+    for bfloat16/float16 when d_in and d_out are multiples of 8 and hsub
+    and dz start on a 16-byte boundary (``aligned``; TMA's strides and base
+    and the 16-byte dZ' chunks need it), ``wmma`` for the other
+    bfloat16/float16 shapes."""
+    if dtype == torch.float32:
+        return "fma"
+    if d_in % 8 == 0 and d_out % 8 == 0 and aligned:
+        return "wgmma"
+    return "wmma"
 
 
 def fused_sampled_dw_plain(hsub: torch.Tensor, dz: torch.Tensor,
@@ -80,16 +101,19 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
         return fused_sampled_dw_plain(hsub, dz, idx, scale)
     if not hsub.is_cuda:
         raise ValueError(f"fused_sampled_dw runs on cuda or cpu, not {dev}")
+    route = dw_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz))
     out = torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _build.library().repro_fused_sampled_dw(
             hsub.data_ptr(), dz.data_ptr(), idx.data_ptr(), scale.data_ptr(),
             out.data_ptr(), b, k, n, d_in, d_out,
-            _build.DTYPE_CODES[hsub.dtype], tile or 0,
+            _build.DTYPE_CODES[hsub.dtype], tile or 0, ROUTES.index(route),
             torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "fused_sampled_dw")
+    _build.check_launch(code, f"fused_sampled_dw ({route} route)")
     fused_sampled_dw.launches += 1
+    fused_sampled_dw.launches_by_route[route] += 1
     return out
 
 
 fused_sampled_dw.launches = 0
+fused_sampled_dw.launches_by_route = dict.fromkeys(ROUTES, 0)

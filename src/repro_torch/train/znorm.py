@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import plans
 from repro_torch.core.config import EstimatorKind, NormSource, WTACRSConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 
@@ -115,8 +116,9 @@ def collect_linear_tags(cfg, policy: Optional[cm.Policy] = None
 
 
 def init_cache(cfg, tags: List[str], n_dataset: int,
-               device="cpu") -> Dict[str, torch.Tensor]:
+               device="cuda") -> Dict[str, torch.Tensor]:
     """All-ones init: first step behaves like activation-only sampling."""
+    device = resolve_device(device)
     return {t: torch.ones((cfg.n_repeats, n_dataset), dtype=torch.float32,
                           device=device)
             for t in tags}
@@ -201,10 +203,11 @@ STAT_COUNT = 3    # number of EMA updates absorbed
 STATS_DECAY = 0.8
 
 
-def init_stats(tags, device="cpu") -> Dict[str, torch.Tensor]:
+def init_stats(tags, device="cuda") -> Dict[str, torch.Tensor]:
     """Neutral init (uniform-looking, zero count): controllers hold
     until ``STAT_COUNT`` clears their warmup, and the first genuine
     update overwrites these values outright (see ``update_stats``)."""
+    device = resolve_device(device)
     base = torch.zeros((N_STATS,), dtype=torch.float32, device=device)
     base[STAT_ESS] = 1.0
     base[STAT_UTIL] = 1.0

@@ -167,8 +167,8 @@ def test_row_norms_wrapper_refuses_what_the_kernel_does_not_take(x, error):
 def test_kernel_sources_are_packaged_and_hashed():
     names = sorted(p.name for p in _build.CSRC.iterdir())
     assert names == ["common.cuh", "flash_attention_fwd.cu",
-                     "fused_sampled_dw.cu", "gather_scale.cu", "row_norms.cu",
-                     "sampled_matmul.cu"]
+                     "fused_sampled_dw.cu", "gather_scale.cu", "hopper.cuh",
+                     "row_norms.cu", "sampled_matmul.cu"]
     assert set(_build._SIGNATURES) == {"repro_row_norms",
                                        "repro_gather_scale",
                                        "repro_sampled_matmul",

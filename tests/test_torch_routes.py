@@ -1,0 +1,116 @@
+"""The kernel routes of the port and the C interface they go through,
+checked without a card or a compiler: ``flash_route`` and ``dw_route`` map
+every shape to exactly one route (the main paths' shapes to ``wgmma``),
+the route codes match the C enums, and every ``extern "C"`` entry point in
+``csrc/*.cu`` takes as many parameters as its ``_build._SIGNATURES`` entry
+declares (a ctypes arity mismatch is silent until the card runs it)."""
+import re
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import fused_sampling
+
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+HALF = (torch.bfloat16, torch.float16)
+
+
+def _extern_c_entries():
+    """{name: (source file, parameter count)} of every extern "C" entry."""
+    out = {}
+    pattern = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in pattern.findall(path.read_text()):
+            out[name] = (path.name, len([p for p in params.split(",")
+                                         if p.strip()]))
+    return out
+
+
+def test_every_entry_point_is_declared_and_every_declaration_exists():
+    assert set(_extern_c_entries()) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_entry_point_arity_matches_its_signature(name):
+    source, n_params = _extern_c_entries()[name]
+    assert n_params == len(_build._SIGNATURES[name]), (
+        f"{source}: {name} takes {n_params} parameters, _build declares "
+        f"{len(_build._SIGNATURES[name])}")
+
+
+@pytest.mark.parametrize("module,source", [
+    (flash_mod, "flash_attention_fwd.cu"),
+    (fused_sampling, "fused_sampled_dw.cu")])
+def test_route_codes_match_the_c_enum(module, source):
+    text = (_build.CSRC / source).read_text()
+    enum = re.search(r"enum Route : int \{([^}]*)\}", text).group(1)
+    codes = {m.group(1).lower(): int(m.group(2))
+             for m in re.finditer(r"kRoute(\w+)\s*=\s*(\d+)", enum)}
+    assert codes == {route: i for i, route in enumerate(module.ROUTES)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_flash_route_maps_every_head_dim_to_one_route(dtype, aligned):
+    for dh in range(8, flash_mod.MAX_HEAD_DIM + 1, 8):
+        route = flash_mod.flash_route(dh, dtype, aligned)
+        assert route in flash_mod.ROUTES
+        if dtype == torch.float32:
+            assert route == "fma"
+        elif aligned and dh in (64, 128):
+            assert route == "wgmma"
+        else:
+            assert route == "mma"
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dh", [64, 128])   # minicpm-2b, qwen2.5-3b
+def test_flash_main_shapes_take_the_wgmma_route(dh, dtype):
+    assert flash_mod.flash_route(dh, dtype) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_dw_route_maps_every_width_to_one_route(dtype, aligned):
+    for d_in in (1, 7, 8, 130, 136, 2048):
+        for d_out in (1, 24, 70, 256, 11008):
+            route = fused_sampling.dw_route(d_in, d_out, dtype, aligned)
+            assert route in fused_sampling.ROUTES
+            if dtype == torch.float32:
+                assert route == "fma"
+            elif aligned and d_in % 8 == 0 and d_out % 8 == 0:
+                assert route == "wgmma"
+            else:
+                assert route == "wmma"
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("d_in,d_out", [(2048, 2048), (2048, 256),
+                                        (2048, 11008), (11008, 2048)])
+def test_dw_main_shapes_take_the_wgmma_route(d_in, d_out, dtype):
+    assert fused_sampling.dw_route(d_in, d_out, dtype) == "wgmma"
+
+
+def test_alignment_is_read_from_the_data_pointer():
+    flat = torch.zeros(64, dtype=torch.bfloat16)
+    assert _build.aligned16(flat[:32], flat[8:40])
+    assert not _build.aligned16(flat[:32], flat[1:33])
+
+
+@pytest.mark.parametrize("name,module", [
+    ("flash_attention_fwd", flash_mod), ("fused_sampled_dw", fused_sampling)])
+def test_launches_by_route_names_every_route_and_cpu_calls_count_none(
+        name, module):
+    fn = getattr(ops, name)
+    assert set(fn.launches_by_route) == set(module.ROUTES)
+    before = dict(fn.launches_by_route)
+    if name == "flash_attention_fwd":
+        q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
+        fn(q, q[:1].clone(), q[:1].clone(), group=2)
+    else:
+        h = torch.randn(1, 3, 16, dtype=torch.bfloat16)
+        z = torch.randn(1, 4, 8, dtype=torch.bfloat16)
+        fn(h, z, torch.zeros(1, 3, dtype=torch.int32), torch.ones(1, 3))
+    assert fn.launches_by_route == before

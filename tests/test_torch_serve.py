@@ -152,9 +152,9 @@ def test_prefill_matches_jax_in_f32(arch):
     step = train_steps.make_prefill_step(tcfg, POLICY, **CPU)
     last, states = step(params, {"tokens": toks})
     assert last.shape == (2, tcfg.vocab_size)
-    # f32 on both sides: the kernel's p-in-f32 PV and the reference's
-    # p-rounded-to-the-input-dtype PV are the same function; only the
-    # summation orders differ
+    # f32 on both sides: the plain version's PV (what the kernel wrapper
+    # runs on the CPU) and the reference's p-rounded-to-the-input-dtype PV
+    # are the same function in f32; only the summation orders differ
     np.testing.assert_allclose(_np(last), _np(jlast), rtol=1e-4, atol=1e-4)
     assert len(states) == len(jstates) == 1
     for name in ("k", "v"):
@@ -174,14 +174,16 @@ def test_prefill_matches_jax_in_bf16():
         params, {"tokens": toks})
     assert last.dtype == torch.bfloat16
     assert states[0]["k"].dtype == torch.bfloat16
-    # bf16: the kernel keeps p in f32 where the reference's prefill rounds
-    # it to bf16, and bf16 rounds at other places in the two frameworks:
-    # the reference's own prefill-vs-forward tolerance, 3e-2
+    # bf16: on the CPU the kernel wrapper runs its plain version, which
+    # keeps p in f32 where the reference's prefill (and the kernel on the
+    # card) rounds it to bf16, and bf16 rounds at other places in the two
+    # frameworks: the reference's own prefill-vs-forward tolerance, 3e-2
     np.testing.assert_allclose(_np(last), _np(jlast), rtol=3e-2, atol=3e-2)
     # The first layer's K/V come straight from the embeddings: 3e-2.
     # Deeper layers' K/V are read off a residual stream that already went
     # through bf16 attention rounded differently (p in f32 here, in bf16
-    # there) and are compared only through the last logits above.
+    # there; 0.034 apart in the second layer) and are compared only
+    # through the last logits above.
     for name in ("k", "v"):
         np.testing.assert_allclose(_np(states[0][name][0]),
                                    _np(jstates[0][name][0]),

@@ -144,8 +144,8 @@ def test_init_cache_and_stats_equal_the_reference():
     tcfg = get_config("qwen2.5-3b", reduced=True)
     tags = ["b0/mlp_wi", "b0/mlp_wo"]
     want = jax_znorm.init_cache(jcfg, tags, 6)
-    got = znorm.init_cache(tcfg, tags, 6)
-    ws, gs = jax_znorm.init_stats(tags), znorm.init_stats(tags)
+    got = znorm.init_cache(tcfg, tags, 6, device="cpu")
+    ws, gs = jax_znorm.init_stats(tags), znorm.init_stats(tags, device="cpu")
     for t in tags:
         np.testing.assert_array_equal(got[t].numpy(), np.asarray(want[t]))
         np.testing.assert_array_equal(gs[t].numpy(), np.asarray(ws[t]))
@@ -164,7 +164,7 @@ def test_update_stats_sequence_equals_the_reference(seed):
     genuine update replaces the neutral init; held tags keep their count."""
     rng = np.random.RandomState(seed)
     tags = ["b0/mlp_wi", "b0/mlp_wo", "b1/mlp_wi"]
-    js, ts = jax_znorm.init_stats(tags), znorm.init_stats(tags)
+    js, ts = jax_znorm.init_stats(tags), znorm.init_stats(tags, device="cpu")
     r, b = 2, 4
     for i in range(6):
         taps = {}
@@ -198,26 +198,26 @@ def test_update_stats_sequence_equals_the_reference(seed):
 def test_stat_vector_by_hand():
     """One dominant atom out of four (z = 10, 1, 1, 1), budget 0.5."""
     stats = znorm.update_stats(
-        znorm.init_stats(["t"]),
+        znorm.init_stats(["t"], device="cpu"),
         {"t": torch.tensor([[100.0, 1.0, 1.0, 1.0]])}, {"t": 0.5})
     v = stats["t"].numpy()
     assert v[znorm.STAT_ESS] == pytest.approx(169 / 412, rel=1e-6)
     assert v[znorm.STAT_COND] == 1.0
     assert v[znorm.STAT_UTIL] == pytest.approx(11 / 13, rel=1e-6)
     assert v[znorm.STAT_COUNT] == 1.0
-    zero = znorm.update_stats(znorm.init_stats(["t"]),
+    zero = znorm.update_stats(znorm.init_stats(["t"], device="cpu"),
                               {"t": torch.zeros(1, 4)}, {"t": 0.5})["t"]
     assert float(zero[znorm.STAT_ESS]) == pytest.approx(1.0)
     assert float(zero[znorm.STAT_UTIL]) == pytest.approx(0.5)
 
 
 def test_stats_ignore_taps_that_are_not_their_keys():
-    stats = znorm.init_stats(["a"])
+    stats = znorm.init_stats(["a"], device="cpu")
     new = znorm.update_stats(stats, {"a": torch.ones(1, 4),
                                      "router": torch.full((7, 13), 1e9)},
                              {"a": 0.5})
     assert set(new) == {"a"}
-    held = znorm.update_stats(znorm.init_stats(["a", "b"]),
+    held = znorm.update_stats(znorm.init_stats(["a", "b"], device="cpu"),
                               {"a": torch.ones(1, 4)}, {"a": 0.5, "b": 0.5})
     assert float(held["b"][znorm.STAT_COUNT]) == 0.0
 
