@@ -15,10 +15,13 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            composition and the card's bound; the reference's unfused
            composition row_norms -> plan -> gather_scale -> sampled_matmul
            against fused_sampled_dw at full width; a plan index outside
-           [0, n) ends each gathering kernel in a device-side assert.
-           flash_attention_fwd and fused_sampled_dw report the route each
-           case took (launches_by_route; wgmma wherever the shape allows,
-           edge shapes and misaligned operands included); flash bf16 is
+           [0, n) ends each gathering kernel in a device-side assert
+           (sampled_matmul on both of its wgmma tiles).
+           flash_attention_fwd, fused_sampled_dw and sampled_matmul report
+           the route each case took (launches_by_route; wgmma wherever the
+           shape allows, edge shapes and misaligned operands included);
+           sampled_matmul's timed cases also time the kernel alone on
+           operands planned once; flash bf16 is
            also held against the tensor-op models/attention.py
   parity   one det_topk train step of a reduced config: card (kernels)
            against CPU (plain versions), f32
@@ -59,6 +62,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +138,16 @@ GATHER_RAGGED_BATCHED = (3, 7, 5, 4)
 SMM_SWEEP_2D = [(16, 32, 24, 64), (20, 130, 70, 50), (8, 16, 16, 16),
                 (64, 128, 96, 200)]
 SMM_SWEEP_BATCHED = [(2, 20, 50, 130, 70), (8, 12, 30, 33, 17)]
+# the wgmma route's edges: 256 x 128 tiles in clusters of two with d_in not
+# a multiple of 64, an odd count (7) of d_out tiles, the k tail 307 and
+# k < 64, d_out a multiple of 8 but not of 64; 64 x 64 tiles at narrow
+# edges (plan slot 1 repeats slot 0: duplicate indices)
+SMM_EDGE = [(4, 307, 1024, 2056, 896), (2, 40, 300, 4096, 1160),
+            (4, 307, 1024, 136, 200), (1, 65, 70, 8, 1032)]
+
+
+def card_sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def emit(obj) -> None:
@@ -180,6 +194,40 @@ def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def ptxas_report(log, source):
+    """{kernel instance: registers and spill bytes} of the kernels nvcc
+    built from ``source`` (a file of csrc/), read off the build log."""
+    tag = source.replace(".", "_")
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if tag in m.group(1) else None
+            if name:
+                # the length-prefixed identifier that names the kernel
+                kernel = next(
+                    name[m.end():m.end() + int(m.group(1))]
+                    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", name)
+                    if name[m.end():m.end() + int(m.group(1))].endswith(
+                        "_kernel"))
+                dtype = ("bf16" if "bfloat16" in name else
+                         "f16" if "__half" in name else "f32")
+                args = ", ".join([dtype] + re.findall(r"Li(\d+)E", name))
+                name = f"{kernel}<{args}>"
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -361,11 +409,11 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
             dup=False):
     """A sampled weight-gradient kernel of ``DW_KERNELS`` against its plain
     version (``fused_sampled_dw`` at both pinned tiles too, for bf16/f16;
-    ``sampled_matmul`` picks its own, 128 at the wide main shapes and 64 at
-    2048 x 256); ``two_d`` calls its 2-D form.  Timed: beside its bound,
-    plain version, the library composition, each pinned tile
-    (``fused_sampled_dw``), and (``sampled_matmul``) the fused kernel at
-    the same shape."""
+    ``sampled_matmul`` takes what ``smm_route`` picks); ``two_d`` calls its
+    2-D form.  Timed: beside its bound, plain version, the library
+    composition, each pinned tile (``fused_sampled_dw``), and
+    (``sampled_matmul``) the fused kernel at the same shape and the kernel
+    alone on operands planned once."""
     kernel, plain, source, replaces = DW_KERNELS[name]
     hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen, dup)
     want = plain(hsub, dz, idx, scale)
@@ -384,11 +432,9 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
     max_err, routes = 0.0, set()
     for tile in (None, 64, 128) if pinned else (None,):
         out = []
-        if name == "fused_sampled_dw":
-            routes.update(routes_taken(name, lambda: out.append(
-                kernel(*args, tile=tile))))
-        else:
-            out.append(kernel(*args))
+        pin = {"tile": tile} if name == "fused_sampled_dw" else {}
+        routes.update(routes_taken(name, lambda: out.append(
+            kernel(*args, **pin))))
         torch.cuda.synchronize()
         max_err = max(max_err, check_close(
             f"{name} B={b} k={k} n={n} ({d_in},{d_out}) 2d={two_d} {dtype} "
@@ -400,9 +446,13 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
         "dtype": DTYPE_NAMES[dtype], "max_abs_err": max_err,
         "tol": {"rtol": rtol, "atol": atol},
     }
-    if name == "fused_sampled_dw":
-        case["kernel_route"] = "+".join(sorted(routes))
-        case["duplicate_indices"] = dup
+    case["kernel_route"] = "+".join(sorted(routes))
+    case["duplicate_indices"] = dup
+    if name == "sampled_matmul":
+        r = sampled_matmul_mod.smm_route(d_in, d_out, dtype, True,
+                                         card_sms())
+        case["tile"] = {"d_in": r.tile_m, "d_out": r.tile_n,
+                        "cluster": r.cluster}
     if timed:
         bound_s, bound_by = dw_bound(hsub, dz, idx)
         case.update({
@@ -420,13 +470,19 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
         if name == "sampled_matmul":
             case["fused_sampled_dw_ms"] = time_ms(
                 lambda: ops.fused_sampled_dw(hsub, dz, idx, scale))
+            # the kernel alone on operands planned once (the wrapper's share
+            # is its host planning and, on the wmma / fma routes, the pad)
+            planned = sampled_matmul_mod.plan_operands(hsub, dz, idx, scale,
+                                                       r)
+            case["kernel_alone_ms"] = time_ms(
+                lambda: sampled_matmul_mod.launch(*planned, r))
     return case
 
 
-def dw_misaligned_case(dtype, gen):
-    """``fused_sampled_dw`` on operands that start 2 bytes off a 16-byte
-    boundary at a shape the wgmma route takes: the wmma route, held to the
-    plain version at the dW tolerance."""
+def dw_misaligned_case(name, dtype, gen):
+    """A kernel of ``DW_KERNELS`` on operands that start 2 bytes off a
+    16-byte boundary at a shape the wgmma route takes: the wmma route, held
+    to the plain version at the dW tolerance."""
     b, k, n, d_in, d_out = 2, 70, 90, 128, 192
     hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen)
 
@@ -436,18 +492,17 @@ def dw_misaligned_case(dtype, gen):
         return flat[1:].view(x.shape)
     hsub, dz = shifted(hsub), shifted(dz)
     out = []
-    routes = routes_taken("fused_sampled_dw", lambda: out.append(
-        ops.fused_sampled_dw(hsub, dz, idx, scale)))
+    routes = routes_taken(name, lambda: out.append(
+        getattr(ops, name)(hsub, dz, idx, scale)))
     torch.cuda.synchronize()
     rtol, atol = 1e-4, 1e-4 * math.sqrt(b * k)
     want = fused_sampling.fused_sampled_dw_plain(hsub, dz, idx, scale)
-    return {"name": "fused_sampled_dw", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "kernel_route": "+".join(routes), "misaligned": True,
             "shape": {"B": b, "k": k, "n": n, "d_in": d_in, "d_out": d_out},
             "dtype": DTYPE_NAMES[dtype],
             "max_abs_err": check_close(
-                f"fused_sampled_dw misaligned {dtype}", out[0], want, rtol,
-                atol),
+                f"{name} misaligned {dtype}", out[0], want, rtol, atol),
             "tol": {"rtol": rtol, "atol": atol}}
 
 
@@ -458,7 +513,8 @@ def composition_case(gen):
     fused_sampled_dw on the same plan; and the benchmark's unfused form
     (per-sample gather_scale of dZ with the scale, then sampled_matmul on
     the identity plan).  The launches of this one untimed run are the
-    sampled_matmul count of the summary.  Returns (case, launches)."""
+    sampled_matmul count of the summary.  Returns (case, launches, the
+    sampled_matmul launches by route)."""
     dtype, d_in, d_out = torch.bfloat16, 2048, 11008
     h = torch.randn((B, S, d_in), generator=gen, device="cuda").to(dtype)
     dz = torch.randn((B, S, d_out), generator=gen, device="cuda").to(dtype)
@@ -486,6 +542,7 @@ def composition_case(gen):
     launches = expect_launches("composition", {
         "row_norms": 1, "gather_scale": 1 + B, "sampled_matmul": 2,
         "fused_sampled_dw": 1})
+    by_route = expect_route("composition", "sampled_matmul", "wgmma")
     # H' at unit scale is the plain row gather bit for bit
     rows = torch.gather(h, 1, idx.to(torch.int64)[:, :, None].expand(
         B, K, d_in))
@@ -506,7 +563,8 @@ def composition_case(gen):
             "tol": {"rtol": rtol, "atol": atol},
             "fused_ms": fused_ms, "unfused_bench_form_ms": unfused_ms,
             "fused_vs_unfused": unfused_ms / fused_ms,
-            "reference_floor": 1.2, "launches": launches}, launches
+            "reference_floor": 1.2, "launches": launches,
+            "sampled_matmul_launches_by_route": by_route}, launches, by_route
 
 
 # The child of ``bad_index_cases``: one kernel handed a plan index outside
@@ -516,9 +574,9 @@ import sys
 import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch.kernels import ops
-name = sys.argv[2]
-x = torch.ones((2, 8, 64), dtype=torch.bfloat16, device="cuda")
-hsub = torch.ones((2, 32, 64), dtype=torch.bfloat16, device="cuda")
+name, d = sys.argv[2], int(sys.argv[3])
+x = torch.ones((2, 8, d), dtype=torch.bfloat16, device="cuda")
+hsub = torch.ones((2, 32, d), dtype=torch.bfloat16, device="cuda")
 idx = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
 idx[1, 5] = 8
 scale = torch.ones((2, 32), device="cuda")
@@ -534,7 +592,10 @@ except RuntimeError as err:
 print("no error")
 sys.exit(1)
 """
-BAD_INDEX_KERNELS = ("gather_scale", "sampled_matmul", "fused_sampled_dw")
+# (kernel, width): sampled_matmul at 64 takes the 64 x 64 wgmma tile, at
+# 2048 the 256 x 128 tiles in clusters of two
+BAD_INDEX_KERNELS = (("gather_scale", 64), ("sampled_matmul", 64),
+                     ("sampled_matmul", 2048), ("fused_sampled_dw", 64))
 
 
 def bad_index_cases():
@@ -544,10 +605,10 @@ def bad_index_cases():
     One child process a kernel, all started together, since the assert
     ends its process's CUDA context."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-c", BAD_INDEX_CHILD, src, name],
+    procs = {f"{name} d={d}": subprocess.Popen(
+        [sys.executable, "-c", BAD_INDEX_CHILD, src, name, str(d)],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        for name in BAD_INDEX_KERNELS}
+        for name, d in BAD_INDEX_KERNELS}
     out = {}
     try:
         for name, proc in procs.items():
@@ -693,7 +754,11 @@ def phase_kernels():
         for shape in FUSED_EDGE:
             cases.append(dw_case("fused_sampled_dw", *shape, dtype, gen,
                                  timed=False, dup=True))
-        cases.append(dw_misaligned_case(dtype, gen))
+        for shape in SMM_EDGE:
+            cases.append(dw_case("sampled_matmul", *shape, dtype, gen,
+                                 timed=False, dup=True))
+        for name in DW_KERNELS:
+            cases.append(dw_misaligned_case(name, dtype, gen))
     # a view that starts off a 16-byte boundary takes the element-wise path
     flat = torch.randn((64 * 256 + 8,), generator=gen, device="cuda")
     x = flat.to(torch.bfloat16)[1:1 + 64 * 256].reshape(64, 256)
@@ -715,7 +780,7 @@ def phase_kernels():
         for shape in SMM_SWEEP_BATCHED:
             cases.append(dw_case("sampled_matmul", *shape, dtype, gen,
                                  timed=False))
-    composition, comp_launches = composition_case(gen)
+    composition, comp_launches, comp_routes = composition_case(gen)
     # the route each case must have taken: the wgmma route wherever its
     # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case)
     for c in cases:
@@ -724,16 +789,20 @@ def phase_kernels():
         dtype = getattr(torch, c["dtype"])
         aligned = not c.get("misaligned", False)
         sh = c["shape"]
-        want = (flash_mod.flash_route(sh["Dh"], dtype, aligned)
-                if c["name"] == "flash_attention_fwd" else
-                fused_sampling.dw_route(sh["d_in"], sh["d_out"], dtype,
-                                        aligned))
+        if c["name"] == "flash_attention_fwd":
+            want = flash_mod.flash_route(sh["Dh"], dtype, aligned)
+        elif c["name"] == "fused_sampled_dw":
+            want = fused_sampling.dw_route(sh["d_in"], sh["d_out"], dtype,
+                                           aligned)
+        else:
+            want = sampled_matmul_mod.smm_route(
+                sh["d_in"], sh["d_out"], dtype, aligned, card_sms()).route
         if c["kernel_route"] != want:
             fail(f"{c['name']} {sh} {c['dtype']}: took the "
                  f"{c['kernel_route']} route, expected {want}")
     emit({"phase": "kernels", "cases": cases, "composition": composition,
           "bad_index": bad_index_cases()})
-    return cases, comp_launches
+    return cases, comp_launches, comp_routes
 
 
 # ---------------------------------------------------------------------------
@@ -1377,14 +1446,22 @@ def main() -> int:
         lib = _build.build()
         _build.library()
         log = (lib.parent / "build.log").read_text()
+        smm_ptxas = ptxas_report(log, "sampled_matmul.cu")
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "library": os.path.relpath(lib),
               "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+                        if "registers" in ln or "spill" in ln],
+              "sampled_matmul_ptxas": smm_ptxas})
+        # the wgmma route holds 128 accumulators a thread: a spill there
+        # would put the sum in local memory
+        for kernel, info in smm_ptxas.items():
+            if kernel.startswith("smm_wgmma_kernel") and (
+                    info.get("spill_stores") or info.get("spill_loads")):
+                fail(f"build: {kernel} spills: {info}")
 
     cases, launches, by_route = [], {}, {}
     if "kernels" in phases:
-        cases, comp_launches = phase_kernels()
+        cases, comp_launches, by_route["sampled_matmul"] = phase_kernels()
         launches["sampled_matmul"] = comp_launches["sampled_matmul"]
     if "parity" in phases:
         phase_parity()

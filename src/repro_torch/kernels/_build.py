@@ -46,7 +46,7 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_gather_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_sampled_matmul": (_P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

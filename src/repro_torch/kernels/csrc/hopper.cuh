@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels, as
 // inline PTX: mbarriers, the async-proxy fence, cp.async with zero fill,
-// TMA tile loads from a
-// tensor map, wgmma (shared-memory descriptors with the 128-byte swizzle,
-// fence / commit / wait, m64nNk16 bf16/f16 -> f32 with A from shared
-// memory or registers), setmaxnreg and named barriers; on the host, the
-// tensor-map encoder (cuTensorMapEncodeTiled) looked up at run time
-// through the CUDA runtime, so the library needs no -lcuda.
+// TMA tile loads from a tensor map (multicast to the blocks of a cluster
+// too) and TMA tile stores, thread block clusters (rank, cluster barrier,
+// an arrival on a peer block's mbarrier), wgmma (shared-memory descriptors
+// with the 128-byte swizzle, fence / commit / wait, m64nNk16 bf16/f16 ->
+// f32 with A from shared memory or registers), setmaxnreg and named
+// barriers; on the host, the tensor-map encoder (cuTensorMapEncodeTiled)
+// looked up at run time through the CUDA runtime, so the library needs no
+// -lcuda.
 //
 // Shared-memory tiles are stacks of 128-byte swizzle atoms: 8 rows of 128
 // bytes (64 16-bit values), 16-byte chunk c of row r stored at chunk
@@ -146,6 +148,89 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The same tile written into the shared memory of every block of the
+// cluster named in `cta_mask` (bit r: rank r), each at the offset `dst` has
+// in this block, its bytes counted on the barrier at `bar`'s offset in each
+// of them.
+__device__ __forceinline__ void tma_load_3d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+    uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes and barrier inits before it are visible to the whole
+// cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// One arrival on the barrier at `bar`'s offset in the shared memory of
+// cluster block `rank` (this block's own included).  The default .release
+// at CTA scope: a cluster-scope release here made every arrival wait on the
+// thread's outstanding memory operations and cost about 1 us a pipeline
+// step on an H100 (PERF.md).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA stores: shared -> global in this thread's bulk groups
+// ---------------------------------------------------------------------------
+// One tile of a 2-D tensor map at coordinates (c0 innermost, c1) from
+// shared memory; elements past the tensor's extent are not written.  The
+// generic-proxy writes of the tile must be fenced (fence_proxy_async) and
+// synchronised with the issuing thread first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be rewritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -350,6 +435,24 @@ inline bool make_map_3d(CUtensorMap* map, const void* base, uint64_t d0,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map over a contiguous (d1, d0) f32 tensor (d0 innermost) with box
+// (32, box1) and the 128-byte swizzle: rows of 32 floats, 16-byte chunk c
+// of row r at chunk c ^ (r % 8).  A store writes nothing past any extent.
+// Needs a 16-byte-aligned base and d0 % 4 == 0.
+inline bool make_map_2d_f32(CUtensorMap* map, void* base, uint64_t d0,
+                            uint64_t d1, uint32_t box1) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0 * 4};
+  const cuuint32_t box[2] = {32, box1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,19 +1,28 @@
 """The even-tiled sampled weight-gradient — the CUDA kernel's wrapper (host
-padding included), its plain PyTorch version and its launch counter.
+planning included), its plain PyTorch version and its launch counter.
 
     dW (d_in, d_out) f32 = sum_b hsub_b^T @ (dz_b[idx_b] * scale_b)
 
 Replaces the TPU kernel ``repro/kernels/sampled_matmul.py::sampled_matmul``
-and keeps its contract, padding included (``repro/kernels/ops.py``): the
-wrapper pads H' (k rows, d_in columns) and dZ (d_out columns) with zeros
-to block multiples, pads idx/scale with idx 0 and scale 0 (padded slots
-contribute nothing), runs the kernel on the padded operands and slices
-the result back.  The kernel is ``csrc/sampled_matmul.cu``: one block per
-(tile, tile) piece of dW looping over every (b, k-block), the k-block's dz
-rows gathered by idx into shared memory with the scale applied in f32 and
-rounded once to the input dtype; it takes only evenly tiled shapes.  On an
-H100 in bf16 it is bound by operations at the wide projections
-(``2*B*k*d_in*d_out`` on the unpadded k against 989 TFLOP/s).
+and keeps its contract: padded plan slots are idx 0, scale 0 and
+contribute nothing (``repro/kernels/ops.py``).  The kernels are in
+``csrc/sampled_matmul.cu``; ``smm_route`` picks one route, tile and
+cluster for a shape:
+
+* ``wgmma`` (bf16/f16, d_in and d_out multiples of 8, hsub and dz
+  16-byte aligned): the Hopper kernel.  256 x 128 dW tiles, two blocks
+  along d_out sharing one H' tile by TMA multicast, where that still gives
+  half the SMs a block; else 64 x 64 tiles without a cluster.  Nothing is
+  padded or copied: TMA reads H' past k and d_in as zeros, the kernel
+  fetches plan slots past k as idx 0, scale 0 and predicates the d_out
+  edge.
+* ``wmma`` (other bf16/f16) and ``fma`` (f32): even tiles only; the
+  wrapper pads H' (k rows, d_in columns) and dZ (d_out columns) with
+  zeros to the tile (``pad_operands``) and slices the result back.
+
+``sampled_matmul.launches`` counts launches, ``.launches_by_route`` splits
+them by route.  On an H100 in bf16 it is bound by operations at the wide
+projections (``2*B*k*d_in*d_out`` on the unpadded k against 989 TFLOP/s).
 
 The reference keeps this kernel as the unfused baseline the fused kernel
 (``fused_sampling.py``) is measured against: ``row_norms -> plan ->
@@ -21,17 +30,31 @@ gather_scale -> sampled_matmul``.  Nothing on the train path calls it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, fused_sampling
 
-# contraction slots per tile: mma tiles of 32 for bf16/f16, FMA tiles of 16
-# for f32 (csrc/sampled_matmul.cu)
+# contraction slots per tile of the even-tiled routes: mma tiles of 32 for
+# bf16/f16, FMA tiles of 16 for f32 (csrc/sampled_matmul.cu)
 BK = {torch.bfloat16: 32, torch.float16: 32, torch.float32: 16}
 F32_TILE = 64
+# the SM count the host plans for where there is no card (an H100's)
+H100_SMS = 132
+# C route codes are the positions (csrc/sampled_matmul.cu: enum Route)
+ROUTES = ("fma", "wmma", "wgmma")
+
+
+class SmmRoute(NamedTuple):
+    """One kernel configuration: the route, the dW tile of a block (rows
+    along d_in, columns along d_out) and how many blocks along d_out share
+    one H' tile (a thread block cluster)."""
+    route: str
+    tile_m: int
+    tile_n: int
+    cluster: int
 
 
 # The same function as the fused kernel computes, hence its plain version:
@@ -42,15 +65,37 @@ sampled_matmul_plain = fused_sampling.fused_sampled_dw_plain
 
 def choose_tile(dtype: torch.dtype, d_in: int, d_out: int,
                 sms: Optional[int]) -> int:
-    """The output tile the operands are padded to: 64 for f32; for
-    bf16/f16 128 when that still gives every SM a tile, else 64 (the
-    same rule as ``fused_sampled_dw``).  ``sms=None`` (no card) takes 64."""
+    """The square output tile of the ``wmma`` / ``fma`` routes, which the
+    operands are padded to: 64 for f32; for bf16/f16 128 when that still
+    gives every SM a tile, else 64 (the same rule as
+    ``fused_sampled_dw``).  ``sms=None`` takes 64."""
     if dtype == torch.float32:
         return F32_TILE
     if sms is None:
         return 64
     tiles128 = -(-d_in // 128) * -(-d_out // 128)
     return 128 if tiles128 >= sms else 64
+
+
+def smm_route(d_in: int, d_out: int, dtype: torch.dtype,
+              aligned: bool = True, sms: int = H100_SMS) -> SmmRoute:
+    """The one kernel configuration a shape takes: ``fma`` (64 x 64) for
+    float32; ``wgmma`` for bfloat16/float16 when d_in and d_out are
+    multiples of 8 and hsub and dz start on a 16-byte boundary
+    (``aligned``; TMA's strides and base and the 16-byte dZ' chunks need
+    it) — 256 x 128 tiles in clusters of two along d_out when that gives
+    at least half of the ``sms`` SMs a block, else 64 x 64 tiles without
+    a cluster; ``wmma`` with ``choose_tile``'s square tile for the other
+    bfloat16/float16 shapes."""
+    if dtype == torch.float32:
+        return SmmRoute("fma", F32_TILE, F32_TILE, 1)
+    if d_in % 8 or d_out % 8 or not aligned:
+        tile = choose_tile(dtype, d_in, d_out, sms)
+        return SmmRoute("wmma", tile, tile, 1)
+    blocks = 2 * -(-d_in // 256) * -(-d_out // 256)
+    if 2 * blocks >= sms:
+        return SmmRoute("wgmma", 256, 128, 2)
+    return SmmRoute("wgmma", 64, 64, 1)
 
 
 def pad_operands(hsub, dz, idx, scale, tile: int, bk: int):
@@ -69,17 +114,48 @@ def pad_operands(hsub, dz, idx, scale, tile: int, bk: int):
     return hsub, dz, idx, scale
 
 
+def plan_operands(hsub, dz, idx, scale, r: SmmRoute):
+    """The operands route ``r``'s kernel is handed.  ``wgmma``: all four as
+    they are — TMA reads H' past k and d_in as zeros and the kernel fetches
+    the plan's slots past k as idx 0, scale 0, so nothing is copied.
+    ``wmma`` / ``fma``: ``pad_operands`` to the tile, each operand then
+    starting on a 16-byte boundary (a misaligned view is copied)."""
+    if r.route == "wgmma":
+        return hsub, dz, idx, scale
+    padded = pad_operands(hsub, dz, idx, scale, r.tile_m, BK[hsub.dtype])
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in padded)
+
+
+def launch(hsub, dz, idx, scale, r: SmmRoute) -> torch.Tensor:
+    """Route ``r``'s kernel on ``plan_operands``' output (CUDA tensors):
+    the padded (d_in', d_out') f32 result.  Raises if the launch is
+    refused; counts the launch."""
+    b, k, d_in = hsub.shape
+    n, d_out = dz.shape[1], dz.shape[2]
+    out = torch.empty((d_in, d_out), dtype=torch.float32, device=hsub.device)
+    with torch.cuda.device(hsub.device):
+        code = _build.library().repro_sampled_matmul(
+            hsub.data_ptr(), dz.data_ptr(), idx.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), b, k, n, d_in, d_out,
+            _build.DTYPE_CODES[hsub.dtype], r.tile_m,
+            ROUTES.index(r.route), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, f"sampled_matmul ({r.route} route)")
+    sampled_matmul.launches += 1
+    sampled_matmul.launches_by_route[r.route] += 1
+    return out
+
+
 def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """hsub (k, d_in), dz (n, d_out), idx/scale (k,); or the batched form
     hsub (B, k, d_in), dz (B, n, d_out), idx/scale (B, k) -> (d_in, d_out)
     f32.  One float dtype for hsub and dz, idx int32 rows of dz, scale f32.
 
-    The operands are padded to the tiling ``choose_tile`` picks on either
-    device; then a CUDA tensor launches the kernel (or raises) and only
-    tensors that lie on the CPU take the plain version.  An index outside
-    [0, n) raises: on the CPU at once, on the card as a device-side assert
-    at the next synchronisation.
+    ``smm_route`` picks the kernel configuration and ``plan_operands``
+    prepares its operands on either device; then a CUDA tensor launches
+    the kernel (or raises) and only tensors that lie on the CPU take the
+    plain version.  An index outside [0, n) raises: on the CPU at once, on
+    the card as a device-side assert at the next synchronisation.
     """
     if hsub.ndim not in (2, 3) or dz.ndim != hsub.ndim:
         raise ValueError(f"sampled_matmul wants hsub (k, d_in) / dz "
@@ -105,22 +181,13 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sampled_matmul runs on cuda or cpu, not {dev}")
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else None)
-    tile = choose_tile(hsub.dtype, d_in, d_out, sms)
-    hp, zp, ip, sp = pad_operands(hsub, dz, idx, scale, tile, BK[hsub.dtype])
+           if dev.type == "cuda" else H100_SMS)
+    r = smm_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz), sms)
+    planned = plan_operands(hsub, dz, idx, scale, r)
     if dev.type == "cpu":
-        return sampled_matmul_plain(hp, zp, ip, sp)[:d_in, :d_out]
-    out = torch.empty((hp.shape[2], zp.shape[2]), dtype=torch.float32,
-                      device=dev)
-    with torch.cuda.device(dev):
-        code = _build.library().repro_sampled_matmul(
-            hp.data_ptr(), zp.data_ptr(), ip.data_ptr(), sp.data_ptr(),
-            out.data_ptr(), b, hp.shape[1], n, hp.shape[2], zp.shape[2],
-            _build.DTYPE_CODES[hsub.dtype], tile,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "sampled_matmul")
-    sampled_matmul.launches += 1
-    return out[:d_in, :d_out]
+        return sampled_matmul_plain(*planned)[:d_in, :d_out]
+    return launch(*planned, r)[:d_in, :d_out]
 
 
 sampled_matmul.launches = 0
+sampled_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -17,7 +17,7 @@ from repro.core.kernel_config import KernelConfig as JaxKernelConfig
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.core import WTACRSConfig, linear
-from repro_torch.kernels import fused_sampling, gather_scale, ops
+from repro_torch.kernels import _build, fused_sampling, gather_scale, ops
 from repro_torch.kernels import sampled_matmul as smm
 
 torch.set_num_threads(1)
@@ -292,6 +292,54 @@ def test_sampled_matmul_pads_to_the_tiling_and_slices_back(tile):
     assert smm.choose_tile(torch.bfloat16, 2048, 11008, 132) == 128
     assert smm.choose_tile(torch.bfloat16, 2048, 256, 132) == 64
     assert smm.choose_tile(torch.float32, 2048, 11008, 132) == 64
+
+
+@pytest.mark.parametrize("sms", [1, 132])   # 256 x 128 in clusters / 64 x 64
+@pytest.mark.parametrize("b,k,n,di,do", [(2, 20, 50, 136, 72),
+                                         (3, 70, 40, 264, 392),
+                                         (1, 64, 64, 64, 64)])
+def test_wgmma_route_hands_the_operands_over_unpadded(b, k, n, di, do, sms):
+    """The wgmma route pads and copies nothing (TMA reads H' past k and d_in
+    as zeros, the kernel fetches plan slots past k as idx 0, scale 0 and
+    predicates the d_out edge): its operands give the same plain result as
+    the reference's fully padded ones (``pad_operands`` to the kernel's
+    tiles and 64-slot steps)."""
+    _, (h, z, idx, scale) = _smm_inputs(b, k, di, do, n, "bfloat16", b + di)
+    r = smm.smm_route(di, do, torch.bfloat16, True, sms)
+    assert r.route == "wgmma"
+    assert r.cluster == (2 if r.tile_m == 256 else 1)
+    planned = smm.plan_operands(h, z, idx, scale, r)
+    assert all(p is t for p, t in zip(planned, (h, z, idx, scale)))
+    padded = smm.pad_operands(h, z, idx, scale, r.tile_m, 64)
+    assert padded[0].shape[1] % 64 == 0 and padded[2].shape[1] % 64 == 0
+    got = smm.sampled_matmul_plain(*planned)
+    want = smm.sampled_matmul_plain(*padded)[:di, :do]
+    # the padding adds exact zeros to the same f32 sums
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(ops.sampled_matmul(h, z, idx, scale).numpy(),
+                               want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_a_misaligned_view_takes_the_wmma_route_on_aligned_copies(dtype):
+    """hsub and dz starting 2 bytes off a 16-byte boundary: the wmma route,
+    whose even-tiled kernel loads 16-byte chunks, is handed padded or
+    copied operands that all start on a boundary; the result is unchanged."""
+    _, (h, z, idx, scale) = _smm_inputs(2, 64, 128, 192, 90, dtype, 5)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+        flat[1:] = x.flatten()
+        return flat[1:].view(x.shape)
+    hs, zs = shifted(h), shifted(z)
+    r = smm.smm_route(128, 192, hs.dtype, _build.aligned16(hs, zs))
+    assert r.route == "wmma"
+    planned = smm.plan_operands(hs, zs, idx, scale, r)
+    assert all(t.data_ptr() % 16 == 0 for t in planned)
+    want = smm.sampled_matmul_plain(h, z, idx, scale)
+    np.testing.assert_allclose(ops.sampled_matmul(hs, zs, idx, scale).numpy(),
+                               want.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def _smm_args():

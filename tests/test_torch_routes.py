@@ -1,6 +1,7 @@
 """The kernel routes of the port and the C interface they go through,
-checked without a card or a compiler: ``flash_route`` and ``dw_route`` map
-every shape to exactly one route (the main paths' shapes to ``wgmma``),
+checked without a card or a compiler: ``flash_route``, ``dw_route`` and
+``smm_route`` map every shape to exactly one route (the main paths' shapes
+to ``wgmma``),
 the route codes match the C enums, and every ``extern "C"`` entry point in
 ``csrc/*.cu`` takes as many parameters as its ``_build._SIGNATURES`` entry
 declares (a ctypes arity mismatch is silent until the card runs it)."""
@@ -12,6 +13,7 @@ import torch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sampling
+from repro_torch.kernels import sampled_matmul as smm
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 HALF = (torch.bfloat16, torch.float16)
@@ -42,7 +44,8 @@ def test_entry_point_arity_matches_its_signature(name):
 
 @pytest.mark.parametrize("module,source", [
     (flash_mod, "flash_attention_fwd.cu"),
-    (fused_sampling, "fused_sampled_dw.cu")])
+    (fused_sampling, "fused_sampled_dw.cu"),
+    (smm, "sampled_matmul.cu")])
 def test_route_codes_match_the_c_enum(module, source):
     text = (_build.CSRC / source).read_text()
     enum = re.search(r"enum Route : int \{([^}]*)\}", text).group(1)
@@ -93,6 +96,38 @@ def test_dw_main_shapes_take_the_wgmma_route(d_in, d_out, dtype):
     assert fused_sampling.dw_route(d_in, d_out, dtype) == "wgmma"
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_smm_route_maps_every_width_to_one_configuration(dtype, aligned,
+                                                         sms):
+    for d_in in (1, 7, 8, 130, 136, 2048, 2056, 11008):
+        for d_out in (1, 24, 70, 256, 384, 1160, 11008):
+            r = smm.smm_route(d_in, d_out, dtype, aligned, sms)
+            assert r.route in smm.ROUTES
+            if dtype == torch.float32:
+                assert r == ("fma", smm.F32_TILE, smm.F32_TILE, 1)
+            elif aligned and d_in % 8 == 0 and d_out % 8 == 0:
+                # the C entry point knows exactly these two wgmma tiles
+                assert r in (("wgmma", 256, 128, 2), ("wgmma", 64, 64, 1))
+            else:
+                tile = smm.choose_tile(dtype, d_in, d_out, sms)
+                assert r == ("wmma", tile, tile, 1)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("d_in,d_out,tile", [
+    (2048, 2048, 256), (2048, 11008, 256), (11008, 2048, 256),
+    (2048, 256, 64)])   # the narrow k/v projection: no cluster
+def test_smm_main_shapes_take_the_wgmma_route(d_in, d_out, tile, dtype):
+    r = smm.smm_route(d_in, d_out, dtype, True, 132)
+    assert (r.route, r.tile_m) == ("wgmma", tile)
+    assert r.cluster == (2 if tile == 256 else 1)
+    # 256 x 128 tiles in clusters of two only while half the SMs get a block
+    blocks = 2 * -(-d_in // 256) * -(-d_out // 256)
+    assert (tile == 256) == (2 * blocks >= 132)
+
+
 def test_alignment_is_read_from_the_data_pointer():
     flat = torch.zeros(64, dtype=torch.bfloat16)
     assert _build.aligned16(flat[:32], flat[8:40])
@@ -100,7 +135,8 @@ def test_alignment_is_read_from_the_data_pointer():
 
 
 @pytest.mark.parametrize("name,module", [
-    ("flash_attention_fwd", flash_mod), ("fused_sampled_dw", fused_sampling)])
+    ("flash_attention_fwd", flash_mod), ("fused_sampled_dw", fused_sampling),
+    ("sampled_matmul", smm)])
 def test_launches_by_route_names_every_route_and_cpu_calls_count_none(
         name, module):
     fn = getattr(ops, name)
