@@ -37,6 +37,21 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            an ESSProportional controller; cache, stats and launch counts
            checked against what the resolved policies imply
   accumulate  the fixed policy for 3 steps at microbatches=2
+  run      the repro_torch.api façade at published width and full depth:
+           Run(RunSpec(qwen2.5-3b, reduced=False)) under the adaptive
+           policy, B=2, S=1024, 4 samples, 8 steps of Run.fit (losses
+           falling, launch counts as the resolved policies imply, every
+           fused_sampled_dw launch on wgmma, peak memory, ms a step),
+           Run.report, Run.generate (2 x 128-token prompts, 32 greedy
+           tokens) bit-equal to its hand-wired prefill-chunk + serve-step
+           loop, Run.serve (4 ragged greedy requests) each bit-equal to
+           the solo route at the pool's shapes
+  resume   in a child process with deterministic algorithms on: the
+           reduced qwen2.5-3b under the adaptive policy on the card, 6
+           uninterrupted Run.fit steps against 3 steps, save (blocking,
+           then asynchronous), Run.restore and 3 more: params, optimizer,
+           cache, statistics, history and budget trajectory bit-equal;
+           Run.fit's losses bit-equal to the hand-wired scheduled step
   serve_parity  one prefill_step + 4 serve_steps of a reduced config: card
            (flash kernel) against CPU (plain version), f32
   prefill  qwen2.5-3b at published width and full depth (36 layers), B=4
@@ -63,9 +78,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +91,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
                               ESSProportional, PolicyRules, Rule,
                               WTACRSConfig, plans)
@@ -89,7 +107,7 @@ from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
-from repro_torch.serve import ServeSession, ServeSpec, sampling  # noqa: E402
+from repro_torch.serve import ServeSession, ServeSpec  # noqa: E402
 from repro_torch.serve import pool as pool_lib  # noqa: E402
 from repro_torch.train import data, optim, znorm  # noqa: E402
 
@@ -100,8 +118,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}    # f32 outside the tensor cores
 
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
-              "adaptive", "accumulate", "serve_parity", "prefill", "decode",
-              "pool")
+              "adaptive", "accumulate", "run", "resume", "serve_parity",
+              "prefill", "decode", "pool")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -110,6 +128,13 @@ B, S, K = 4, 1024, 307
 ROW_NORM_MAIN = [(B * S, 2048), (B * S, 11008)]
 FUSED_MAIN = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 ROW_NORM_RAGGED = [(33, 130), (7, 5)]
+# The run phase: Run.fit on 36-layer qwen2.5-3b at B=2, S=1024, its k set by
+# the controller's budget level (run_budget_ks); Run.generate on GEN_ROWS
+# prompts; Run.serve's ragged greedy requests as (prompt length, max_new)
+RUN_STEPS, RUN_BATCH, RUN_SEQ, RUN_SAMPLES = 8, 2, 1024, 4
+ROW_NORM_RUN = [(RUN_BATCH * RUN_SEQ, 2048), (RUN_BATCH * RUN_SEQ, 11008)]
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 2, 128, 32
+RUN_SERVE = [(9, 24), (40, 16), (77, 32), (3, 20)]
 # (B, k, n, d_in, d_out)
 FUSED_RAGGED = [(2, 20, 50, 130, 70), (1, 16, 64, 32, 24), (3, 13, 40, 33, 17)]
 # the wgmma route's edges: the k tail 307, d_in and d_out multiples of 8
@@ -744,6 +769,18 @@ def phase_kernels():
             for d_in, d_out in FUSED_MAIN:
                 cases.append(dw_case(name, B, K, S, d_in, d_out, dtype, gen,
                                      timed=True))
+    # the run phase's shapes, in its bf16, at every k its controller can
+    # pin: 512 is a whole number of the wgmma route's 64-row k steps
+    for n, d in ROW_NORM_RUN:
+        cases.append(row_norms_case(n, d, torch.bfloat16, gen, timed=False))
+    for k in run_budget_ks():
+        for d in GATHER_MAIN_D:
+            cases.append(gather_scale_case(RUN_BATCH, RUN_SEQ, d, k,
+                                           torch.bfloat16, gen, timed=False))
+        for d_in, d_out in FUSED_MAIN:
+            cases.append(dw_case("fused_sampled_dw", RUN_BATCH, k, RUN_SEQ,
+                                 d_in, d_out, torch.bfloat16, gen,
+                                 timed=False))
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for n, d in ROW_NORM_RAGGED:
             cases.append(row_norms_case(n, d, dtype, gen, timed=False))
@@ -989,11 +1026,24 @@ def mlp_policies():
     return fixed, adaptive, ctrl
 
 
-def resolved_policy(policy, step_fn, step):
-    """The policy ``step_fn`` ran ``step`` under: schedules at the step,
-    controller rules pinned to the budgets it decided."""
+def run_budget_ks():
+    """The k of every budget the run phase's controller can pin (its level
+    grid) at n = RUN_SEQ, by the rule the sampled linears apply."""
+    _, policy, ctrl = mlp_policies()
+    rule_cfg = policy.rules.rules[0].config
+    return sorted({rule_cfg.with_budget(b).budget_rows(RUN_SEQ)
+                   for b in ctrl.grid()})
+
+
+def resolved_policy(policy, trajectory, step):
+    """The policy a scheduled step ran ``step`` under: schedules at the
+    step, controller rules pinned to the budget its trajectory (initial
+    pins and re-plans, each from its step on) held at that step."""
     pol = policy.at_step(step)
-    budgets = step_fn.schedule_state.budgets
+    budgets = {}
+    for rec in trajectory:
+        if rec["step"] <= step:
+            budgets[rec["rule"]] = rec["budget"]
     if budgets:
         pol = pol.with_rule_budgets(
             tuple(budgets.get(i) for i in range(len(policy.rules.rules))))
@@ -1025,7 +1075,7 @@ def run_cached(cfg, policy, n_steps, ds, microbatches=1):
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
         seen.update(int(s) for s in batch["sample_ids"])
-        pol = resolved_policy(policy, step, i)
+        pol = resolved_policy(policy, step.budget_trajectory, i)
         for name, n in launches_per_step(cfg, pol, S, microbatches).items():
             want[name] = want.get(name, 0) + n
         for t in znorm.sampling_active_tags(pol, tags, seq_len=S):
@@ -1105,6 +1155,270 @@ def phase_memory(cfg, ds, wta_peak):
     emit({"phase": "memory", "exact_losses": losses, "exact_step_ms": times,
           "peak_bytes_exact": peak, "peak_bytes_wta_crs": wta_peak,
           "exact_over_wta_crs": (peak / wta_peak) if wta_peak else None})
+
+
+# ---------------------------------------------------------------------------
+# the Run façade
+# ---------------------------------------------------------------------------
+
+class StepClock:
+    """Wraps Run.fit's dataset: each ``batch_at`` (the start of a step)
+    follows a synchronize and notes the host clock, so ``step_ms`` gives
+    each step's wall time, the last one ended by ``step_ms`` itself."""
+
+    def __init__(self, ds):
+        self.ds, self.n_samples, self.marks = ds, ds.n_samples, []
+
+    def batch_at(self, step, batch_size):
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        return self.ds.batch_at(step, batch_size)
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        ends = self.marks[1:] + [time.perf_counter()]
+        return [1e3 * (b - a) for a, b in zip(self.marks, ends)]
+
+
+def phase_run():
+    """The façade at published width and full depth: Run(RunSpec(qwen2.5-3b,
+    reduced=False)) with the adaptive phase's policy, Run.fit, Run.report,
+    Run.generate and Run.serve each against the solo route at their
+    shapes."""
+    _, policy, ctrl = mlp_policies()
+    spec = RunSpec(arch="qwen2.5-3b", reduced=False, policy=policy,
+                   steps=RUN_STEPS, batch_size=RUN_BATCH, lr=1e-4, warmup=2,
+                   data=DataSpec(seq_len=RUN_SEQ, n_samples=RUN_SAMPLES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = Run(spec).init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = run.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != \
+            (36, 2048, 11008, 151936):
+        fail(f"run: not the published qwen2.5-3b: {cfg}")
+    n_params = sum(p.numel() for p in optim.tree_leaves(run.state["params"]))
+    clock = StepClock(run.dataset)
+    reset_launches()
+    run.fit(dataset=clock, log_every=1)
+    step_ms = clock.step_ms()
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    by_route = expect_route("run", "fused_sampled_dw", "wgmma")
+    traj = run.schedule_state.trajectory
+    per_step = [launches_per_step(cfg, resolved_policy(policy, traj, i),
+                                  RUN_SEQ) for i in range(RUN_STEPS)]
+    expect_launches("run", {name: sum(p[name] for p in per_step)
+                            for name in per_step[0]})
+    losses = [h["loss"] for h in run.history]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"run: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"run: loss did not fall: {losses}")
+    if len(run.step_fn.compiled) > run.step_fn.replans + 1:
+        fail(f"run: {len(run.step_fn.compiled)} step functions for "
+             f"{run.step_fn.replans} re-plans")
+    # every k the fit ran at was held against the plain versions in the
+    # kernels phase
+    rule_cfg, checked = policy.rules.rules[0].config, run_budget_ks()
+    for rec in traj:
+        if not ctrl.b_min <= rec["budget"] <= ctrl.b_max:
+            fail(f"run: pinned budget {rec['budget']} outside "
+                 f"[{ctrl.b_min}, {ctrl.b_max}]")
+        k = rule_cfg.with_budget(rec["budget"]).budget_rows(RUN_SEQ)
+        if k not in checked:
+            fail(f"run: budget {rec['budget']} gives k = {k}, not among "
+                 f"the kernels phase's {checked}")
+    report = run.report()
+    print(report, flush=True)
+
+    # Run.generate: decode steps only (s = 1 a linear: exact, no kernel)
+    prompts = data.SyntheticLM(cfg.vocab_size, GEN_PROMPT, GEN_ROWS,
+                               seed=5).batch(np.arange(GEN_ROWS))["tokens"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    expect_launches("run generate", {})
+    want, _ = solo_generate(cfg, run.state["params"], prompts, GEN_NEW,
+                            spec.prefill_chunk, GEN_PROMPT + GEN_NEW)
+    if got.tolist() != want:
+        at = [first_difference(a, b) for a, b in zip(got.tolist(), want)]
+        fail(f"run: Run.generate differs from the solo route at its "
+             f"shapes, first at positions {at} (per row)")
+
+    # Run.serve: the slot pool on the trained parameters
+    corpus = data.SyntheticLM(cfg.vocab_size, 128, len(RUN_SERVE),
+                              seed=6).batch(np.arange(len(RUN_SERVE)))
+    reqs = [(list(corpus["tokens"][i, :n]), g)
+            for i, (n, g) in enumerate(RUN_SERVE)]
+    reset_launches()
+    t0 = time.perf_counter()
+    with run.serve(max_slots=4, page_size=16, max_len=128).start() as sess:
+        handles = [sess.submit(p, max_new=g) for p, g in reqs]
+        served = [h.result(timeout=600) for h in handles]
+        serve_s = time.perf_counter() - t0
+        stats, serve_report = sess.stats, sess.report()
+    expect_launches("run serve", {})
+    for i, ((p, g), toks) in enumerate(zip(reqs, served)):
+        (solo,), _ = solo_generate(cfg, run.state["params"], [p], g,
+                                   sess.spec.prefill_chunk,
+                                   sess.spec.slot_len, sess.spec.max_slots)
+        if solo != toks:
+            fail(f"run: Run.serve request {i} (prompt {len(p)}) differs from "
+                 f"the solo route at the pool's shapes, first at position "
+                 f"{first_difference(solo, toks)}")
+    emit({"phase": "run", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": n_params, "batch": RUN_BATCH, "seq": RUN_SEQ,
+          "samples": RUN_SAMPLES, "steps": RUN_STEPS, "init_s": init_s,
+          "losses": losses, "step_ms": step_ms,
+          "step_ms_median_after_first": statistics.median(step_ms[1:]),
+          "peak_bytes": peak, "replans": run.step_fn.replans,
+          "compiled": len(run.step_fn.compiled), "trajectory": traj,
+          "launches": launches, "launches_per_step": per_step[-1],
+          "fused_sampled_dw_launches_by_route": by_route, "report": report,
+          "generate": {"rows": GEN_ROWS, "prompt_len": GEN_PROMPT,
+                       "new_tokens": GEN_NEW, "ms": gen_ms,
+                       "ms_per_decode_step": gen_ms / (GEN_PROMPT - 1
+                                                       + GEN_NEW),
+                       "equal_to_solo_route": True},
+          "serve": {"requests": RUN_SERVE, "wall_s": serve_s,
+                    "decode_steps": stats["decode_steps"],
+                    "prefill_chunks": stats["prefill_chunks"],
+                    "equal_to_solo_route": len(reqs),
+                    "report": serve_report}})
+    del run, sess, got, want
+    torch.cuda.empty_cache()
+    return launches, by_route
+
+
+def bits(t):
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def state_differences(a, b):
+    """Names of the parts of two train states that are not bit-equal."""
+    out = [name for name in ("step", "base_seed") if a[name] != b[name]]
+    if a["opt"].count != b["opt"].count:
+        out.append("opt/count")
+    for name, x, y in (("params", a["params"], b["params"]),
+                       ("opt/m", a["opt"].m, b["opt"].m),
+                       ("opt/v", a["opt"].v, b["opt"].v),
+                       ("znorm", a.get("znorm", {}), b.get("znorm", {})),
+                       ("budget_stats", a.get("budget_stats", {}),
+                        b.get("budget_stats", {}))):
+        lx, ly = optim.tree_leaves(x), optim.tree_leaves(y)
+        if len(lx) != len(ly) or not all(
+                torch.equal(bits(p), bits(q)) for p, q in zip(lx, ly)):
+            out.append(name)
+    return out
+
+
+def resume_child(work):
+    """Kill and resume on the card, bit-faithful (run in a child process
+    with CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms on):
+    the reduced qwen2.5-3b under the adaptive policy, 6 uninterrupted
+    steps against 3 steps, a checkpoint (blocking, then asynchronous, the
+    killed run going on after it), Run.restore and the last 3 steps; and
+    Run.fit against the hand-wired scheduled step."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, policy, _ = mlp_policies()
+    base = dict(arch="qwen2.5-3b", reduced=True, policy=policy, steps=6,
+                batch_size=4, lr=1e-3, warmup=2,
+                data=DataSpec(seq_len=64, n_samples=16))
+    reset_launches()
+    ref = Run(RunSpec(**base))
+    ref.fit()
+    launches = launch_counts()
+    for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
+        if launches[name] == 0:
+            fail(f"resume: {name} never launched: {launches}")
+    moved = [r for r in ref.schedule_state.trajectory
+             if r["prev"] is not None]
+    if not moved:
+        fail("resume: the controller never moved; the check is vacuous")
+    losses = [h["loss"] for h in ref.history]
+
+    spec, cfg = ref.spec, ref.cfg
+    state = train_steps.init_train_state(
+        cfg, spec.seed, znorm_tags=ref.tags, n_dataset=spec.data.n_samples,
+        budget_stats=True)
+    step = train_steps.make_scheduled_train_step(
+        cfg, policy, spec.optimizer, spec.make_lr_schedule(),
+        use_znorm_cache=True)
+    hand = []
+    for i in range(spec.steps):
+        state, m = step(state, ref.dataset.batch_at(i, spec.batch_size))
+        hand.append(float(m["loss"]))
+    if hand != losses:
+        fail(f"resume: Run.fit losses {losses} != hand-wired {hand}")
+    del state, step
+
+    saves = {}
+    for block in (True, False):
+        ck_spec = RunSpec(**base, checkpoint_dir=os.path.join(
+            work, f"block_{block}"))
+        killed = Run(ck_spec)
+        killed.fit(steps=3)
+        killed.save(block=block)
+        killed.fit(steps=4)     # the run goes on past its checkpoint
+        del killed
+        step_dir = os.path.join(ck_spec.checkpoint_dir, "step_0000000003")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        back = Run.restore(ck_spec, step=3)
+        back.fit()
+        diff = state_differences(ref.state, back.state)
+        if diff:
+            fail(f"resume (block={block}): not bit-equal in {diff}")
+        if back.history != ref.history:
+            fail(f"resume (block={block}): history differs")
+        if back.schedule_state.trajectory != ref.schedule_state.trajectory:
+            fail(f"resume (block={block}): trajectory "
+                 f"{back.schedule_state.trajectory} != "
+                 f"{ref.schedule_state.trajectory}")
+        saves["blocking" if block else "async"] = {
+            "checkpoint_bytes": nbytes, "bit_equal": True}
+    emit({"losses": losses, "hand_wired_equal": True,
+          "trajectory": ref.schedule_state.trajectory,
+          "replans": ref.step_fn.replans, "launches": launches,
+          "saves": saves, "deterministic": True,
+          "cublas_workspace_config": os.environ.get(
+              "CUBLAS_WORKSPACE_CONFIG")})
+
+
+RESUME_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.resume_child(sys.argv[2])
+"""
+
+
+def phase_resume():
+    """``resume_child`` in its own process (deterministic algorithms are a
+    process-wide switch, and cuBLAS reads its workspace setting when the
+    CUDA context starts), writing under a temporary directory in build/."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(here, "build"))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    try:
+        done = subprocess.run([sys.executable, "-c", RESUME_CHILD, here, work],
+                              capture_output=True, text=True, timeout=600,
+                              env=env)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if done.returncode != 0:
+        fail(f"resume: the child exited {done.returncode}: "
+             f"{done.stderr.strip()[-3000:]}")
+    rec = json.loads(done.stdout.strip().splitlines()[-1])
+    emit({"phase": "resume", "arch": "qwen2.5-3b (reduced)", **rec})
 
 
 # ---------------------------------------------------------------------------
@@ -1293,43 +1607,43 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8):
           "checked_positions": n_check, "profile": trace})
 
 
-def solo_generate(cfg, params, prompt, gen, spec, temperature=0.0, seed=0,
-                  uid=0):
-    """The solo route (the reference's Run.generate composition) for one
-    request at the pool's product shapes: prefill at batch 1 into a
-    slot_len cache, decode at max_slots rows with the request in row 0.
-    Returns the tokens and, per step, the gap between the two largest
-    logits of the request's row."""
+def solo_generate(cfg, params, prompts, gen, chunk, cache_len, rows=None):
+    """The solo greedy route (the reference's Run.generate composition),
+    written out apart from the façade and the pool: the (b, S) ``prompts``
+    prefilled at batch b into a ``cache_len`` cache, ``chunk`` tokens a
+    make_prefill_chunk_step call, then decoded at ``rows`` (default b) rows
+    with the prompts in the first b.  Run.generate's shapes: rows = b,
+    cache_len = S + gen; the pool's: b = 1, cache_len = slot_len,
+    rows = max_slots.  Returns the (b, gen) tokens as lists and, per step,
+    the gap between the two largest logits of row 0."""
+    prompts = np.asarray(prompts, np.int64)
+    b, s = prompts.shape
+    rows = b if rows is None else rows
     policy = cm.Policy()
-    states = registry.decode_state_init(cfg, 1, spec.slot_len)
-    t, s = 0, len(prompt)
+    states = registry.decode_state_init(cfg, b, cache_len)
+    t = 0
     while t < s - 1:
-        n = min(spec.prefill_chunk, s - 1 - t)
+        n = min(chunk, s - 1 - t)
         states = train_steps.make_prefill_chunk_step(cfg, policy, n)(
-            params, np.asarray([prompt[t:t + n]]), t, states)
+            params, prompts[:, t:t + n], t, states)
         t += n
-    rows = spec.max_slots
     states = tuple({n: torch.cat([x, x.new_zeros(
-        (x.shape[0], rows - 1) + x.shape[2:])], dim=1)
+        (x.shape[0], rows - b) + x.shape[2:])], dim=1)
         for n, x in st.items()} for st in states)
     serve = train_steps.make_serve_step(cfg, policy)
-    base = [sampling.request_key(seed, uid)] + [0] * (rows - 1)
-    temp = np.zeros(rows, np.float32)
-    temp[0] = temperature
     tok = np.zeros(rows, np.int64)
-    tok[0] = prompt[-1]
+    tok[:b] = prompts[:, -1]
     pos = np.zeros(rows, np.int64)
     out, gaps = [], []
     for g in range(gen):
-        pos[0] = s - 1 + g
+        pos[:b] = s - 1 + g
         _, logits, states = serve(params, tok, pos, states)
         top2 = torch.topk(logits[0].float(), 2).values
         gaps.append(float(top2[0] - top2[1]))
-        nxt = sampling.sample_logits(logits, sampling.step_keys(
-            base, [g] * rows), temp, top_k=spec.top_k).cpu().numpy()
-        tok[0] = nxt[0]
-        out.append(int(nxt[0]))
-    return out, gaps
+        nxt = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+        tok[:b] = nxt[:b]
+        out.append(nxt[:b])
+    return np.stack(out, axis=1).tolist(), gaps
 
 
 def first_difference(a, b):
@@ -1390,7 +1704,8 @@ def phase_pool(cfg, params):
     # the solo route at the pool's shapes, counted (not asserted)
     solo_agree, solo_diff = 0, []
     for i, ((p, g), toks) in enumerate(zip(greedy, got_g)):
-        solo, gaps = solo_generate(cfg, params, p, g, spec)
+        (solo,), gaps = solo_generate(cfg, params, [p], g, spec.prefill_chunk,
+                                      spec.slot_len, spec.max_slots)
         at = first_difference(solo, toks)
         if at is None:
             solo_agree += 1
@@ -1441,7 +1756,8 @@ def main() -> int:
               "device_name": torch.cuda.get_device_name(0),
               "capability": list(torch.cuda.get_device_capability(0))})
     if set(phases) & {"build", "kernels", "parity", "train", "adaptive",
-                      "accumulate", "serve_parity", "prefill"}:
+                      "accumulate", "run", "resume", "serve_parity",
+                      "prefill"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -1488,6 +1804,12 @@ def main() -> int:
         del ds
         torch.cuda.empty_cache()
 
+    run_launches = {}
+    if "run" in phases:
+        run_launches, _ = phase_run()
+    if "resume" in phases:
+        phase_resume()
+
     if "serve_parity" in phases:
         phase_serve_parity()
     if set(phases) & {"prefill", "decode", "pool"}:
@@ -1512,12 +1834,13 @@ def main() -> int:
         # main paths' shapes in bf16, with the launches the train phase
         # (row_norms, gather_scale, fused_sampled_dw), the composition
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
-        # counted
+        # counted, and beside them the launches of the Run phase's fit
         summary = []
         for c in cases:
             if ("ms" in c and c["dtype"] == "bfloat16"
                     and c.get("in_summary", True)):
-                entry = dict(c, launches=launches[c["name"]])
+                entry = dict(c, launches=launches[c["name"]],
+                             launches_run=run_launches[c["name"]])
                 if c["name"] in by_route:
                     entry["launches_by_route"] = by_route[c["name"]]
                 summary.append(entry)

@@ -1,0 +1,388 @@
+"""The Run session: a live training/serving session built from a RunSpec.
+
+One object owns everything the hand-wired path spread over eight call
+sites: tag enumeration, state init (cache + stats sized from the
+policy), the scheduled step and its step-function cache, controller band
+state, checkpointing with a versioned run-state record, the serve path,
+and reporting.  Algorithm 1 becomes::
+
+    run = Run(RunSpec(arch="qwen2.5-3b", policy=policy, steps=200,
+                      checkpoint_dir="ck", checkpoint_every=25))
+    run.fit()                      # or: run.step(batch) per batch
+    print(run.report())
+
+Kill it anywhere and ``Run.resume(spec)`` continues bit-faithfully:
+params, optimizer, znorm cache, budget statistics AND the scheduled
+step's controller band positions all come back (the band state rides the
+checkpoint manifest as a versioned record).
+
+Every step maker runs on ``device`` (``"cuda"`` unless the caller asks for
+the CPU); on the card the sampled linears go through the hand-written
+kernels.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.spec import RunSpec, ServeSpec
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.launch import report as report_lib
+from repro_torch.launch import train_steps
+from repro_torch.models import registry
+from repro_torch.serve import ServeSession, sampling
+from repro_torch.train import checkpoint, znorm
+
+# optimizer-state layouts the reference's checkpoints may name
+# (``repro.optim.spec.KNOWN_LAYOUTS``); only "adamw" is ported
+_REFERENCE_LAYOUTS = ("dense", "factored", "lowrank")
+_NO_OPTIM_LAYOUTS = ("optimizer-state layouts (OptimSpec) are not ported "
+                     "yet (ROADMAP Queue A.5)")
+
+
+class Run:
+    """A training/serving session.  See module docstring.
+
+    Attributes of note: ``state`` (the train-state dict), ``history``
+    (per-step float metrics), ``step_fn`` (the scheduled step —
+    ``step_fn.compiled`` / ``.replans`` / ``.budget_trajectory`` expose
+    the re-plan economy), ``tags`` (the znorm-cache tag list, empty when
+    the policy needs no cache).
+    """
+
+    def __init__(self, spec: RunSpec, device="cuda"):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.cfg = get_config(spec.arch, reduced=spec.reduced)
+        # one kernel decision for the whole run: RunSpec.kernel maps over
+        # every config the policy can resolve to
+        self.policy = (spec.policy if spec.kernel is None
+                       else spec.policy.with_kernel(spec.kernel))
+        self.use_znorm_cache = spec.use_znorm_cache
+        self.track_budget_stats = spec.track_budget_stats
+        self.dataset = spec.data.build(self.cfg)
+        self.tags: List[str] = (
+            znorm.collect_linear_tags(self.cfg, policy=self.policy)
+            if self.use_znorm_cache else [])
+        self.state: Optional[Dict[str, Any]] = None
+        # parameters drawn for serving before any train state exists
+        self._params: Optional[Dict[str, Any]] = None
+        self.history: List[dict] = []
+        self.schedule_state = train_steps.ScheduleState()
+        self._step_fn: Optional[train_steps.ScheduledStepFn] = None
+        self._serve_fn = None
+        self._prefill_fns: Dict[int, Any] = {}
+        self._async_ckpt: Optional[checkpoint.AsyncCheckpointer] = None
+
+    # ------------------------------------------------------------------
+    # state lifecycle
+    # ------------------------------------------------------------------
+
+    def init(self) -> "Run":
+        """Allocate the train state (idempotent); parameters already drawn
+        for serving become its parameters."""
+        if self.state is None:
+            self.state = train_steps.init_train_state(
+                self.cfg, self.spec.seed,
+                znorm_tags=self.tags if self.use_znorm_cache else None,
+                n_dataset=self.spec.data.n_samples,
+                budget_stats=self.track_budget_stats, device=self.device,
+                params=self._params)
+            self._params = None
+        return self
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The parameters the serving methods read: the train state's, or,
+        before one exists, parameters alone from ``spec.seed`` (serving a
+        fresh run allocates no optimizer moments, znorm cache or
+        statistics)."""
+        if self.state is not None:
+            return self.state["params"]
+        if self._params is None:
+            self._params = registry.init_params(self.cfg, self.spec.seed,
+                                                device=self.device)
+        return self._params
+
+    @property
+    def step_fn(self) -> train_steps.ScheduledStepFn:
+        """The scheduled step (built on first use, shared by every
+        ``step``/``fit`` call so the step-function cache and controller
+        band state persist)."""
+        if self._step_fn is None:
+            self._step_fn = train_steps.make_scheduled_train_step(
+                self.cfg, self.policy, self.spec.optimizer,
+                self.spec.make_lr_schedule(),
+                schedule_state=self.schedule_state,
+                use_znorm_cache=self.use_znorm_cache,
+                microbatches=self.spec.microbatches, device=self.device)
+        return self._step_fn
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def step(self, batch) -> Dict[str, float]:
+        """One optimizer step on one batch (dict of arrays; a
+        ``sample_ids`` entry is consumed by the znorm cache and dropped
+        automatically when the policy needs none)."""
+        self.init()
+        b = dict(batch)
+        if not self.use_znorm_cache:
+            b.pop("sample_ids", None)
+        elif "sample_ids" not in b:
+            raise ValueError(
+                "this run's policy needs the znorm cache, so every "
+                "batch must carry 'sample_ids' (dataset sample indices; "
+                "DataSpec-built datasets provide them)")
+        s = int(self.state["step"])
+        self.state, metrics = self.step_fn(self.state, b)
+        m = {k: float(v) for k, v in metrics.items()}
+        self.history.append({"step": s, **m})
+        return m
+
+    def fit(self, dataset=None, steps: Optional[int] = None,
+            log_every: int = 0) -> List[dict]:
+        """Train from the state's current step to ``steps`` (default
+        ``spec.steps``), checkpointing every ``spec.checkpoint_every``
+        steps.  ``dataset`` overrides the spec-built corpus; it must
+        expose ``batch_at(step, batch_size)`` (stateless step-indexed
+        batches are what make kill/resume replay exact)."""
+        self.init()
+        ds = dataset if dataset is not None else self.dataset
+        if (dataset is not None and self.use_znorm_cache
+                and getattr(ds, "n_samples", None) is not None
+                and ds.n_samples > self.spec.data.n_samples):
+            raise ValueError(
+                f"override dataset has {ds.n_samples} samples but the "
+                f"znorm cache was sized to spec.data.n_samples "
+                f"= {self.spec.data.n_samples}; out-of-range sample_ids "
+                f"would silently clamp onto the last cache column.  Set "
+                f"DataSpec(n_samples=...) to cover the dataset.")
+        total = self.spec.steps if steps is None else steps
+        start = int(self.state["step"])
+        t0 = time.perf_counter()
+        for s in range(start, total):
+            m = self.step(ds.batch_at(s, self.spec.batch_size))
+            if log_every and (s % log_every == 0 or s == total - 1):
+                dt = (time.perf_counter() - t0) / max(s - start + 1, 1)
+                print(f"step {s:5d}  loss {m['loss']:.4f}  "
+                      f"lr {m['lr']:.2e}  {dt * 1e3:.0f} ms/step")
+            if (self.spec.checkpoint_every
+                    and (s + 1) % self.spec.checkpoint_every == 0):
+                self.save(block=False)
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+        return self.history
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def _run_state_metadata(self) -> dict:
+        # snapshot history: the async checkpointer serializes on a
+        # worker thread while fit() keeps appending to the live list
+        return checkpoint.pack_run_state(
+            self.schedule_state.to_json(),
+            arch=self.spec.arch,
+            optim_layouts=["adamw"],
+            history=[dict(h) for h in self.history])
+
+    def save(self, block: bool = True) -> None:
+        """Checkpoint state + the versioned run-state record (controller
+        band positions, trajectory, metrics history).  ``block=False``
+        copies the state to host memory now and overlaps the disk write
+        with the following steps."""
+        if not self.spec.checkpoint_dir:
+            raise ValueError("RunSpec.checkpoint_dir is not set")
+        self.init()
+        step = int(self.state["step"])
+        if block:
+            if self._async_ckpt is not None:
+                self._async_ckpt.wait()
+            checkpoint.save(self.spec.checkpoint_dir, step, self.state,
+                            metadata=self._run_state_metadata(),
+                            keep=self.spec.checkpoint_keep)
+        else:
+            if self._async_ckpt is None:
+                self._async_ckpt = checkpoint.AsyncCheckpointer(
+                    self.spec.checkpoint_dir,
+                    keep=self.spec.checkpoint_keep)
+            self._async_ckpt.save(step, self.state,
+                                  metadata=self._run_state_metadata())
+
+    @classmethod
+    def restore(cls, spec: RunSpec, step: Optional[int] = None,
+                device="cuda") -> "Run":
+        """Rebuild a Run from its latest (or given-step) checkpoint:
+        params, optimizer, znorm cache, budget statistics, metrics
+        history AND the scheduled step's controller band state — the
+        budget trajectory continues instead of resetting to every
+        controller's ``initial_budget``.  The state is allocated once on
+        ``device`` and filled in place from the checkpoint.
+
+        Checkpoints of the reference's optimizer-state layouts
+        (``OptimSpec``) raise ``NotImplementedError``; unknown layout
+        names raise ``ValueError``."""
+        if not spec.checkpoint_dir:
+            raise ValueError("RunSpec.checkpoint_dir is not set")
+        run = cls(spec, device=device)
+        if step is None:
+            step = checkpoint.latest_step(spec.checkpoint_dir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoints under {spec.checkpoint_dir}")
+        manifest = checkpoint.read_manifest(spec.checkpoint_dir, step)
+        rec = checkpoint.unpack_run_state(manifest)
+        if rec is not None:
+            layouts = rec.get("optim_layouts", [])
+            unknown = [l for l in layouts
+                       if l not in _REFERENCE_LAYOUTS + ("adamw",)]
+            if unknown:
+                raise ValueError(
+                    f"checkpoint step {step} was written with unknown "
+                    f"optimizer-state layout(s) {unknown}; this reader "
+                    f"knows {sorted(_REFERENCE_LAYOUTS)} (plus "
+                    f"legacy 'adamw').  Upgrade repro to restore it.")
+            if any(l != "adamw" for l in layouts):
+                raise NotImplementedError(
+                    f"checkpoint step {step} holds optimizer-state layouts "
+                    f"{layouts}: {_NO_OPTIM_LAYOUTS}")
+            if "schedule_state" in rec:
+                run.schedule_state = train_steps.ScheduleState.from_json(
+                    rec["schedule_state"])
+            run.history = [dict(h) for h in rec.get("history", [])]
+        if any(k.startswith("opt/leaves/") for k in manifest.get("keys", ())):
+            raise NotImplementedError(
+                f"checkpoint step {step} keys its optimizer state by leaf "
+                f"(opt/leaves/...): {_NO_OPTIM_LAYOUTS}")
+        run.init()
+        run.state, _ = checkpoint.restore(spec.checkpoint_dir, run.state,
+                                          step=step)
+        return run
+
+    @classmethod
+    def resume(cls, spec: RunSpec, step: Optional[int] = None,
+               device="cuda") -> "Run":
+        """``restore`` when a checkpoint exists, else a fresh Run — the
+        crash-rerun-the-same-command entry point."""
+        if (spec.checkpoint_dir
+                and checkpoint.latest_step(spec.checkpoint_dir)
+                is not None):
+            return cls.restore(spec, step=step, device=device)
+        return cls(spec, device=device)
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+
+    def _serve(self):
+        if self._serve_fn is None:
+            self._serve_fn = train_steps.make_serve_step(
+                self.cfg, self.policy, device=self.device)
+        return self._serve_fn
+
+    def _prefill_chunk_fn(self, chunk_len: int):
+        fn = self._prefill_fns.get(chunk_len)
+        if fn is None:
+            fn = train_steps.make_prefill_chunk_step(
+                self.cfg, self.policy, chunk_len, device=self.device)
+            self._prefill_fns[chunk_len] = fn
+        return fn
+
+    def prefill(self, prompts, gen: int = 0):
+        """Stream a (B, S) prompt batch into decode caches with ``S + gen``
+        token headroom, ``spec.prefill_chunk`` tokens per
+        ``make_prefill_chunk_step`` call (decode steps, token by token:
+        the numerics of decode itself, not the flash kernel).  Returns
+        ``(last_token, pos, states)`` ready for :meth:`decode`."""
+        params = self.params
+        prompts = np.asarray(prompts, np.int64)
+        b, s = prompts.shape
+        states = registry.decode_state_init(self.cfg, b, s + gen,
+                                            device=self.device)
+        t, chunk = 0, self.spec.prefill_chunk
+        while t < s - 1:
+            n = min(chunk, s - 1 - t)
+            states = self._prefill_chunk_fn(n)(
+                params, prompts[:, t:t + n], t, states)
+            t += n
+        return prompts[:, -1], s - 1, states
+
+    def decode(self, token, pos, states):
+        """One greedy decode step: ``(next_token, logits, states)``."""
+        return self._serve()(self.params, token, pos, states)
+
+    def generate(self, prompts, gen: int, temperature: float = 0.0,
+                 seed: int = 0, top_k: int = 0) -> torch.Tensor:
+        """Continuation: (B, S) prompts -> (B, gen) int32 token ids on the
+        run's device.
+
+        ``temperature == 0`` (default) is greedy argmax; > 0 samples,
+        optionally ``top_k``-truncated, deterministically under a fixed
+        ``seed``.  Randomness is keyed per (seed, row, step) through
+        ``repro_torch.serve.sampling``, the same keying the slot-pool
+        service uses with the batch row as request uid."""
+        tok, pos, states = self.prefill(prompts, gen=gen)
+        b = tok.shape[0]
+        base = [sampling.request_key(seed, r) for r in range(b)]
+        temp = np.full((b,), temperature, np.float32)
+        out = []
+        for g, t in enumerate(range(pos, pos + gen)):
+            _, logits, states = self.decode(tok, t, states)
+            tok = sampling.sample_logits(
+                logits, sampling.step_keys(base, [g] * b), temp,
+                top_k=top_k)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    def serve(self, spec: Optional[ServeSpec] = None, **overrides):
+        """Open a continuous-batching :class:`~repro_torch.serve.ServeSession`
+        on this run's params.
+
+        ``spec``: a full :class:`ServeSpec`; or pass field overrides
+        (``max_slots=8, page_size=16, ...``) and one is built on this
+        run's (arch, reduced, policy, prefill_chunk, device).  Start the
+        async loop and submit::
+
+            with run.serve(max_slots=4).start() as sess:
+                tokens = sess.submit(prompt, max_new=16).result(60)
+        """
+        if spec is None:
+            overrides.setdefault("arch", self.spec.arch)
+            overrides.setdefault("reduced", self.spec.reduced)
+            overrides.setdefault("policy", self.policy)
+            overrides.setdefault("prefill_chunk", self.spec.prefill_chunk)
+            overrides.setdefault("device", str(self.device))
+            spec = ServeSpec(**overrides)
+        elif overrides:
+            raise ValueError("pass either a ServeSpec or field "
+                             "overrides, not both")
+        return ServeSession(spec, self.params, policy=self.policy)
+
+    # ------------------------------------------------------------------
+    # analysis
+    # ------------------------------------------------------------------
+
+    def dryrun(self, shape: str = "train_4k", mesh: str = "single") -> dict:
+        """Lowering a production mesh cell waits for the port's scale-out
+        surface."""
+        raise NotImplementedError(
+            "Run.dryrun needs the mesh and dry-run surface, which is not "
+            "ported yet (ROADMAP Queue A.9)")
+
+    def report(self) -> str:
+        """Markdown report: §Run metrics summary and §Budgets controller
+        trajectory + re-plan economy."""
+        n_steps = int(self.state["step"]) if self.state is not None else 0
+        n_compiles = (len(self._step_fn.compiled)
+                      if self._step_fn is not None else 0)
+        return report_lib.run_report(
+            n_steps=n_steps,
+            budget_records=self.schedule_state.trajectory,
+            n_compiles=n_compiles, history=self.history,
+            rank_records=self.schedule_state.rank_trajectory)

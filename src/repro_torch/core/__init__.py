@@ -1,5 +1,6 @@
 """Estimator core of the port: configs, registry, plans, estimators, the
-sampled linear, the per-layer policy and the adaptive budget controllers.
+sampled linear and its LoRA wrapper, the per-layer policy and the adaptive
+budget controllers.
 
 Plan builders register by name in ``estimator_registry`` (built-ins in
 ``plans``, extras in ``estimators_extra``, imported here so they are
@@ -21,6 +22,7 @@ from repro_torch.core.estimators import (apply_plan, approx_matmul,
 from repro_torch.core.kernel_config import KernelConfig
 from repro_torch.core.linear import (read_grad_norm_tap, wtacrs_linear,
                                      wtacrs_linear_shared)
+from repro_torch.core.lora import LoRAConfig, init_lora_params, lora_linear
 from repro_torch.core.plans import (SamplePlan, batched_row_weights,
                                     build_batched_plans, build_plan,
                                     column_row_probabilities, crs_plan,
@@ -32,7 +34,8 @@ __all__ = [
     "EXACT_CONFIG", "EstimatorKind", "NormSource", "WTACRSConfig",
     "KernelConfig", "EstimatorSpec", "get_estimator", "register_estimator",
     "registered_estimators", "read_grad_norm_tap", "wtacrs_linear",
-    "wtacrs_linear_shared", "SamplePlan", "batched_row_weights",
+    "wtacrs_linear_shared", "LoRAConfig", "init_lora_params",
+    "lora_linear", "SamplePlan", "batched_row_weights",
     "build_batched_plans", "build_plan", "column_row_probabilities",
     "crs_plan", "det_topk_plan", "optimal_c_size", "wtacrs_plan",
     "approx_matmul", "apply_plan", "exact_matmul", "crs_variance",

@@ -35,9 +35,10 @@ _NO_OPTIM_SPEC = ("only the legacy AdamWConfig is ported; optimizer-state "
 
 def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
                      n_dataset: int = 0, budget_stats: bool = False,
-                     device="cuda") -> Dict[str, Any]:
-    """Parameters from ``seed`` on ``device``, zeroed f32 AdamW moments,
-    step 0 and the base seed every step's sampling seed derives from.
+                     device="cuda", params=None) -> Dict[str, Any]:
+    """Parameters from ``seed`` on ``device`` (or ``params``, already
+    drawn from ``seed`` there), zeroed f32 AdamW moments, step 0 and the
+    base seed every step's sampling seed derives from.
 
     ``znorm_tags`` (from ``znorm.collect_linear_tags``): also carry the
     dataset gradient-norm cache over ``n_dataset`` samples; with
@@ -45,7 +46,8 @@ def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
     and only paid for — when the policy carries adaptive budget
     controllers; see ``repro_torch.core.controller``)."""
     device = resolve_device(device)
-    params = registry.init_params(cfg, seed, device=device)
+    if params is None:
+        params = registry.init_params(cfg, seed, device=device)
     state = {
         "params": params,
         "opt": optim.adamw_init(params),

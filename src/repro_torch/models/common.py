@@ -15,7 +15,9 @@ import torch
 from repro_torch.core import estimator_registry as est_registry
 from repro_torch.core.config import EstimatorKind, WTACRSConfig
 from repro_torch.core.linear import wtacrs_linear, wtacrs_linear_shared
+from repro_torch.core.lora import LoRAConfig, lora_linear
 from repro_torch.core.policy import PolicyRules
+from repro_torch.core.seeds import fold_seed  # noqa: F401  (re-exported)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +102,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 class Policy:
     """What estimator applies to this forward pass.
 
-    ``wtacrs`` is the network-wide default estimator config.  ``rules``
+    ``wtacrs`` is the network-wide default estimator config; ``lora``
+    the LoRA wrapper a ``Ctx.linear(..., lora=)`` call takes when
+    enabled.  ``rules``
     (optional) layers per-tag overrides and budget schedules on top:
     every ``Ctx.linear`` resolves its fully-prefixed tag through
     ``config_for``.  ``step`` is the concrete trainer step the rules'
@@ -111,6 +115,7 @@ class Policy:
     block pairs is skipped (``triangular``) or masked (``full``).
     """
     wtacrs: WTACRSConfig = WTACRSConfig(kind=EstimatorKind.EXACT)
+    lora: LoRAConfig = LoRAConfig()
     rules: Optional[PolicyRules] = None
     step: int = 0
     rule_budgets: Optional[Tuple[Optional[float], ...]] = None
@@ -135,6 +140,26 @@ class Policy:
         budgets = None if budgets is None else tuple(budgets)
         return dataclasses.replace(self, rule_budgets=budgets)
 
+    def with_kernel(self, kernel) -> "Policy":
+        """Apply one :class:`~repro_torch.core.kernel_config.KernelConfig`
+        to every estimator config this policy can resolve to: the default
+        ``wtacrs``, the rules' ``default``, and each rule's explicit
+        config.  A rule without a config inherits the converted fallback.
+        This is how ``RunSpec.kernel`` threads one kernel decision through
+        the whole policy."""
+        wtacrs = self.wtacrs.with_kernel(kernel)
+        rules = self.rules
+        if rules is not None:
+            new_rules = tuple(
+                r if r.config is None else dataclasses.replace(
+                    r, config=r.config.with_kernel(kernel))
+                for r in rules.rules)
+            default = (None if rules.default is None
+                       else rules.default.with_kernel(kernel))
+            rules = dataclasses.replace(rules, rules=new_rules,
+                                        default=default)
+        return dataclasses.replace(self, wtacrs=wtacrs, rules=rules)
+
     def schedule_signature(self) -> Tuple[float, ...]:
         """Changes exactly when a schedule crosses a plateau boundary or
         a pinned budget changes (empty for static policies)."""
@@ -147,24 +172,6 @@ class Policy:
 
 def _tag_seed(tag: str) -> int:
     return zlib.crc32(tag.encode()) & 0x7FFFFFFF
-
-
-_MASK63 = (1 << 63) - 1
-
-
-def fold_seed(seed: int, data: int) -> int:
-    """Derive a child seed from (seed, data): a splitmix64-style mix in
-    plain integers, so seeds for different layers / tags / steps are
-    decorrelated and the derivation costs no device work.  Takes the
-    place of the reference's ``fold_in``; the streams it yields are not
-    the reference's."""
-    x = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & (2 ** 64 - 1)
-    x ^= x >> 30
-    x = (x * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
-    x ^= x >> 27
-    x = (x * 0x94D049BB133111EB) & (2 ** 64 - 1)
-    x ^= x >> 31
-    return x & _MASK63
 
 
 # Sampled-dimension tag metadata.  A linear whose input is (..., S, D)
@@ -243,15 +250,22 @@ class Ctx:
             return t
         return t.to(self.compute_dtype)
 
-    def linear(self, tag: str, h, w, bias=None):
-        """Estimator linear.  The estimator config is resolved per
-        fully-prefixed tag through ``Policy.config_for``."""
+    def linear(self, tag: str, h, w, bias=None, lora=None):
+        """Estimator (+optionally LoRA) linear.  The estimator config is
+        resolved per fully-prefixed tag through ``Policy.config_for``.
+        ``lora``: ``{"lora_a", "lora_b"}`` adapter parameters, used when
+        ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled)."""
         tag = self.tag_prefix + tag
         self._record_call((tag,), h)
         cfg = self.policy.config_for(tag)
-        return wtacrs_linear(h, self._cast(w), key=self._key_for(tag),
-                             znorm=self._znorm_for(tag, h), cfg=cfg,
-                             bias=self._cast(bias))
+        w, bias = self._cast(w), self._cast(bias)
+        zn = self._znorm_for(tag, h)
+        if lora is not None and self.policy.lora.enabled:
+            return lora_linear(h, w, lora["lora_a"], lora["lora_b"],
+                               self.policy.lora, key=self._key_for(tag),
+                               znorm=zn, cfg=cfg, bias=bias)
+        return wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
+                             cfg=cfg, bias=bias)
 
     def linear_shared(self, tags, h, ws, biases=None):
         """Shared-plan multi-linear (one stored H' for all of ``ws``).

@@ -177,6 +177,35 @@ def test_flash_attention_bf16_and_q_offset():
                                rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("q_offset,q_block,kv_block", [
+    (16, 16, 16), (48, 16, 16), (0, 32, 16)])
+def test_triangular_flash_is_exact_where_the_reference_drops_blocks(
+        q_offset, q_block, kv_block):
+    """Triangular mode at a query offset, or with q blocks larger than kv
+    blocks: the port visits every kv block a query can see (counted from
+    its absolute position) and holds the exact attention; the reference's
+    ``_block_pairs`` visits kv blocks 0..qi whatever the offset and block
+    sizes, so it drops visible blocks there (ROADMAP Queue C) — held here
+    to stay on record, not to be matched."""
+    q, k, v = _qkv("float32")
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = attn.flash_attention(tq, tk, tv, q_block=q_block,
+                               kv_block=kv_block, mode="triangular",
+                               q_offset=q_offset)
+    want = attn.attention_reference(tq, tk, tv, q_offset=q_offset)
+    jref = jax_attn.attention_reference(*map(jnp.asarray, (q, k, v)),
+                                        q_offset=q_offset)
+    # f32 throughout; blockwise vs one-shot softmax differ by rounding
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=1e-5,
+                               atol=1e-5)
+    jflash = jax_attn.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                      q_block=q_block, kv_block=kv_block,
+                                      mode="triangular", q_offset=q_offset)
+    assert float(np.abs(np.asarray(jflash) - want.numpy()).max()) > 0.5
+
+
 def test_flash_attention_gradients_match_reference_and_recompute():
     q, k, v = _qkv("float32", sq=32, seed=2)
     ct = np.random.RandomState(3).randn(*q.shape).astype(np.float32)

@@ -13,7 +13,9 @@ import torch
 from repro.core import policy as jax_policy
 from repro.core.config import WTACRSConfig as JaxWTACRSConfig
 from repro_torch import convert
-from repro_torch.core import KernelConfig, WTACRSConfig, policy
+from repro_torch.api import Run, RunSpec
+from repro_torch.core import (KernelConfig, WTACRSConfig, init_lora_params,
+                              policy)
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import train_steps
 from repro_torch.models import common as cm
@@ -84,7 +86,8 @@ SERVE_ENTRIES = ["make_prefill_step", "make_serve_step",
 @pytest.mark.parametrize("entry", ["init_params", "init_train_state",
                                    "make_train_step",
                                    "make_scheduled_train_step",
-                                   "params_from_jax", "cache_from_jax"]
+                                   "params_from_jax", "cache_from_jax",
+                                   "Run", "Run.resume", "init_lora_params"]
                          + SERVE_ENTRIES)
 def test_device_cuda_raises_instead_of_falling_back(entry):
     if torch.cuda.is_available():
@@ -114,6 +117,9 @@ def test_device_cuda_raises_instead_of_falling_back(entry):
         "init_pool": lambda: pool.init_pool(
             cfg, ServeSpec(arch="qwen2.5-3b", device="cpu")),
         "ServeSpec": lambda: ServeSpec(arch="qwen2.5-3b"),
+        "Run": lambda: Run(RunSpec(arch="qwen2.5-3b")),
+        "Run.resume": lambda: Run.resume(RunSpec(arch="qwen2.5-3b")),
+        "init_lora_params": lambda: init_lora_params(0, 8, 8, 2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()          # the default device is "cuda"

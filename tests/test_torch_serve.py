@@ -6,7 +6,7 @@ Model level, on the same parameters (JAX ``init_params`` -> numpy ->
 plain version on the CPU) against JAX ``registry.prefill``,
 ``decode_attention`` and ``decode_step`` against JAX's, cached decode
 against the port's own forward, and greedy tokens of the port's solo
-route against JAX ``Run.generate``.
+route and the port's ``Run.generate`` against JAX ``Run.generate``.
 
 Serving level, ``tests/test_serve.py`` mirrored on the port: ServeSpec
 validation, page accounting, the pool's composition independence (a
@@ -15,8 +15,8 @@ gives the tokens it gives alone), single-token prompts, sampled
 determinism, backpressure, page-gated admission, the background loop and
 chunk-size invariance.
 
-The solo route is the port's counterpart of the reference's
-``Run.generate`` (``api/`` is not ported): ``make_prefill_chunk_step``,
+The solo route is ``Run.generate``'s composition written out:
+``make_prefill_chunk_step``,
 then ``make_serve_step`` + ``sample_logits`` per token, keyed by
 (seed, row).  Against the pool it runs at the pool's product shapes:
 prefill at batch 1 into a ``slot_len`` cache (as the pool's per-slot
@@ -37,6 +37,8 @@ from repro.models import attention as jax_attn
 from repro.models import common as jax_cm
 from repro.models import registry as jax_registry
 from repro_torch import convert
+from repro_torch.api import Run as PortRun
+from repro_torch.api import RunSpec as PortRunSpec
 from repro_torch.launch import train_steps
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -44,6 +46,7 @@ from repro_torch.models import lm, registry
 from repro_torch.models.registry import get_config
 from repro_torch.serve import ServeSession, ServeSpec, Status, pool, sampling
 from repro_torch.serve.pool import PageAllocator
+from repro_torch.train import optim
 
 torch.set_num_threads(1)
 
@@ -327,19 +330,36 @@ def jax_run():
     return Run(RunSpec(arch="qwen2.5-3b", steps=1)).init()
 
 
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    """The port's Run on the JAX Run's parameters (``copy_`` into the
+    state the port's Run allocated)."""
+    run = PortRun(PortRunSpec(arch="qwen2.5-3b", steps=1), **CPU).init()
+    tree = jax.tree.map(np.asarray, jax_run.state["params"])
+    carried = convert.params_from_jax(run.cfg, tree, **CPU)
+    with torch.no_grad():
+        for dst, src in zip(optim.tree_leaves(run.state["params"]),
+                            optim.tree_leaves(carried)):
+            dst.copy_(src)
+    return run
+
+
 @pytest.mark.parametrize("prompt,gen", [([3, 14, 15, 9, 2, 6, 5], 8),
                                         ([7, 1], 6)])
-def test_greedy_solo_route_equals_jax_run_generate(jax_run, prompt, gen):
-    """bf16 compute on both sides, shared parameters (RunSpec seed 0).
-    Greedy argmax can flip on a near-tie where the frameworks round
-    differently; these prompts, with the reference's seed, have none."""
-    cfg = get_config("qwen2.5-3b", reduced=True)
-    tree = jax.tree.map(np.asarray, jax_run.state["params"])
-    params = convert.params_from_jax(cfg, tree, **CPU)
-    want = np.asarray(jax_run.generate(np.asarray([prompt], np.int32),
-                                       gen=gen))
-    got = generate(cfg, params, [prompt], gen)
-    np.testing.assert_array_equal(got, want)
+def test_greedy_solo_route_equals_jax_run_generate(jax_run, port_run, prompt,
+                                                   gen):
+    """bf16 compute on both sides, shared parameters (RunSpec seed 0): the
+    port's ``Run.generate`` against the reference's, and the solo route
+    composed by hand against both.  Greedy argmax can flip on a near-tie
+    where the frameworks round differently; these prompts, with the
+    reference's seed, have none."""
+    prompts = np.asarray([prompt], np.int32)
+    want = np.asarray(jax_run.generate(prompts, gen=gen))
+    got = port_run.generate(prompts, gen=gen)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    solo = generate(port_run.cfg, port_run.state["params"], [prompt], gen)
+    np.testing.assert_array_equal(solo, want)
 
 
 # ---------------------------------------------------------------------------
