@@ -30,13 +30,29 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            get_config -> init_train_state -> make_train_step -> train_step;
            losses finite and falling, launch counts as expected, every
            fused_sampled_dw launch on the wgmma route
-  memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side
+  memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side;
+           then, in a child process with deterministic algorithms on, 2
+           steps under the reference's `mixed` OptimSpec in four legs:
+           exact and WTA-CRS 0.3 without remat, WTA-CRS under
+           remat="wtacrs_names", exact under remat="full" — each remat
+           leg's losses bit-equal to its `none` leg's, launches as
+           launches_per_step implies (row_norms and gather_scale twice a
+           plan under "full"), every peak
   adaptive Algorithm 1's whole loop at the same width on 8 samples: 10
            make_scheduled_train_step steps with the znorm cache and budget
            statistics, WTA-CRS on the MLP linears at a fixed 0.3 and under
            an ESSProportional controller; cache, stats and launch counts
            checked against what the resolved policies imply
   accumulate  the fixed policy for 3 steps at microbatches=2
+  optim    nemotron-4-15b at published width, depth cut 32 -> 2, B=1,
+           S=2048, WTA-CRS 0.3: 4 make_train_step steps from fresh
+           parameters under each of three OptimSpecs of the reference's
+           memory benchmark (factored_came, factored, mixed): losses
+           finite and falling, launches as expected and on wgmma, the
+           state's bytes on the card equal to memory_report's, peak
+           memory, ms a step; one subspace refresh (SVD) of the mixed
+           leg's widest leaf timed; dense AdamW's state from
+           memory_report only
   run      the repro_torch.api façade at published width and full depth:
            Run(RunSpec(qwen2.5-3b, reduced=False)) under the adaptive
            policy, B=2, S=1024, 4 samples, 8 steps of Run.fit (losses
@@ -64,6 +80,10 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            background loop serving 12 ragged greedy and 2 sampled
            requests; each greedy request bit-equal to itself served
            alone, the sampled ones repeatable, the solo route counted
+  wide_serve  command-r-35b at published width (64/8 heads), depth cut
+           40 -> 4: prefill of 2 x 2048 tokens through make_prefill_step
+           (the flash kernel at 64/8 heads, wgmma) and 16 decode steps,
+           each held against the model's own forward as in prefill/decode
 
 then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -91,6 +111,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch import optim as optim_lib  # noqa: E402
 from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
                               ESSProportional, PolicyRules, Rule,
@@ -118,8 +139,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}    # f32 outside the tensor cores
 
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
-              "adaptive", "accumulate", "run", "resume", "serve_parity",
-              "prefill", "decode", "pool")
+              "adaptive", "accumulate", "optim", "run", "resume",
+              "serve_parity", "prefill", "decode", "pool", "wide_serve")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -169,6 +190,19 @@ SMM_SWEEP_BATCHED = [(2, 20, 50, 130, 70), (8, 12, 30, 33, 17)]
 # edges (plan slot 1 repeats slot 0: duplicate indices)
 SMM_EDGE = [(4, 307, 1024, 2056, 896), (2, 40, 300, 4096, 1160),
             (4, 307, 1024, 136, 200), (1, 65, 70, 8, 1032)]
+# The optim phase: nemotron-4-15b at published width (d_model 6144, d_ff
+# 24576, 48/8 heads of 128), depth cut 32 -> 2, B=1, S=2048, WTA-CRS 0.3
+# (k = 614): its sampled linears' shapes; the wide_serve phase's prefill
+# of command-r-35b (64/8 heads of 128) at B=2, S=2048, and the same at
+# nemotron-4-15b's heads
+OPT_STEPS, OPT_B, OPT_S = 4, 1, 2048
+OPT_K = WTACRSConfig(kind="wta_crs", budget=0.3,
+                     min_rows=4).budget_rows(OPT_S)
+ROW_NORM_OPTIM = [(OPT_B * OPT_S, 6144), (OPT_B * OPT_S, 24576)]
+GATHER_OPTIM_D = (6144, 24576)
+FUSED_OPTIM = [(6144, 24576), (24576, 6144), (6144, 6144), (6144, 1024)]
+FLASH_COMMAND_R = (2, 64, 8, 2048, 2048, 128, True)
+FLASH_NEMOTRON = (2, 48, 8, 2048, 2048, 128, True)
 
 
 def card_sms() -> int:
@@ -817,6 +851,23 @@ def phase_kernels():
         for shape in SMM_SWEEP_BATCHED:
             cases.append(dw_case("sampled_matmul", *shape, dtype, gen,
                                  timed=False))
+    # the optim phase's shapes (nemotron-4-15b, B=1, n=2048, k=614) and the
+    # wide_serve prefill's heads, bf16, timed; ``phase`` names the phase
+    # whose launches the summary counts
+    bf16 = torch.bfloat16
+    for n, d in ROW_NORM_OPTIM:
+        cases.append(dict(row_norms_case(n, d, bf16, gen, timed=True),
+                          phase="optim"))
+    for d in GATHER_OPTIM_D:
+        cases.append(dict(gather_scale_case(OPT_B, OPT_S, d, OPT_K, bf16, gen,
+                                            timed=True), phase="optim"))
+    for d_in, d_out in FUSED_OPTIM:
+        cases.append(dict(dw_case("fused_sampled_dw", OPT_B, OPT_K, OPT_S,
+                                  d_in, d_out, bf16, gen, timed=True),
+                          phase="optim"))
+    cases.append(dict(flash_case(*FLASH_COMMAND_R, bf16, gen, timed=True,
+                                 in_summary=True), phase="wide_serve"))
+    cases.append(flash_case(*FLASH_NEMOTRON, bf16, gen, timed=True))
     composition, comp_launches, comp_routes = composition_case(gen)
     # the route each case must have taken: the wgmma route wherever its
     # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case)
@@ -940,16 +991,19 @@ def launches_per_step(cfg, policy, seq, microbatches=1):
     read off the model's own linear calls (``znorm.trace_linears``) split
     into plans as ``Ctx.linear_shared`` splits them (``cm.plan_groups``): a
     plan whose tags sample at ``seq`` (``znorm.sampling_active_tags``)
-    launches row_norms and gather_scale once and fused_sampled_dw once per
-    weight; an exact one launches nothing."""
+    launches row_norms and gather_scale once — twice under
+    ``remat="full"``, whose recompute builds the plan again, once under
+    ``"wtacrs_names"``, whose recompute takes it from the stash — and
+    fused_sampled_dw once per weight; an exact one launches nothing."""
     rec = trace_linears(cfg)
     active = znorm.sampling_active_tags(policy, rec.tags, seq_len=seq)
+    plans_built = 2 if policy.remat == "full" else 1
     out = {"row_norms": 0, "gather_scale": 0, "fused_sampled_dw": 0}
     for call in rec.calls:
         for group in cm.plan_groups(policy, call):
             if group[0] in active:
-                out["row_norms"] += 1
-                out["gather_scale"] += 1
+                out["row_norms"] += plans_built
+                out["gather_scale"] += plans_built
                 out["fused_sampled_dw"] += len(group)
     return {name: n * microbatches for name, n in out.items()}
 
@@ -1149,12 +1203,182 @@ def phase_accumulate(cfg, peak_m1, n_steps=3, microbatches=2):
 
 
 def phase_memory(cfg, ds, wta_peak):
+    """The legacy AdamW legs (exact here, WTA-CRS from the train phase),
+    then the remat legs under the ``mixed`` spec in a child process."""
     losses, times, peak, *_ = run_steps(cfg, EXACT_CONFIG, 2, B, S, ds)
     if not all(math.isfinite(x) for x in losses):
         fail(f"memory: non-finite loss in {losses}")
+    remat = run_child("memory_remat_child", timeout=900)
     emit({"phase": "memory", "exact_losses": losses, "exact_step_ms": times,
           "peak_bytes_exact": peak, "peak_bytes_wta_crs": wta_peak,
-          "exact_over_wta_crs": (peak / wta_peak) if wta_peak else None})
+          "exact_over_wta_crs": (peak / wta_peak) if wta_peak else None,
+          "mixed_spec": remat})
+
+
+def mixed_spec():
+    """The reference's ``mixed`` OptimSpec (``benchmarks/bench_memory.py``):
+    low-rank moments (r=8) on the transformer matrices, momentum-free
+    factored second moments on the embedding, dense elsewhere."""
+    return optim_lib.OptimSpec.of(
+        dict(pattern="unit/*", layout="lowrank", rank=8),
+        dict(pattern="embed*", layout="factored", momentum=False))
+
+
+# (estimator, remat) of the memory phase's legs under the mixed spec
+REMAT_LEGS = [("exact", "none"), ("wta_crs", "none"),
+              ("wta_crs", "wtacrs_names"), ("exact", "full")]
+
+
+def memory_remat_child():
+    """The 12-layer qwen2.5-3b of the memory phase under the ``mixed``
+    spec, 2 steps a leg from fresh parameters (run in a child process with
+    CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms on): each
+    remat leg's losses bit-equal to its ``none`` leg's, launches as
+    ``launches_per_step`` implies, every peak."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+    ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+    spec, legs = mixed_spec(), {}
+    for est, remat in REMAT_LEGS:
+        wcfg = (EXACT_CONFIG if est == "exact" else
+                WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=4))
+        policy = cm.Policy(wtacrs=wcfg, remat=remat, flash_block=512)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = train_steps.init_train_state(cfg, 0, opt=spec)
+        step = train_steps.make_train_step(
+            cfg, policy, spec, optim.linear_warmup_constant(1e-4, 2))
+        losses, times = [], []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, B))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        per_step = launches_per_step(cfg, policy, S)
+        launches = expect_launches(f"memory {est}/{remat}", {
+            name: 2 * n for name, n in per_step.items()})
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"memory {est}/{remat}: non-finite loss in {losses}")
+        legs[f"{est}/{remat}"] = {
+            "losses": losses, "step_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "launches_per_step": per_step}
+        del state, step
+    for leg, base in (("wta_crs/wtacrs_names", "wta_crs/none"),
+                      ("exact/full", "exact/none")):
+        if legs[leg]["losses"] != legs[base]["losses"]:
+            fail(f"memory: {leg} losses {legs[leg]['losses']} are not "
+                 f"{base}'s {legs[base]['losses']} bit for bit")
+    emit({"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S,
+          "spec": "mixed", "legs": legs, "remat_losses_bit_equal": True,
+          "deterministic": True,
+          "state_bytes_memory_report": optim_lib.memory_report(
+              spec, registry.init_params(cfg, 0, device="meta"))[
+                  "state_bytes"]})
+
+
+def optim_specs():
+    """Three of the reference's memory-benchmark specs
+    (``benchmarks/bench_memory.py``)."""
+    return {"factored_came": optim_lib.OptimSpec.of(
+                dict(pattern="*", layout="factored", momentum=True)),
+            "factored": optim_lib.OptimSpec.of(
+                dict(pattern="*", layout="factored", momentum=False)),
+            "mixed": mixed_spec()}
+
+
+def phase_optim():
+    """nemotron-4-15b at published width, depth cut to 2, under three
+    OptimSpecs: 4 steps each from fresh parameters; the state's bytes on
+    the card against memory_report; one subspace refresh of the widest
+    leaf timed.  Returns the phase's kernel launches."""
+    cfg = dataclasses.replace(get_config("nemotron-4-15b"), n_layers=2)
+    if (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.vocab_size, cfg.tie_embeddings) != (6144, 24576, 48, 8, 128,
+                                                    256000, False):
+        fail(f"optim: not the published nemotron-4-15b: {cfg}")
+    policy = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                           min_rows=4))
+    per_step = launches_per_step(cfg, policy, OPT_S)
+    ds = data.SyntheticLM(cfg.vocab_size, OPT_S, OPT_B, seed=0)
+    meta = registry.init_params(cfg, 0, device="meta")
+    legs, launches = {}, {name: 0 for name in KERNEL_NAMES}
+    for name, spec in optim_specs().items():
+        report = optim_lib.memory_report(spec, meta)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = registry.init_params(cfg, 0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = train_steps.init_train_state(cfg, 0, params=params,
+                                             opt=spec)
+        allocated = torch.cuda.memory_allocated() - before
+        slots = [t for leaf in state["opt"]["leaves"].values()
+                 for t in leaf.values()]
+        if not all(t.is_cuda for t in slots):
+            fail(f"optim {name}: optimizer state off the card")
+        on_card = optim_lib.tree_bytes(state["opt"])
+        if on_card != report["state_bytes"]:
+            fail(f"optim {name}: {on_card} state bytes on the card, "
+                 f"memory_report says {report['state_bytes']}")
+        step = train_steps.make_train_step(
+            cfg, policy, spec, optim.linear_warmup_constant(1e-4, 2))
+        reset_launches()
+        losses, times = [], []
+        for i in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, OPT_B))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        got = expect_launches(f"optim {name}", {
+            k: n * OPT_STEPS for k, n in per_step.items()})
+        by_route = expect_route(f"optim {name}", "fused_sampled_dw",
+                                "wgmma")
+        for k, n in got.items():
+            launches[k] += n
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"optim {name}: non-finite loss in {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"optim {name}: loss did not fall: {losses}")
+        legs[name] = {
+            "losses": losses, "step_ms": times,
+            "step_ms_median_after_first": statistics.median(times[1:]),
+            "peak_bytes": peak, "state_bytes_on_card": on_card,
+            "state_bytes_memory_report": report["state_bytes"],
+            "state_bytes_allocated": allocated,
+            "memory_report": report, "launches": got,
+            "fused_sampled_dw_launches_by_route": by_route}
+        del state, step, params, m
+    torch.cuda.empty_cache()
+    # one subspace refresh (the SVD and the moments' rotation) of the mixed
+    # leg's widest leaf, mlp/wi (6144 x 24576) at rank 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    g = torch.randn((cfg.d_model, cfg.d_ff), generator=gen, device="cuda")
+    proj = torch.zeros((cfg.d_model, 8), device="cuda")
+    mom = torch.zeros((8, cfg.d_ff), device="cuda")
+    refresh_ms = time_ms(lambda: optim_lib.layouts.refresh_subspace(
+        g, proj, mom, mom), warmup=1, reps=3, inner=1)
+    del g, proj, mom
+    torch.cuda.empty_cache()
+    emit({"phase": "optim", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": sum(p.numel() for p in optim.tree_leaves(meta)),
+          "batch": OPT_B, "seq": OPT_S, "budget": 0.3, "k": OPT_K,
+          "steps": OPT_STEPS, "legs": legs,
+          "dense_adamw_memory_report": optim_lib.memory_report(
+              optim_lib.OptimSpec(), meta),
+          "svd_refresh_ms_6144x24576_rank8": refresh_ms,
+          "launches_per_step": per_step})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1392,32 +1616,40 @@ def resume_child(work):
               "CUBLAS_WORKSPACE_CONFIG")})
 
 
-RESUME_CHILD = r"""
+CHILD = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-chip_smoke.resume_child(sys.argv[2])
+getattr(chip_smoke, sys.argv[2])(*sys.argv[3:])
 """
 
 
+def run_child(fn, *args, timeout):
+    """``chip_smoke.<fn>(*args)`` in its own process with deterministic
+    cuBLAS (deterministic algorithms are a process-wide switch, and cuBLAS
+    reads its workspace setting when the CUDA context starts); returns the
+    JSON object of its last line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    done = subprocess.run([sys.executable, "-c", CHILD, here, fn, *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=env)
+    if done.returncode != 0:
+        fail(f"{fn}: the child exited {done.returncode}: "
+             f"{done.stderr.strip()[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
 def phase_resume():
-    """``resume_child`` in its own process (deterministic algorithms are a
-    process-wide switch, and cuBLAS reads its workspace setting when the
-    CUDA context starts), writing under a temporary directory in build/."""
+    """``resume_child`` in its own process, writing under a temporary
+    directory in build/."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(here, "build"))
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     try:
-        done = subprocess.run([sys.executable, "-c", RESUME_CHILD, here, work],
-                              capture_output=True, text=True, timeout=600,
-                              env=env)
+        rec = run_child("resume_child", work, timeout=600)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if done.returncode != 0:
-        fail(f"resume: the child exited {done.returncode}: "
-             f"{done.stderr.strip()[-3000:]}")
-    rec = json.loads(done.stdout.strip().splitlines()[-1])
     emit({"phase": "resume", "arch": "qwen2.5-3b (reduced)", **rec})
 
 
@@ -1514,7 +1746,7 @@ def phase_serve_parity():
           "tol": {"rtol": 1e-4, "atol": 1e-4}})
 
 
-def phase_prefill(cfg, params, batch, seq):
+def phase_prefill(cfg, params, batch, seq, name="prefill"):
     """make_prefill_step on the full model: warm-up + 3 timed calls."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy())
     tokens = data.SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch_at(
@@ -1529,12 +1761,12 @@ def phase_prefill(cfg, params, batch, seq):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated()
-    launches = expect_launches("prefill", {
+    launches = expect_launches(name, {
         "row_norms": 0, "fused_sampled_dw": 0,
         "flash_attention_fwd": 4 * cfg.n_layers})
-    by_route = expect_route("prefill", "flash_attention_fwd", "wgmma")
+    by_route = expect_route(name, "flash_attention_fwd", "wgmma")
     if not bool(torch.isfinite(last.float()).all()):
-        fail("prefill: non-finite last logits")
+        fail(f"{name}: non-finite last logits")
     trace = device_busy(lambda: prefill(params, {"tokens": tokens}), 1)
     tt = torch.from_numpy(tokens).cuda()
     # bf16: the kernel rounds p to bf16 as the forward's tensor-op flash
@@ -1544,11 +1776,11 @@ def phase_prefill(cfg, params, batch, seq):
     # itself under another block size by more than that, so the floor is
     # measured beside it (close_to_forward)
     err, floor, atol = close_to_forward(
-        "prefill last logits vs forward", last,
+        f"{name} last logits vs forward", last,
         forward_logits(cfg, params, tt, -1, 512),
         forward_logits(cfg, params, tt, -1, 256), 3e-2)
     ms = statistics.median(times[1:])
-    emit({"phase": "prefill", "arch": cfg.name, "n_layers": cfg.n_layers,
+    emit({"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
           "batch": batch, "seq": seq, "prefill_ms": times,
           "prefill_ms_median_after_first": ms,
           "prompt_tokens_per_s": batch * seq / (ms / 1e3),
@@ -1561,9 +1793,10 @@ def phase_prefill(cfg, params, batch, seq):
     return (launches, by_route), tokens, last, states
 
 
-def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8):
-    """64 greedy serve_steps from the prefill's states (padded), the first
-    8 positions held against a teacher-forced forward."""
+def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
+                 name="decode"):
+    """``n_gen`` greedy serve_steps from the prefill's states (padded), the
+    first ``n_check`` positions held against a teacher-forced forward."""
     b, s = tokens.shape
     serve = train_steps.make_serve_step(cfg, cm.Policy())
     n_traced = 3
@@ -1578,14 +1811,14 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         if not bool(torch.isfinite(logits.float()).all()):
-            fail(f"decode: non-finite logits at step {g}")
+            fail(f"{name}: non-finite logits at step {g}")
         if g < n_check:
             checked.append(logits)
         fed.append(tok)
     traced = iter(range(s + n_gen, s + n_gen + n_traced))
     trace = device_busy(lambda: serve(params, tok, next(traced), states),
                         n_traced)
-    launches = expect_launches("decode", {
+    launches = expect_launches(name, {
         "row_norms": 0, "fused_sampled_dw": 0, "flash_attention_fwd": 0})
     seq = torch.cat([torch.from_numpy(tokens).cuda().to(torch.int32),
                      torch.stack(fed[:n_check], dim=1)], dim=1)
@@ -1594,12 +1827,12 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8):
     # prefill phase against the forward's own floor at this width
     pos = slice(s, s + n_check)
     err, floor, atol = close_to_forward(
-        "decode logits vs teacher-forced forward",
+        f"{name} logits vs teacher-forced forward",
         torch.stack(checked, dim=1),
         forward_logits(cfg, params, seq, pos, (s + n_check) // 8),
         forward_logits(cfg, params, seq, pos, (s + n_check) // 4), 5e-2)
     ms = statistics.median(times)
-    emit({"phase": "decode", "batch": b, "kv_len": s + n_gen + n_traced,
+    emit({"phase": name, "batch": b, "kv_len": s + n_gen + n_traced,
           "steps": n_gen, "step_ms_median": ms, "step_ms": times,
           "decode_tokens_per_s": b / (ms / 1e3), "launches": launches,
           "max_abs_err_vs_forward": err,
@@ -1733,6 +1966,26 @@ def phase_pool(cfg, params):
              f"{launches_total}")
 
 
+def phase_wide_serve():
+    """command-r-35b at published width, depth cut to 4: a 2 x 2048-token
+    prefill through the flash kernel at 64/8 heads and 16 decode steps,
+    each against the model's own forward.  Returns the prefill's
+    launches."""
+    cfg = dataclasses.replace(get_config("command-r-35b"), n_layers=4)
+    if (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.vocab_size, cfg.tie_embeddings) != (8192, 22528, 64, 8, 128,
+                                                    256000, True):
+        fail(f"wide_serve: not the published command-r-35b: {cfg}")
+    params = registry.init_params(cfg, 0)
+    (launches, _), *prefilled = phase_prefill(cfg, params, 2, 2048,
+                                              name="wide_serve_prefill")
+    phase_decode(cfg, params, *prefilled, n_gen=16,
+                 name="wide_serve_decode")
+    del params, prefilled
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1755,9 +2008,9 @@ def main() -> int:
               "cuda": torch.version.cuda,
               "device_name": torch.cuda.get_device_name(0),
               "capability": list(torch.cuda.get_device_capability(0))})
-    if set(phases) & {"build", "kernels", "parity", "train", "adaptive",
-                      "accumulate", "run", "resume", "serve_parity",
-                      "prefill"}:
+    if set(phases) & {"build", "kernels", "parity", "train", "memory",
+                      "adaptive", "accumulate", "optim", "run", "resume",
+                      "serve_parity", "prefill", "wide_serve"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -1803,6 +2056,9 @@ def main() -> int:
             phase_accumulate(cfg, peak_m1)
         del ds
         torch.cuda.empty_cache()
+    phase_launches = {}
+    if "optim" in phases:
+        phase_launches["optim"] = phase_optim()
 
     run_launches = {}
     if "run" in phases:
@@ -1828,20 +2084,27 @@ def main() -> int:
             del prefilled
         if "pool" in phases:
             phase_pool(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    if "wide_serve" in phases:
+        phase_launches["wide_serve"] = phase_wide_serve()
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
         # main paths' shapes in bf16, with the launches the train phase
         # (row_norms, gather_scale, fused_sampled_dw), the composition
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
-        # counted, and beside them the launches of the Run phase's fit
+        # counted — for the optim and wide_serve shapes those phases' —
+        # and beside them the launches of the Run phase's fit
         summary = []
         for c in cases:
             if ("ms" in c and c["dtype"] == "bfloat16"
                     and c.get("in_summary", True)):
-                entry = dict(c, launches=launches[c["name"]],
+                counted = (phase_launches[c["phase"]] if "phase" in c
+                           else launches)
+                entry = dict(c, launches=counted[c["name"]],
                              launches_run=run_launches[c["name"]])
-                if c["name"] in by_route:
+                if "phase" not in c and c["name"] in by_route:
                     entry["launches_by_route"] = by_route[c["name"]]
                 summary.append(entry)
         emit({"kernels": summary})

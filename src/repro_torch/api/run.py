@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import optim as optim_lib
 from repro_torch.api.spec import RunSpec, ServeSpec
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
@@ -36,12 +37,7 @@ from repro_torch.launch import train_steps
 from repro_torch.models import registry
 from repro_torch.serve import ServeSession, sampling
 from repro_torch.train import checkpoint, znorm
-
-# optimizer-state layouts the reference's checkpoints may name
-# (``repro.optim.spec.KNOWN_LAYOUTS``); only "adamw" is ported
-_REFERENCE_LAYOUTS = ("dense", "factored", "lowrank")
-_NO_OPTIM_LAYOUTS = ("optimizer-state layouts (OptimSpec) are not ported "
-                     "yet (ROADMAP Queue A.5)")
+from repro_torch.train import optim as adamw_lib
 
 
 class Run:
@@ -86,14 +82,21 @@ class Run:
         """Allocate the train state (idempotent); parameters already drawn
         for serving become its parameters."""
         if self.state is None:
-            self.state = train_steps.init_train_state(
-                self.cfg, self.spec.seed,
-                znorm_tags=self.tags if self.use_znorm_cache else None,
-                n_dataset=self.spec.data.n_samples,
-                budget_stats=self.track_budget_stats, device=self.device,
-                params=self._params)
-            self._params = None
+            self.state = self._new_state(self.spec.optimizer)
         return self
+
+    def _new_state(self, opt):
+        """A fresh train state whose optimizer state has ``opt``'s layout
+        (``restore`` of a legacy checkpoint asks for ``AdamWConfig``)."""
+        state = train_steps.init_train_state(
+            self.cfg, self.spec.seed,
+            znorm_tags=self.tags if self.use_znorm_cache else None,
+            n_dataset=self.spec.data.n_samples,
+            budget_stats=self.track_budget_stats, device=self.device,
+            params=self._params, opt=opt,
+            opt_ranks=self.schedule_state.ranks or None)
+        self._params = None
+        return state
 
     @property
     def params(self) -> Dict[str, Any]:
@@ -186,10 +189,13 @@ class Run:
     def _run_state_metadata(self) -> dict:
         # snapshot history: the async checkpointer serializes on a
         # worker thread while fit() keeps appending to the live list
+        opt = self.spec.optimizer
+        layouts = (list(opt.layouts_used())
+                   if isinstance(opt, optim_lib.OptimSpec) else ["adamw"])
         return checkpoint.pack_run_state(
             self.schedule_state.to_json(),
             arch=self.spec.arch,
-            optim_layouts=["adamw"],
+            optim_layouts=layouts,
             history=[dict(h) for h in self.history])
 
     def save(self, block: bool = True) -> None:
@@ -225,9 +231,12 @@ class Run:
         controller's ``initial_budget``.  The state is allocated once on
         ``device`` and filled in place from the checkpoint.
 
-        Checkpoints of the reference's optimizer-state layouts
-        (``OptimSpec``) raise ``NotImplementedError``; unknown layout
-        names raise ``ValueError``."""
+        Optimizer-state compatibility: the manifest records which layouts
+        wrote the checkpoint.  A legacy dense-AdamW checkpoint restores
+        under an all-dense ``OptimSpec`` (converted in place); any other
+        mismatch — unknown layout names, a factored/low-rank spec against
+        a dense checkpoint or the other way round — fails with the
+        reference's errors."""
         if not spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
         run = cls(spec, device=device)
@@ -239,30 +248,51 @@ class Run:
         manifest = checkpoint.read_manifest(spec.checkpoint_dir, step)
         rec = checkpoint.unpack_run_state(manifest)
         if rec is not None:
-            layouts = rec.get("optim_layouts", [])
-            unknown = [l for l in layouts
-                       if l not in _REFERENCE_LAYOUTS + ("adamw",)]
-            if unknown:
-                raise ValueError(
-                    f"checkpoint step {step} was written with unknown "
-                    f"optimizer-state layout(s) {unknown}; this reader "
-                    f"knows {sorted(_REFERENCE_LAYOUTS)} (plus "
-                    f"legacy 'adamw').  Upgrade repro to restore it.")
-            if any(l != "adamw" for l in layouts):
-                raise NotImplementedError(
-                    f"checkpoint step {step} holds optimizer-state layouts "
-                    f"{layouts}: {_NO_OPTIM_LAYOUTS}")
             if "schedule_state" in rec:
                 run.schedule_state = train_steps.ScheduleState.from_json(
                     rec["schedule_state"])
             run.history = [dict(h) for h in rec.get("history", [])]
-        if any(k.startswith("opt/leaves/") for k in manifest.get("keys", ())):
-            raise NotImplementedError(
-                f"checkpoint step {step} keys its optimizer state by leaf "
-                f"(opt/leaves/...): {_NO_OPTIM_LAYOUTS}")
-        run.init()
-        run.state, _ = checkpoint.restore(spec.checkpoint_dir, run.state,
-                                          step=step)
+            unknown = [l for l in rec.get("optim_layouts", [])
+                       if l not in optim_lib.KNOWN_LAYOUTS + ("adamw",)]
+            if unknown:
+                raise ValueError(
+                    f"checkpoint step {step} was written with unknown "
+                    f"optimizer-state layout(s) {unknown}; this reader "
+                    f"knows {sorted(optim_lib.KNOWN_LAYOUTS)} (plus "
+                    f"legacy 'adamw').  Upgrade repro to restore it.")
+        # dense-AdamW checkpoints key their moments as opt/m/...; the
+        # layout state keys opt/leaves/<path>/<slot> ("opt/count" exists
+        # in both, so it cannot discriminate)
+        keys = manifest.get("keys", ())
+        legacy_ckpt = (any(k.startswith(("opt/m/", "opt/v/")) for k in keys)
+                       and not any(k.startswith("opt/leaves/")
+                                   for k in keys))
+        spec_opt = spec.optimizer
+        if legacy_ckpt and isinstance(spec_opt, optim_lib.OptimSpec):
+            if not spec_opt.all_dense:
+                raise ValueError(
+                    f"checkpoint step {step} holds legacy dense-AdamW "
+                    f"optimizer state but the spec's OptimSpec resolves "
+                    f"to {spec_opt.layouts_used()}; factored/low-rank "
+                    f"moments cannot be reconstructed from dense ones. "
+                    f"Restore with an all-dense spec (or AdamWConfig) "
+                    f"and switch layouts on a fresh run.")
+            run.state, _ = checkpoint.restore(
+                spec.checkpoint_dir, run._new_state(adamw_lib.AdamWConfig()),
+                step=step)
+            run.state["opt"] = optim_lib.from_legacy_adamw(
+                run.state["opt"], run.state["params"])
+        elif not legacy_ckpt and not isinstance(spec_opt,
+                                                optim_lib.OptimSpec):
+            raise ValueError(
+                f"checkpoint step {step} was written by an OptimSpec "
+                f"(path-keyed optimizer state) but the spec carries a "
+                f"legacy AdamWConfig; restore with "
+                f"OptimSpec.from_adamw(cfg) to keep the layouts.")
+        else:
+            run.init()
+            run.state, _ = checkpoint.restore(spec.checkpoint_dir,
+                                              run.state, step=step)
         return run
 
     @classmethod
@@ -376,13 +406,21 @@ class Run:
             "ported yet (ROADMAP Queue A.9)")
 
     def report(self) -> str:
-        """Markdown report: §Run metrics summary and §Budgets controller
-        trajectory + re-plan economy."""
+        """Markdown report: §Run metrics summary, §Budgets controller
+        trajectory + re-plan economy, §Optimizer memory (OptimSpec
+        runs)."""
         n_steps = int(self.state["step"]) if self.state is not None else 0
         n_compiles = (len(self._step_fn.compiled)
                       if self._step_fn is not None else 0)
+        optim_rec = None
+        if isinstance(self.spec.optimizer, optim_lib.OptimSpec):
+            params = registry.init_params(self.cfg, 0, device="meta")
+            optim_rec = optim_lib.memory_report(
+                self.spec.optimizer, params,
+                ranks=self.schedule_state.ranks or None)
         return report_lib.run_report(
             n_steps=n_steps,
             budget_records=self.schedule_state.trajectory,
             n_compiles=n_compiles, history=self.history,
+            optim_rec=optim_rec,
             rank_records=self.schedule_state.rank_trajectory)

@@ -16,11 +16,12 @@ remain public for callers that need the low level.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 from repro_torch.core.kernel_config import KernelConfig
 from repro_torch.core.policy import PolicyRules  # noqa: F401  (re-export)
 from repro_torch.models import common as cm
+from repro_torch.optim import OptimSpec
 from repro_torch.serve.spec import ServeSpec  # noqa: F401  (re-export)
 from repro_torch.train import data as data_lib
 from repro_torch.train import optim, znorm
@@ -76,10 +77,12 @@ class RunSpec:
     (``Policy.with_kernel``).  ``None`` keeps whatever each config
     already carries.
 
-    Not ported yet, and refused here: an optimizer other than
-    ``AdamWConfig`` (``OptimSpec``, ROADMAP Queue A.5), and ``mesh="host"``
-    / ``model_parallel`` / ``data_axes`` (A.9).  The reference's ``jit``
-    has no counterpart: the port's steps run eagerly.
+    ``optimizer``: a legacy ``AdamWConfig`` or an ``OptimSpec``
+    (per-leaf factored / low-rank state layouts with rank control).
+
+    Not ported yet, and refused here: ``mesh="host"`` /
+    ``model_parallel`` / ``data_axes`` (ROADMAP Queue A.9).  The
+    reference's ``jit`` has no counterpart: the port's steps run eagerly.
     """
 
     arch: str
@@ -92,7 +95,10 @@ class RunSpec:
     batch_size: int = 8
     microbatches: int = 1
 
-    optimizer: optim.AdamWConfig = optim.AdamWConfig()
+    # a legacy AdamWConfig (dense AdamWState, the bit-identical default)
+    # or an repro_torch.optim.OptimSpec (per-leaf factored/low-rank state
+    # layouts with policy-driven rank control)
+    optimizer: Union[optim.AdamWConfig, OptimSpec] = optim.AdamWConfig()
     lr: float = 3e-3
     lr_schedule: str = "constant"
     warmup: int = 5
@@ -134,11 +140,6 @@ class RunSpec:
             raise ValueError(
                 f"batch_size {self.batch_size} exceeds data.n_samples "
                 f"{self.data.n_samples}")
-        if not isinstance(self.optimizer, optim.AdamWConfig):
-            raise NotImplementedError(
-                f"optimizer {type(self.optimizer).__name__}: only the "
-                f"legacy AdamWConfig is ported; OptimSpec and its "
-                f"optimizer-state layouts wait for ROADMAP Queue A.5")
         if (self.mesh is not None or self.model_parallel != 1
                 or self.data_axes is not None):
             raise NotImplementedError(

@@ -7,7 +7,8 @@ from repro_torch.configs.base import ArchConfig
 
 __all__ = ["ArchConfig", "ARCHS", "ARCH_NAMES", "get_config"]
 
-_ARCH_MODULES = ["qwen2_5_3b", "minicpm_2b"]
+_ARCH_MODULES = ["nemotron_4_15b", "qwen2_5_3b", "command_r_35b",
+                 "minicpm_2b"]
 
 
 def _load():

@@ -3,10 +3,13 @@
 The reference (``repro.models.registry.init_params``) yields, for a dense
 decoder arch, ``{"embed", "unit": (block,), "final_norm"[, "head"]}``
 where every leaf of ``block`` carries a leading ``n_repeats`` axis.  The
-port keeps a list of per-layer dicts (``models/lm.py``).  These two
-functions map one onto the other so both packages can be run on the same
-values; neither imports the reference — the caller hands over numpy
-arrays (``jax.tree.map(np.asarray, params)`` on the reference's side).
+port keeps a list of per-layer dicts (``models/lm.py``).  The functions
+below map one onto the other so both packages can be run on the same
+values; none imports the reference — the caller hands over numpy arrays
+(``jax.tree.map(np.asarray, params)`` on the reference's side).  The
+optimizer-layout state of ``repro_torch.optim`` keeps the reference's
+stacked slots, so ``opt_state_from_jax`` / ``opt_state_to_numpy`` only
+change the array type.
 """
 from __future__ import annotations
 
@@ -100,3 +103,27 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
     if "head" in params:
         out["head"] = to_n(params["head"])
     return out
+
+
+def opt_state_from_jax(numpy_state: Dict[str, Any], device="cuda"
+                       ) -> Dict[str, Any]:
+    """The reference's optimizer-layout state (numpy leaves,
+    ``{"count", "leaves": {path: {slot: array}}}``) -> the port's
+    (``repro_torch.optim``, which keeps the reference's stacked slots),
+    f32 on ``device``."""
+    device = resolve_device(device)
+    return {"count": int(numpy_state["count"]),
+            "leaves": {path: {name: torch.from_numpy(
+                np.array(a, dtype=np.float32)).to(device)
+                for name, a in slots.items()}
+                for path, slots in numpy_state["leaves"].items()}}
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer-layout state -> the reference's (f32 numpy
+    slots, ``count`` an int32)."""
+    return {"count": np.asarray(state["count"], np.int32),
+            "leaves": {path: {name: t.detach().to(
+                device="cpu", dtype=torch.float32).numpy()
+                for name, t in slots.items()}
+                for path, slots in state["leaves"].items()}}

@@ -28,7 +28,8 @@ from repro_torch.core.plans import (SamplePlan, batched_row_weights,
                                     column_row_probabilities, crs_plan,
                                     det_topk_plan, optimal_c_size,
                                     wtacrs_plan)
-from repro_torch.core.policy import BudgetSchedule, PolicyRules, Rule
+from repro_torch.core.policy import (BudgetSchedule, PolicyRules,
+                                     RankSchedule, Rule)
 
 __all__ = [
     "EXACT_CONFIG", "EstimatorKind", "NormSource", "WTACRSConfig",
@@ -41,7 +42,7 @@ __all__ = [
     "approx_matmul", "apply_plan", "exact_matmul", "crs_variance",
     "wtacrs_variance_bound", "theorem2_condition",
     "empirical_estimator_stats",
-    "BudgetSchedule", "PolicyRules", "Rule",
+    "BudgetSchedule", "PolicyRules", "RankSchedule", "Rule",
     "BudgetController", "ConditionRate", "ESSProportional", "FixedSchedule",
     "RankController", "TagStats",
 ]

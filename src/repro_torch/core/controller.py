@@ -213,9 +213,9 @@ class RankController:
     fraction ``||P^T g||^2 / ||g||^2``: above ``hi`` the rank steps DOWN
     one grid level, below ``lo`` it steps UP, inside [lo, hi] it holds.
 
-    The port has no optimizer-state layouts yet (``optim/`` of the
-    reference), so nothing drives this controller here; it is ported with
-    the others so its decisions can be held against the reference's.
+    ``repro_torch.optim.LayoutRule(controller=...)`` carries it;
+    ``make_scheduled_train_step`` feeds it the energy statistics the
+    optimizer update publishes under ``optim:rank:<rule>``.
     """
 
     r_min: int = 4

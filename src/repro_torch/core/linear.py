@@ -34,6 +34,13 @@ On a CUDA tensor the row norms and the H' gather of the forward and the
 dW of the backward go through the hand-written kernels
 (``repro_torch.kernels.ops``); the large exact products stay
 ``torch.matmul``.
+
+Rematerialisation (``Policy.remat="wtacrs_names"``) keeps exactly the
+tensors the reference names ``wtacrs_saved`` — H', idx and scale — across
+a layer's recompute: a :class:`RematStash` handed to the sampled linears
+records them in the layer's forward and gives them back, in call order,
+when the backward runs the layer again, so the recompute neither rebuilds
+the plans nor gathers H' a second time.
 """
 from __future__ import annotations
 
@@ -86,6 +93,46 @@ def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):
     return dw.to(out_dtype)
 
 
+class RematStash:
+    """(H', idx, scale) of every sampled linear of one layer, in call
+    order.  A recording stash (``RematStash()``) keeps them as the layer's
+    forward makes them; a replaying one (``RematStash(saved)``, the flat
+    list ``tensors()`` gave) hands them back to the recompute."""
+
+    def __init__(self, saved=None):
+        self.replay = saved is not None
+        flat = list(saved) if saved is not None else []
+        self.kept = [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+        self._next = 0
+
+    def keep(self, h_sub, idx, scale) -> None:
+        self.kept.append((h_sub, idx, scale))
+
+    def take(self):
+        if self._next >= len(self.kept):
+            raise RuntimeError("the recompute ran more sampled linears than "
+                               "the forward recorded")
+        self._next += 1
+        return self.kept[self._next - 1]
+
+    def tensors(self) -> list:
+        return [t for triple in self.kept for t in triple]
+
+
+def _kept(h, znorm, cfg, gen, plan, stash):
+    """(H', idx, scale) of a sampled linear: built from ``h`` (and kept in
+    a recording ``stash``), or taken from a replaying one."""
+    if stash is not None and stash.replay:
+        return stash.take()
+    k = cfg.budget_rows(h.shape[1])
+    idx, scale = plan if plan is not None else _make_plans(
+        h, znorm, gen, cfg, k)
+    h_sub = _rowgather(h, idx)
+    if stash is not None:
+        stash.keep(h_sub, idx, scale)
+    return h_sub, idx, scale
+
+
 def _sq_norm_tap(dz):
     # Gradient-norm tap: NOT a derivative (see module doc).  Squared norms
     # so per-sample caches broadcast over positions sum correctly.
@@ -96,12 +143,9 @@ class _SampledLinear(torch.autograd.Function):
     """(B, S, D) x (D, E) with a per-sample plan; saves (H', idx, scale, w)."""
 
     @staticmethod
-    def forward(ctx, h, w, znorm, cfg, gen, plan):
+    def forward(ctx, h, w, znorm, cfg, gen, plan, stash):
         z = torch.matmul(h, w)
-        k = cfg.budget_rows(h.shape[1])
-        idx, scale = plan if plan is not None else _make_plans(
-            h, znorm, gen, cfg, k)
-        ctx.save_for_backward(_rowgather(h, idx), idx, scale, w)
+        ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash), w)
         ctx.cfg = cfg
         return z
 
@@ -112,7 +156,7 @@ class _SampledLinear(torch.autograd.Function):
         dh = torch.matmul(dz, w.t()).to(h_sub.dtype)
         dw = _sampled_dw(h_sub, dz, idx, scale, ctx.cfg, w.dtype)
         tap = _sq_norm_tap(dz) if ctx.needs_input_grad[2] else None
-        return dh, dw, tap, None, None, None
+        return dh, dw, tap, None, None, None, None
 
 
 class _SampledLinearShared(torch.autograd.Function):
@@ -124,12 +168,9 @@ class _SampledLinearShared(torch.autograd.Function):
     changes, not any mean)."""
 
     @staticmethod
-    def forward(ctx, h, znorm, cfg, gen, plan, *ws):
+    def forward(ctx, h, znorm, cfg, gen, plan, stash, *ws):
         zs = tuple(torch.matmul(h, w) for w in ws)
-        k = cfg.budget_rows(h.shape[1])
-        idx, scale = plan if plan is not None else _make_plans(
-            h, znorm, gen, cfg, k)
-        ctx.save_for_backward(_rowgather(h, idx), idx, scale, *ws)
+        ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash), *ws)
         ctx.cfg = cfg
         return zs
 
@@ -148,7 +189,7 @@ class _SampledLinearShared(torch.autograd.Function):
             if ctx.needs_input_grad[1]:
                 t = _sq_norm_tap(dz)
                 tap = t if tap is None else tap + t
-        return (dh.to(h_sub.dtype), tap, None, None, None, *dws)
+        return (dh.to(h_sub.dtype), tap, None, None, None, None, *dws)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +202,8 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
                             cfg: WTACRSConfig,
                             biases: Optional[Sequence] = None,
                             shared: bool = False,
-                            plan: Optional[Plan] = None
+                            plan: Optional[Plan] = None,
+                            stash: Optional[RematStash] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """The single sampled-dense path every public wrapper routes through.
 
@@ -169,6 +211,7 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
     (EXACT kind or budget covering all rows), znorm normalization, key
     requirements from the registered estimator's signature, and the
     shared-plan vs per-weight choice.  Returns one output per weight.
+    ``stash``: see :class:`RematStash`.
     """
     lead = h.shape[:-1]
     squeeze = h.ndim == 2
@@ -202,10 +245,11 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
             if not spec.supports_shared:
                 raise ValueError(f"estimator {cfg.kind_name!r} does not "
                                  f"support shared plans")
-            z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, *ws)
+            z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, stash,
+                                             *ws)
         else:
-            z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan)
-                        for w in ws)
+            z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan,
+                                             stash) for w in ws)
         zs = tuple(z[0] if squeeze else z.reshape(lead + (z.shape[-1],))
                    for z in z3s)
 
@@ -220,7 +264,8 @@ def wtacrs_linear(h: torch.Tensor, w: torch.Tensor,
                   znorm: Optional[torch.Tensor] = None,
                   cfg: WTACRSConfig = WTACRSConfig(),
                   bias: Optional[torch.Tensor] = None,
-                  plan: Optional[Plan] = None) -> torch.Tensor:
+                  plan: Optional[Plan] = None,
+                  stash: Optional[RematStash] = None) -> torch.Tensor:
     """Linear layer with estimator-approximated weight gradient.
 
     Args:
@@ -238,20 +283,25 @@ def wtacrs_linear(h: torch.Tensor, w: torch.Tensor,
       bias: optional (d_out,), added exactly.
       plan: optional ready (idx, scale) of shape (B, k) used instead of
         building one.
+      stash: a :class:`RematStash` recording or replaying the kept
+        tensors (layer rematerialisation).
     """
     return _dispatch_sampled_dense(h, (w,), key, znorm, cfg,
-                                   biases=(bias,), plan=plan)[0]
+                                   biases=(bias,), plan=plan,
+                                   stash=stash)[0]
 
 
 def wtacrs_linear_shared(h: torch.Tensor, ws, key: Optional[int] = None,
                          znorm=None, cfg: WTACRSConfig = WTACRSConfig(),
-                         biases=None, plan: Optional[Plan] = None):
+                         biases=None, plan: Optional[Plan] = None,
+                         stash: Optional[RematStash] = None):
     """Shared-plan multi-linear: returns one output per weight in ``ws``.
 
     h: (..., S, d_in); every w: (d_in, d_out_i).  One plan and ONE stored
     H' serve all weights (see ``_SampledLinearShared``)."""
     return _dispatch_sampled_dense(h, tuple(ws), key, znorm, cfg,
-                                   biases=biases, shared=True, plan=plan)
+                                   biases=biases, shared=True, plan=plan,
+                                   stash=stash)
 
 
 def read_grad_norm_tap(grads_znorm: torch.Tensor) -> torch.Tensor:

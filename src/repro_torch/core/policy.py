@@ -95,6 +95,63 @@ class BudgetSchedule:
         raise ValueError(f"unknown schedule kind {self.kind!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class RankSchedule:
+    """step -> integer rank >= 1, for low-rank optimizer-state layouts
+    (``repro_torch.optim.LayoutRule``).  The rank fixes the projection and
+    moment shapes the way a budget fixes plan shapes, so the same rules
+    apply: a schedule resolves against a concrete step, and ``linear``
+    quantizes to ``stages`` plateaus.  Kinds:
+
+      * ``constant`` — always ``end``.
+      * ``linear``   — anneal ``start -> end`` over
+        ``[begin_step, end_step]`` in ``stages`` plateaus.
+    """
+
+    kind: str = "constant"
+    start: int = 32
+    end: int = 8
+    begin_step: int = 0
+    end_step: int = 0
+    stages: int = 4
+
+    @classmethod
+    def constant(cls, rank: int) -> "RankSchedule":
+        if rank < 1:
+            raise ValueError("need rank >= 1")
+        return cls(kind="constant", end=int(rank))
+
+    @classmethod
+    def linear(cls, start: int, end: int, begin_step: int,
+               end_step: int, stages: int = 4) -> "RankSchedule":
+        if end_step <= begin_step:
+            raise ValueError("linear rank schedule needs "
+                             "end_step > begin_step")
+        if start < 1 or end < 1:
+            raise ValueError("need start >= 1 and end >= 1")
+        return cls(kind="linear", start=int(start), end=int(end),
+                   begin_step=begin_step, end_step=end_step,
+                   stages=stages)
+
+    def rank_at(self, step: int) -> int:
+        step = int(step)
+        if self.kind == "constant":
+            return max(int(self.end), 1)
+        if self.kind == "linear":
+            if step <= self.begin_step:
+                return max(int(self.start), 1)
+            if step >= self.end_step:
+                return max(int(self.end), 1)
+            frac = (step - self.begin_step) / (self.end_step
+                                               - self.begin_step)
+            # same plateau quantization as BudgetSchedule.budget_at
+            frac = min(int(frac * self.stages) + 1, self.stages) \
+                / self.stages
+            return max(int(round(self.start * (1.0 - frac)
+                                 + self.end * frac)), 1)
+        raise ValueError(f"unknown rank schedule kind {self.kind!r}")
+
+
 _OVERRIDE_FIELDS = {f.name for f in dataclasses.fields(WTACRSConfig)}
 
 

@@ -6,7 +6,8 @@ Python loop, and the optimizer updates the parameters in place (see
 ``train/optim.py``); the znorm cache and budget statistics come back as
 new tensors in the same state dict, which is the caller's own object.
 ``make_scheduled_train_step`` drives budget schedules and adaptive
-budget controllers on top of it (Algorithm 1's whole loop).
+budget controllers on top of it (Algorithm 1's whole loop), and the rank
+schedules and controllers of an ``OptimSpec``'s low-rank layouts.
 
 The serve and prefill step makers below return eager functions with the
 reference's signatures.  Each step enters ``torch.no_grad()`` itself
@@ -21,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import optim as optim_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import controller as controller_lib
 from repro_torch.device import resolve_device
@@ -28,29 +30,35 @@ from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.train import optim, znorm
 
-_NO_OPTIM_SPEC = ("only the legacy AdamWConfig is ported; optimizer-state "
-                  "layouts (OptimSpec) and their rank dynamics are not "
-                  "ported yet")
-
 
 def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
                      n_dataset: int = 0, budget_stats: bool = False,
-                     device="cuda", params=None) -> Dict[str, Any]:
+                     device="cuda", params=None, opt=None,
+                     opt_ranks=None) -> Dict[str, Any]:
     """Parameters from ``seed`` on ``device`` (or ``params``, already
-    drawn from ``seed`` there), zeroed f32 AdamW moments, step 0 and the
+    drawn from ``seed`` there), zeroed f32 optimizer state, step 0 and the
     base seed every step's sampling seed derives from.
 
     ``znorm_tags`` (from ``znorm.collect_linear_tags``): also carry the
     dataset gradient-norm cache over ``n_dataset`` samples; with
     ``budget_stats`` the per-tag controller statistics too (only useful —
     and only paid for — when the policy carries adaptive budget
-    controllers; see ``repro_torch.core.controller``)."""
+    controllers; see ``repro_torch.core.controller``).
+
+    ``opt``: ``None``/``AdamWConfig`` keeps the legacy ``AdamWState``; an
+    ``repro_torch.optim.OptimSpec`` initializes the path-keyed layout
+    state (its rank-controller statistics ride ``budget_stats`` whatever
+    the znorm flags — they come from the optimizer update, not the znorm
+    tap).  ``opt_ranks``: current rank per dynamic rule (a resumed run's
+    band positions)."""
     device = resolve_device(device)
     if params is None:
         params = registry.init_params(cfg, seed, device=device)
+    legacy = opt is None or isinstance(opt, optim.AdamWConfig)
     state = {
         "params": params,
-        "opt": optim.adamw_init(params),
+        "opt": (optim.adamw_init(params) if legacy
+                else optim_lib.init(opt, params, ranks=opt_ranks)),
         "step": 0,
         "base_seed": cm.fold_seed(int(seed), 7),
     }
@@ -60,6 +68,10 @@ def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
         if budget_stats:
             state["budget_stats"] = znorm.init_stats(znorm_tags,
                                                      device=device)
+    if not legacy:
+        rank_stats = optim_lib.init_rank_stats(opt, device=device)
+        if rank_stats:
+            state.setdefault("budget_stats", {}).update(rank_stats)
     return state
 
 
@@ -80,8 +92,7 @@ def _no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def make_train_step(cfg: ArchConfig, policy: cm.Policy,
-                    opt_cfg: optim.AdamWConfig,
+def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                     schedule: Callable[[int], float],
                     use_znorm_cache: bool = False,
                     microbatches: int = 1,
@@ -108,6 +119,11 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy,
     statistics still take ONE update per optimizer step, over the whole
     batch's taps.
 
+    ``opt_cfg``: a legacy ``optim.AdamWConfig`` (``AdamWState``) or an
+    ``repro_torch.optim.OptimSpec`` (path-keyed layout state;
+    rank-controller statistics land in ``state["budget_stats"]`` under
+    ``optim:rank:*`` keys).
+
     This builder runs ONE policy resolution (``policy.step`` as given);
     ``make_scheduled_train_step`` re-resolves schedules and controllers
     per step.
@@ -115,8 +131,13 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy,
     device = resolve_device(device)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    if not isinstance(opt_cfg, optim.AdamWConfig):
-        raise NotImplementedError(_NO_OPTIM_SPEC)
+    layouts = isinstance(opt_cfg, optim_lib.OptimSpec)
+    if not layouts and not isinstance(opt_cfg, optim.AdamWConfig):
+        raise TypeError(f"expected OptimSpec or AdamWConfig, got "
+                        f"{type(opt_cfg).__name__}")
+    # the update only reports captured-energy statistics when the spec
+    # carries rank-controller rules
+    track_rank_energy = layouts and bool(opt_cfg.controller_rule_indices())
     _no_tf32()
 
     def grads_of(params, leaves, zn, batch, key):
@@ -198,8 +219,12 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy,
                         for t in tap_parts[0]}
 
         lr = schedule(step)
-        _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
-                                      opt_cfg)
+        if layouts:
+            _, _, om, rank_energy = optim_lib.update(
+                grads, state["opt"], params, lr, opt_cfg)
+        else:
+            _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
+                                          opt_cfg)
         state["step"] = step + 1
         if use_znorm_cache:
             state["znorm"] = cache
@@ -208,9 +233,13 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy,
                 # (the stat atoms are normalized, so the per-microbatch
                 # loss normalization cancels)
                 budgets = {t: policy.config_for(t).budget
-                           for t in state["budget_stats"]}
+                           for t in state["budget_stats"]
+                           if not optim_lib.is_rank_stat_key(t)}
                 state["budget_stats"] = znorm.update_stats(
                     state["budget_stats"], taps, budgets, active_tags=active)
+        if track_rank_energy and "budget_stats" in state:
+            state["budget_stats"] = optim_lib.update_rank_stats(
+                state["budget_stats"], rank_energy)
         return state, {"loss": loss, "lr": lr, **om}
 
     return train_step
@@ -226,8 +255,9 @@ class ScheduleState:
     restored through :func:`make_scheduled_train_step`'s
     ``schedule_state`` argument continues its budget trajectory exactly
     where it stopped.  ``to_json``/``from_json`` round-trip the
-    reference's record (version 2; ``ranks``/``rank_trajectory`` stay
-    empty here, as optimizer-state layouts are not ported).
+    reference's record (version 2: ``ranks`` pins the rank of every
+    dynamic ``OptimSpec`` rule, ``rank_trajectory`` logs its changes;
+    both empty for ``AdamWConfig`` and static specs).
     """
 
     VERSION = 2
@@ -292,14 +322,17 @@ class ScheduledStepFn:
         re-plans)
       * ``step_fn.owned_tags``         — controller rule -> the stat tags
         it governs under first-match-wins
+
+    An ``OptimSpec``'s rank schedules and rank controllers resolve the
+    same way, before each step: a new rank migrates the low-rank slots
+    (``optim.migrate_ranks``), counts as a re-plan and enters the
+    signature.
     """
 
     def __init__(self, cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                  schedule: Callable[[int], float],
                  schedule_state: Optional[ScheduleState] = None,
                  device="cuda", **train_step_kwargs):
-        if not isinstance(opt_cfg, optim.AdamWConfig):
-            raise NotImplementedError(_NO_OPTIM_SPEC)
         self._cfg = cfg
         self._policy = policy
         self._opt_cfg = opt_cfg
@@ -330,9 +363,6 @@ class ScheduledStepFn:
                 f"policy's controller rules are "
                 f"{sorted(self._ctrl_idx)}; the policy changed between "
                 f"save and restore")
-        if self.schedule_state.ranks:
-            raise ValueError("restored schedule state pins optimizer ranks; "
-                             + _NO_OPTIM_SPEC)
         self._stats_needed = any(
             getattr(rules[i].controller, "needs_stats", True)
             for i in self._ctrl_idx)
@@ -349,6 +379,25 @@ class ScheduledStepFn:
         # tags GOVERNED by each controller rule under first-match-wins;
         # stat keys are fixed per state structure, so resolve once
         self.owned_tags: Dict[int, list] = {}
+
+        # --- optimizer rank dynamics (repro_torch.optim.OptimSpec) -------
+        spec = (opt_cfg if isinstance(opt_cfg, optim_lib.OptimSpec)
+                else None)
+        self._opt_spec = spec
+        self._rank_dyn = (spec.dynamic_rule_indices()
+                          if spec is not None else ())
+        self._rank_ctrl = (spec.controller_rule_indices()
+                           if spec is not None else ())
+        if not self.schedule_state.ranks:
+            if self._rank_dyn:
+                self.schedule_state.ranks = dict(spec.initial_ranks())
+        elif set(self.schedule_state.ranks) != set(self._rank_dyn):
+            raise ValueError(
+                f"restored schedule state pins ranks for optimizer "
+                f"rules {sorted(self.schedule_state.ranks)} but the "
+                f"spec's dynamic rank rules are "
+                f"{sorted(self._rank_dyn)}; the optimizer spec changed "
+                f"between save and restore")
 
     @property
     def replans(self) -> int:
@@ -373,6 +422,15 @@ class ScheduledStepFn:
         step = int(state["step"])
         st = self.schedule_state
         rule_budgets = None
+        stats_host = None
+        if self._ctrl_idx or self._rank_ctrl:
+            stats_host = {}
+            names = list(state.get("budget_stats", {}))
+            if names:
+                # one device-to-host read for every tag's vector
+                vecs = torch.stack([state["budget_stats"][t]
+                                    for t in names]).cpu().numpy()
+                stats_host = dict(zip(names, vecs))
         if self._ctrl_idx:
             if self._stats_needed and "budget_stats" not in state:
                 raise ValueError(
@@ -382,14 +440,8 @@ class ScheduledStepFn:
                     "budget_stats=True (the controllers feed on the "
                     "znorm cache's tap statistics) and pass "
                     "use_znorm_cache=True")
-            stats_host = {}
-            names = list(state.get("budget_stats", {}))
-            if names:
-                # one device-to-host read for every tag's vector
-                vecs = torch.stack([state["budget_stats"][t]
-                                    for t in names]).cpu().numpy()
-                stats_host = dict(zip(names, vecs))
-            owned = self._owned(list(stats_host))
+            owned = self._owned([t for t in stats_host
+                                 if not optim_lib.is_rank_stat_key(t)])
             for i in self._ctrl_idx:
                 r = self._rules[i]
                 agg = controller_lib.TagStats.aggregate(stats_host,
@@ -408,10 +460,13 @@ class ScheduledStepFn:
                     st.budgets[i] = nb
             rule_budgets = tuple(st.budgets.get(i)
                                  for i in range(len(self._rules)))
+        state = self._apply_rank_dynamics(state, step, stats_host)
         pol = self._policy.at_step(step)
         if rule_budgets is not None:
             pol = pol.with_rule_budgets(rule_budgets)
         sig = pol.schedule_signature()
+        if st.ranks:
+            sig = sig + tuple(sorted(st.ranks.items()))
         fn = self.compiled.get(sig)
         if fn is None:
             fn = make_train_step(self._cfg, pol, self._opt_cfg,
@@ -419,6 +474,40 @@ class ScheduledStepFn:
                                  **self._train_step_kwargs)
             self.compiled[sig] = fn
         return fn(state, batch)
+
+    def _apply_rank_dynamics(self, state, step: int, stats_host):
+        """Resolve rank schedules/controllers at the concrete step and
+        migrate the optimizer state on band crossings (pad/truncate the
+        low-rank subspaces; one new step function per change through the
+        signature-keyed cache, like a budget re-plan)."""
+        if not self._rank_dyn:
+            return state
+        spec, st = self._opt_spec, self.schedule_state
+        changed: Dict[int, int] = {}
+        for i in self._rank_dyn:
+            rule = spec.rules[i]
+            if rule.schedule is not None:
+                want = int(rule.schedule.rank_at(step))
+            else:
+                vec = (stats_host or {}).get(optim_lib.rank_stat_key(i))
+                agg = (controller_lib.TagStats.from_vector(vec)
+                       if vec is not None else None)
+                want = int(rule.controller.propose(agg, st.ranks[i], step))
+            if not any(rec["rule"] == i for rec in st.rank_trajectory):
+                st.rank_trajectory.append(
+                    {"step": step, "rule": i, "pattern": rule.pattern,
+                     "rank": st.ranks[i], "prev": None})
+            if want != st.ranks[i]:
+                st.replans += 1
+                st.rank_trajectory.append(
+                    {"step": step, "rule": i, "pattern": rule.pattern,
+                     "rank": want, "prev": st.ranks[i]})
+                changed[i] = want
+                st.ranks[i] = want
+        if changed:
+            state["opt"] = optim_lib.migrate_ranks(
+                spec, state["opt"], state["params"], changed)
+        return state
 
 
 def make_scheduled_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,

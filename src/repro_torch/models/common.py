@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core import estimator_registry as est_registry
 from repro_torch.core.config import EstimatorKind, WTACRSConfig
-from repro_torch.core.linear import wtacrs_linear, wtacrs_linear_shared
+from repro_torch.core.linear import (RematStash, wtacrs_linear,
+                                     wtacrs_linear_shared)
 from repro_torch.core.lora import LoRAConfig, lora_linear
 from repro_torch.core.policy import PolicyRules
 from repro_torch.core.seeds import fold_seed  # noqa: F401  (re-exported)
@@ -110,16 +111,20 @@ class Policy:
     ``config_for``.  ``step`` is the concrete trainer step the rules'
     budget schedules resolve against.  ``rule_budgets`` pins one budget
     per rule (aligned with ``rules.rules``, ``None`` = unpinned).
-    ``remat`` only knows ``"none"`` here; ``flash_block`` / ``flash_mode``
-    set the attention block size and whether the causal upper triangle of
-    block pairs is skipped (``triangular``) or masked (``full``).
+    ``remat`` rematerialises each layer in the backward: ``"none"``
+    stores every activation, ``"full"`` only the layer's input (the
+    recompute rebuilds the plans), ``"wtacrs_names"`` the layer's input
+    and the sampled linears' kept tensors (H', idx, scale), which the
+    recompute reuses.  ``flash_block`` / ``flash_mode`` set the attention
+    block size and whether the causal upper triangle of block pairs is
+    skipped (``triangular``) or masked (``full``).
     """
     wtacrs: WTACRSConfig = WTACRSConfig(kind=EstimatorKind.EXACT)
     lora: LoRAConfig = LoRAConfig()
     rules: Optional[PolicyRules] = None
     step: int = 0
     rule_budgets: Optional[Tuple[Optional[float], ...]] = None
-    remat: str = "none"
+    remat: str = "none"            # none | full | wtacrs_names
     flash_block: int = 512
     flash_mode: str = "full"       # full | triangular
 
@@ -214,7 +219,8 @@ class Ctx:
     keyless estimators can run).  znorms maps linear tags -> per-token
     gradient-norm estimates with the token shape of the current
     activation (e.g. (B, S)).  Missing tag -> activation-only
-    probabilities.
+    probabilities.  ``stash`` records or replays the sampled linears'
+    kept tensors while a layer is rematerialised (``RematStash``).
     """
     policy: Policy
     key: Optional[int] = None
@@ -222,6 +228,7 @@ class Ctx:
     recorder: Optional[tag_recorder] = None
     compute_dtype: Optional[torch.dtype] = None   # weights cast at use
     tag_prefix: str = ""                          # disambiguates positions
+    stash: Optional[RematStash] = None
 
     def _key_for(self, tag: str) -> Optional[int]:
         if self.key is None:
@@ -265,7 +272,7 @@ class Ctx:
                                self.policy.lora, key=self._key_for(tag),
                                znorm=zn, cfg=cfg, bias=bias)
         return wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
-                             cfg=cfg, bias=bias)
+                             cfg=cfg, bias=bias, stash=self.stash)
 
     def linear_shared(self, tags, h, ws, biases=None):
         """Shared-plan multi-linear (one stored H' for all of ``ws``).
@@ -291,12 +298,12 @@ class Ctx:
                 outs.append(wtacrs_linear(
                     h, w, key=self._key_for(full_tags[i]),
                     znorm=self._znorm_for(full_tags[i], h),
-                    cfg=cfgs[i], bias=bias))
+                    cfg=cfgs[i], bias=bias, stash=self.stash))
             return tuple(outs)
         return wtacrs_linear_shared(
             h, ws, key=self._key_for("+".join(full_tags)),
             znorm=self._znorm_for(full_tags[0], h), cfg=cfgs[0],
-            biases=biases)
+            biases=biases, stash=self.stash)
 
     def fold(self, i: int) -> "Ctx":
         """Sub-context for layer/repeat i (derives the child seed)."""

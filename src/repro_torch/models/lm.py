@@ -14,7 +14,8 @@ repeat axis and scans over it; here the layers are a Python list and the
 loop is written out (``repro_torch.convert`` maps between the two).  The
 tag prefix is the position inside the pattern unit (``b0/`` for the dense
 archs), as in the reference; layers are told apart by folding the layer
-index into the seed.
+index into the seed.  ``Policy.remat`` rematerialises each layer as the
+reference rematerialises each unit of its scan (``_RematLayer``).
 """
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import linear as lin
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.train import optim as optim_lib
 
 _LATER = ("block type {btype!r} is not ported yet (MoE, SSM/recurrent and "
           "shared-attention blocks are later items of ROADMAP.md)")
@@ -161,17 +164,86 @@ def embed_inputs(cfg, params, batch, ctx):
     return h, positions
 
 
+REMAT_MODES = ("none", "full", "wtacrs_names")
+
+
+class _RematLayer(torch.autograd.Function):
+    """One layer, rematerialised: the forward runs it without recording a
+    graph and saves only its inputs (the layer input h, the layer's
+    parameters, its znorm slices) and, under ``"wtacrs_names"``, the
+    sampled linears' kept (H', idx, scale); the backward runs the layer
+    again with grad and back-propagates through that recompute.  The
+    recompute is bit-identical to the forward (the same ops on the same
+    inputs, a sampled linear's plan drawn from the same seed or taken from
+    the stash), so the gradients are those of ``remat="none"``.
+
+    ``run(inputs, stash, recompute)`` applies the layer to the flat
+    ``inputs`` (see ``_remat_layer``)."""
+
+    @staticmethod
+    def forward(ctx, run, keep_sampled: bool, *inputs):
+        stash = lin.RematStash() if keep_sampled else None
+        out = run(inputs, stash, False)
+        kept = stash.tensors() if stash is not None else []
+        ctx.run, ctx.n_inputs = run, len(inputs)
+        ctx.keep_sampled = keep_sampled
+        ctx.save_for_backward(*inputs, *kept)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        inputs = [x.detach().requires_grad_(need) for x, need in zip(
+            saved[:ctx.n_inputs], ctx.needs_input_grad[2:])]
+        stash = (lin.RematStash(saved[ctx.n_inputs:])
+                 if ctx.keep_sampled else None)
+        with torch.enable_grad():
+            out = ctx.run(inputs, stash, True)
+        wanted = [x for x in inputs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out,
+                                         allow_unused=True))
+        return (None, None, *(next(grads) if x.requires_grad else None
+                              for x in inputs))
+
+
+def _remat_layer(cfg, btype, layer, sub, h, positions):
+    """``apply_block`` of one layer as a ``_RematLayer``, its inputs the
+    layer input ``h``, the layer's parameter leaves and ``sub``'s znorm
+    slices."""
+    weights = []
+    optim_lib.tree_map(weights.append, layer)
+    tags = sorted(sub.znorms) if sub.znorms is not None else []
+
+    def run(inputs, stash, recompute):
+        it = iter(inputs[1:])
+        p = optim_lib.tree_map(lambda _: next(it), layer)
+        zn = {t: next(it) for t in tags} if tags else None
+        # the recompute records no tag a second time
+        c = dataclasses.replace(sub, znorms=zn, stash=stash,
+                                recorder=None if recompute else sub.recorder)
+        return apply_block(cfg, btype, p, c, inputs[0], positions)[0]
+
+    inputs = [h, *weights, *(sub.znorms[t] for t in tags)]
+    if not (torch.is_grad_enabled() and any(x.requires_grad
+                                            for x in inputs)):
+        return run(inputs, None, False)      # no backward to remat for
+    return _RematLayer.apply(run, sub.policy.remat == "wtacrs_names",
+                             *inputs)
+
+
 def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
             key: Optional[int] = None,
             znorms: Optional[Dict[str, torch.Tensor]] = None,
             recorder: Optional[cm.tag_recorder] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full forward to logits.  batch: {"tokens": (B,S), ...}; ``key`` an
-    integer seed; ``znorms`` maps tag -> (n_repeats, B[, S]) estimates."""
+    integer seed; ``znorms`` maps tag -> (n_repeats, B[, S]) estimates.
+    Under ``policy.remat`` other than ``"none"`` each layer runs as a
+    ``_RematLayer`` (when a backward will follow)."""
     _check_ported(cfg)
-    if policy.remat != "none":
-        raise NotImplementedError(
-            f"remat={policy.remat!r} is not ported yet (only 'none')")
+    if policy.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {policy.remat!r}; one of "
+                         f"{REMAT_MODES}")
     ctx = cm.Ctx(policy=policy, key=key, znorms=None, recorder=recorder,
                  compute_dtype=cfg.cdtype)
     h, positions = embed_inputs(cfg, params, batch, ctx)
@@ -183,7 +255,11 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
         if znorms is not None:
             sub = dataclasses.replace(
                 sub, znorms={t: z[ridx] for t, z in znorms.items()})
-        h, _ = apply_block(cfg, cfg.pattern[j], layer, sub, h, positions)
+        if policy.remat == "none":
+            h, _ = apply_block(cfg, cfg.pattern[j], layer, sub, h,
+                               positions)
+        else:
+            h = _remat_layer(cfg, cfg.pattern[j], layer, sub, h, positions)
     h = cm.apply_norm(cfg, params["final_norm"], h)
     return _logits(cfg, params, h), {
         "lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}

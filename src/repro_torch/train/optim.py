@@ -20,21 +20,31 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import torch
 
 
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """Tensors of a nested dict/list/tuple tree, in a fixed order (dict
-    keys sorted)."""
+def named_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a nested dict/list/tuple tree, in a
+    fixed order (dict keys sorted, lists by index), the path's parts
+    joined with "/" (``layers/3/mlp/wi``)."""
     if isinstance(tree, torch.Tensor):
-        return [tree]
+        return [(prefix, tree)]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for sub in tree for x in tree_leaves(sub)]
-    raise TypeError(f"not a parameter tree node: {type(tree).__name__}")
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), x) for i, x in enumerate(tree)]
+    else:
+        raise TypeError(f"not a parameter tree node: {type(tree).__name__}")
+    return [leaf for name, child in items for leaf in named_leaves(
+        child, f"{prefix}/{name}" if prefix else name)]
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Tensors of a nested dict/list/tuple tree, in ``named_leaves``'s
+    order."""
+    return [x for _, x in named_leaves(tree)]
 
 
 def tree_map(fn, tree):
@@ -92,14 +102,37 @@ def adamw_update(grads, state: AdamWState, params, lr: float,
 
     for g, m, v, p in zip(flat_g, tree_leaves(state.m),
                           tree_leaves(state.v), tree_leaves(params)):
-        g32 = g.to(torch.float32)
-        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay:
-            step = step + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * step).to(p.dtype))
+        adamw_leaf_update(g, m, v, p, lr, cfg, bc1, bc2)
     return params, state, {"grad_norm": gnorm}
+
+
+def adamw_leaf_update(g, m, v, p, lr: float, cfg, bc1: float,
+                      bc2: float) -> None:
+    """One leaf of AdamW, in place: the f32 moments ``m``/``v``, then the
+    parameter.  ``cfg`` carries ``b1``, ``b2``, ``eps`` and
+    ``weight_decay`` (an ``AdamWConfig`` or an ``OptimSpec``: the dense
+    layout of ``repro_torch.optim`` runs exactly this)."""
+    g32 = g.to(torch.float32)
+    m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+    # (m / bc1) / (sqrt(v / bc2) + eps), each operation rounded as written,
+    # with two parameter-sized temporaries where the expression takes three
+    step = v / bc2
+    step.sqrt_().add_(cfg.eps)
+    step = torch.div(m / bc1, step, out=step)
+    apply_step(p, step, lr, cfg.weight_decay)
+
+
+def apply_step(p, step, lr: float, weight_decay: float) -> None:
+    """``p <- p - lr * (step + weight_decay * p)`` in f32, rounded once to
+    ``p.dtype``, in place; ``step`` (f32) is overwritten."""
+    if weight_decay:
+        step.add_(weight_decay * p.to(torch.float32))
+    step.mul_(lr)
+    if p.dtype == torch.float32:
+        p.sub_(step)
+    else:
+        p.copy_((p.to(torch.float32) - step).to(p.dtype))
 
 
 # ---------------------------------------------------------------------------

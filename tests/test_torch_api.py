@@ -116,9 +116,8 @@ def test_wiring_derived_from_policy_as_in_the_reference(kind, kw, cache,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(optimizer=types.SimpleNamespace(layouts_used=lambda: ("dense",))),
     dict(mesh="host"), dict(model_parallel=2), dict(data_axes=("data",))],
-    ids=["optim_spec", "mesh_host", "model_parallel", "data_axes"])
+    ids=["mesh_host", "model_parallel", "data_axes"])
 def test_unported_fields_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="Queue A"):
         _spec(PORT, _policy(PORT, "plain"), **kw)
@@ -368,9 +367,11 @@ def test_report_after_restore_covers_whole_run(tmp_path):
 
 
 @pytest.mark.parametrize("layouts,error", [
-    (["factored"], NotImplementedError), (["bogus"], ValueError)])
+    pytest.param(["bogus"], ValueError, id="layouts1-ValueError")])
 def test_checkpoints_of_unported_optimizer_layouts_are_refused(
         layouts, error, tmp_path):
+    """An unknown layout name, and a layout checkpoint under a legacy
+    ``AdamWConfig``, are refused with the reference's errors."""
     spec = _spec(PORT, _policy(PORT, "plain"), checkpoint_dir=str(tmp_path))
     checkpoint.save(str(tmp_path), 1, {"x": torch.zeros(1)},
                     metadata=checkpoint.pack_run_state(
@@ -379,7 +380,7 @@ def test_checkpoints_of_unported_optimizer_layouts_are_refused(
     with pytest.raises(error, match="layout"):
         Run.restore(spec, **CPU)
     checkpoint.save(str(tmp_path), 2, {"opt/leaves/w/m": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="OptimSpec.from_adamw"):
         Run.restore(spec, **CPU)
 
 
@@ -508,6 +509,35 @@ def test_report_text_equals_the_reference(name):
          optim_rec=OPTIM, rank_records=RANKS)])
 def test_run_report_equals_the_reference(kw):
     assert report.run_report(**kw) == jax_report.run_report(**kw)
+
+
+def test_run_report_optimizer_section_equals_the_reference():
+    """``Run.report`` under an ``OptimSpec``: the §Optimizer memory section
+    is the reference's text over the reference's memory record of the
+    same spec and ranks, with the run's rank trajectory."""
+    from repro import optim as jax_optim_lib
+    from repro.configs import get_config as jax_get_config
+    from repro.models import registry as jax_registry
+    from repro_torch import optim as optim_lib
+
+    def spec(pkg):
+        return pkg.OptimSpec.of(
+            dict(pattern="unit/*/attn/*", layout="lowrank",
+                 schedule=pkg.RankSchedule.linear(8, 4, begin_step=1,
+                                                  end_step=3, stages=2)),
+            dict(pattern="embed*", layout="factored", momentum=False))
+    run = Run(_spec(PORT, _policy(PORT, "plain"), optimizer=spec(optim_lib),
+                    steps=3), **CPU)
+    run.fit()
+    st = run.schedule_state
+    assert any(r["prev"] is not None for r in st.rank_trajectory)
+    params, _ = jax_registry.abstract_params(jax_get_config(ARCH,
+                                                            reduced=True))
+    want = jax_report.optimizer_memory_report(
+        jax_optim_lib.memory_report(spec(jax_optim_lib), params,
+                                    ranks=st.ranks),
+        rank_records=st.rank_trajectory)
+    assert want in run.report()
 
 
 def test_run_report_has_no_roofline_until_the_dry_run_is_ported():

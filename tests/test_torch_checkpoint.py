@@ -184,3 +184,111 @@ def test_async_save_is_a_snapshot_not_a_view(tmp_path, monkeypatch):
     assert sorted(got) == sorted(want)
     for key in want:
         assert np.array_equal(got[key], want[key]), key
+
+
+# ---------------------------------------------------------------------------
+# optimizer-state layouts through the Run façade (the reference's
+# tests/test_optim.py TestRunIntegration, on the port)
+# ---------------------------------------------------------------------------
+
+def _mixed_spec():
+    from repro_torch import optim as optim_lib
+    return optim_lib.OptimSpec.of(
+        dict(pattern="unit/*/mlp/*", layout="lowrank", rank=6,
+             refresh_every=3),
+        dict(pattern="unit/*/attn/*", layout="lowrank",
+             schedule=optim_lib.RankSchedule.linear(8, 4, begin_step=2,
+                                                    end_step=8, stages=2)),
+        dict(pattern="embed*", layout="factored", momentum=False))
+
+
+def _optim_spec(tmp_path, optimizer, steps=8):
+    return RunSpec(arch="minicpm-2b", steps=steps, batch_size=4,
+                   optimizer=optimizer,
+                   data=DataSpec(seq_len=16, n_samples=16),
+                   checkpoint_dir=str(tmp_path / "ckpt"))
+
+
+def _states_equal(a, b):
+    fa, ta = checkpoint._flatten(a)
+    fb, tb = checkpoint._flatten(b)
+    return ta == tb and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+@pytest.mark.parametrize("which", ["factored", "mixed_lowrank"])
+def test_optim_spec_kill_resume_is_bit_faithful(tmp_path, which):
+    from repro_torch import optim as optim_lib
+    optimizer = (optim_lib.OptimSpec.of(dict(pattern="unit/*",
+                                             layout="factored"))
+                 if which == "factored" else _mixed_spec())
+    run = Run(_optim_spec(tmp_path, optimizer), device="cpu")
+    run.fit(steps=4)
+    run.save()
+    run.fit(steps=8)
+    assert run.schedule_state.rank_trajectory or which == "factored"
+
+    resumed = Run.resume(_optim_spec(tmp_path, optimizer), device="cpu")
+    assert int(resumed.state["step"]) == 4
+    assert "leaves" in resumed.state["opt"]
+    resumed.fit(steps=8)
+    assert _states_equal(run.state, resumed.state)
+    assert resumed.schedule_state.ranks == run.schedule_state.ranks
+    assert resumed.schedule_state.to_json() == run.schedule_state.to_json()
+    assert checkpoint.unpack_run_state(checkpoint.read_manifest(
+        str(tmp_path / "ckpt")))["optim_layouts"] == list(
+            optimizer.layouts_used())
+
+
+def test_legacy_adamw_checkpoint_restores_under_dense_spec(tmp_path):
+    from repro_torch import optim as optim_lib
+    legacy = Run(_optim_spec(tmp_path, optim.AdamWConfig()), device="cpu")
+    legacy.fit(steps=4)
+    legacy.save()
+    legacy.fit(steps=8)
+
+    resumed = Run.restore(_optim_spec(tmp_path, optim_lib.OptimSpec.from_adamw(
+        optim.AdamWConfig())), device="cpu")
+    assert "leaves" in resumed.state["opt"]       # converted format
+    resumed.fit(steps=8)
+    # the dense layout is the legacy AdamW bit for bit: the continuation
+    # equals the uninterrupted legacy run
+    assert _states_equal(legacy.state["params"], resumed.state["params"])
+
+
+def test_legacy_checkpoint_rejects_compressed_spec(tmp_path):
+    legacy = Run(_optim_spec(tmp_path, optim.AdamWConfig()), device="cpu")
+    legacy.fit(steps=2)
+    legacy.save()
+    with pytest.raises(ValueError, match="legacy dense-AdamW"):
+        Run.restore(_optim_spec(tmp_path, _mixed_spec()), device="cpu")
+
+
+def test_new_checkpoint_rejects_adamw_config(tmp_path):
+    run = Run(_optim_spec(tmp_path, _mixed_spec()), device="cpu")
+    run.fit(steps=2)
+    run.save()
+    with pytest.raises(ValueError, match="OptimSpec.from_adamw"):
+        Run.restore(_optim_spec(tmp_path, optim.AdamWConfig()),
+                    device="cpu")
+
+
+def test_unknown_layout_in_manifest_rejected(tmp_path):
+    run = Run(_optim_spec(tmp_path, _mixed_spec()), device="cpu")
+    run.fit(steps=2)
+    run.save()
+    mpath = tmp_path / "ckpt" / f"step_{2:010d}" / "manifest.json"
+    manifest = json.loads(mpath.read_text())
+    manifest["metadata"][checkpoint.RUN_STATE_KEY]["optim_layouts"] = [
+        "blockdiag"]
+    mpath.write_text(json.dumps(manifest))
+    with pytest.raises(ValueError, match="blockdiag"):
+        Run.restore(_optim_spec(tmp_path, _mixed_spec()), device="cpu")
+
+
+def test_report_carries_optimizer_memory_section(tmp_path):
+    run = Run(_optim_spec(tmp_path, _mixed_spec()), device="cpu")
+    run.fit(steps=4)
+    rep = run.report()
+    assert "§Optimizer memory" in rep
+    assert "x** reduction" in rep
+    assert "| `unit/*/attn/*` |" in rep           # the rank trajectory

@@ -24,7 +24,7 @@ from repro_torch.models.registry import get_config
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2.5-3b", "minicpm-2b"]
+ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b"]
 
 
 def _both(arch, compute_dtype):
@@ -306,7 +306,3 @@ def test_unported_blocks_and_options_raise():
     moe = dataclasses.replace(tcfg, pattern=("attn_moe",))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         lm.init_params(moe, 0, device="cpu")
-    params = lm.init_params(tcfg, 0, device="cpu")
-    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
-    with pytest.raises(NotImplementedError, match="remat"):
-        lm.forward(tcfg, params, tb, cm.Policy(remat="full"))

@@ -404,3 +404,79 @@ def test_controller_without_znorm_cache_raises():
     batch = data.SyntheticLM(cfg.vocab_size, 16, 8, seed=0).batch_at(0, 2)
     with pytest.raises(ValueError, match="budget_stats"):
         step(state, batch)
+
+
+# ---------------------------------------------------------------------------
+# optimizer rank dynamics (OptimSpec low-rank rules)
+# ---------------------------------------------------------------------------
+
+def _rank_specs(which):
+    """(reference spec, port spec): low-rank moments on every unit matrix,
+    the rank under a linear RankSchedule or a RankController."""
+    from repro import optim as jax_optim_lib
+    from repro_torch import optim as optim_lib
+
+    def build(pkg):
+        if which == "schedule":
+            dyn = dict(schedule=pkg.RankSchedule.linear(
+                8, 2, begin_step=0, end_step=4, stages=2))
+        else:
+            dyn = dict(rank=2, controller=pkg.RankController(
+                r_min=2, r_max=8, levels=4, warmup=1, lo=0.7, hi=0.97))
+        return pkg.OptimSpec.of(dict(pattern="unit/*/mlp/*",
+                                     layout="lowrank", **dyn))
+    return build(jax_optim_lib), build(optim_lib)
+
+
+@pytest.mark.parametrize("which", ["schedule", "controller"])
+def test_rank_trajectory_equals_the_reference(which):
+    """``make_scheduled_train_step`` with a dynamic low-rank rule: the
+    ranks it pins, their trajectory, the re-plans and the step functions
+    equal the reference's, and the parameters agree to 1e-4 (det_topk,
+    f32; a rank change migrates the subspace, a RankController reads the
+    captured-energy statistics the update publishes in budget_stats)."""
+    jspec, tspec = _rank_specs(which)
+    wta = dict(kind="det_topk", budget=0.3, min_rows=4)
+    jcfg = _f32(jax_get_config(ARCH, reduced=True))
+    tcfg = _f32(get_config(ARCH, reduced=True))
+    js = jax_train_steps.init_train_state(jcfg, jax.random.PRNGKey(0),
+                                          opt=jspec)
+    rng = np.random.RandomState(0)
+
+    def redraw(path, a):       # the norm gains, as in _start
+        a = np.array(a)
+        if jax.tree_util.keystr(path).endswith("['gamma']"):
+            a = rng.uniform(0.5, 1.5, a.shape).astype(a.dtype)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(redraw, js["params"])
+    js = dict(js, params=jax.tree.map(jnp.asarray, tree))
+    ts = train_steps.init_train_state(
+        tcfg, 0, device="cpu", opt=tspec,
+        params=convert.params_from_jax(tcfg, tree, device="cpu"))
+    assert sorted(ts.get("budget_stats", {})) == sorted(
+        js.get("budget_stats", {}))
+    jstep = jax_train_steps.make_scheduled_train_step(
+        jcfg, jax_cm.Policy(wtacrs=JaxWTACRSConfig(**wta)), jspec,
+        jax_optim.linear_warmup_constant(LR, WARMUP))
+    tstep = train_steps.make_scheduled_train_step(
+        tcfg, cm.Policy(wtacrs=WTACRSConfig(**wta)), tspec,
+        optim.linear_warmup_constant(LR, WARMUP), device="cpu")
+    ds = data.SyntheticLM(tcfg.vocab_size, SEQ, N_SAMPLES, seed=0)
+    for i in range(3):
+        batch = ds.batch_at(i, BATCH)
+        js, jm = jstep(js, batch)
+        ts, tm = tstep(ts, batch)
+        assert tstep.schedule_state.ranks == jstep.schedule_state.ranks
+    st, jst = tstep.schedule_state, jstep.schedule_state
+    assert st.rank_trajectory == jst.rank_trajectory
+    assert st.replans == jst.replans > 0
+    assert len(tstep.compiled) == len(jstep.compiled)
+    assert st.to_json() == jst.to_json()
+    # f32 on both sides; gradients differ by summation order
+    got = convert.params_to_numpy(tcfg, ts["params"])
+    want = jax.tree.map(np.asarray, js["params"])
+    for (path, g), (_, w) in zip(jax.tree_util.tree_leaves_with_path(got),
+                                 jax.tree_util.tree_leaves_with_path(want)):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   err_msg=jax.tree_util.keystr(path))

@@ -146,7 +146,8 @@ def _spec(**kw):
 # Prefill against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b",
+                                  "command-r-35b"])
 def test_prefill_matches_jax_in_f32(arch):
     jcfg, tcfg, jparams, params = _both(arch, "float32")
     toks = _tokens(tcfg, 2, 32)
@@ -235,7 +236,16 @@ def test_decode_attention_matches_jax(cache_len):
 
 
 def test_decode_step_matches_jax_with_per_row_positions():
-    jcfg, tcfg, jparams, params = _both("qwen2.5-3b", "float32")
+    _decode_matches_jax("qwen2.5-3b")
+
+
+def test_command_r_decode_matches_jax():
+    """command-r-35b: LayerNorm, tied embeddings, rope theta 8e6."""
+    _decode_matches_jax("command-r-35b")
+
+
+def _decode_matches_jax(arch):
+    jcfg, tcfg, jparams, params = _both(arch, "float32")
     toks = _tokens(tcfg, 6, 2, seed=3)
     jstates = jax_registry.decode_state_init(jcfg, 2, 16)
     states = registry.decode_state_init(tcfg, 2, 16, **CPU)

@@ -24,7 +24,7 @@ from repro_torch.train import znorm
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2.5-3b", "minicpm-2b"]
+ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b"]
 
 
 def _policies(pkg):
@@ -246,18 +246,19 @@ def test_collect_linear_tags_traces_on_meta_at_published_width(
 @pytest.mark.parametrize("arch", ARCHS)
 def test_trace_linears_records_every_call_with_its_tags(arch):
     """``.calls`` holds one tuple of tags per linear call, repeats
-    included: the shared q/k/v and wi/wg calls as groups, in trace order,
-    one block's four calls per layer."""
+    included: the shared q/k/v and (SwiGLU) wi/wg calls as groups, in
+    trace order, one block's four calls per layer."""
     cfg = get_config(arch, reduced=True)
     rec = znorm.trace_linears(cfg)
     assert len(rec.calls) == 4 * cfg.n_layers
     n_pat = len(cfg.pattern)
     for i in range(cfg.n_layers):
         j = i % n_pat
+        up = ((f"b{j}/mlp_wi", f"b{j}/mlp_wg") if cfg.mlp_type == "swiglu"
+              else (f"b{j}/mlp_wi",))
         assert rec.calls[4 * i:4 * i + 4] == [
             (f"b{j}/attn_q", f"b{j}/attn_k", f"b{j}/attn_v"),
-            (f"b{j}/attn_o",), (f"b{j}/mlp_wi", f"b{j}/mlp_wg"),
-            (f"b{j}/mlp_wo",)]
+            (f"b{j}/attn_o",), up, (f"b{j}/mlp_wo",)]
     assert list(dict.fromkeys(t for c in rec.calls for t in c)) == rec.tags
 
 
