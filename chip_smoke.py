@@ -16,7 +16,13 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            composition row_norms -> plan -> gather_scale -> sampled_matmul
            against fused_sampled_dw at full width; a plan index outside
            [0, n) ends each gathering kernel in a device-side assert
-           (sampled_matmul on both of its wgmma tiles).
+           (sampled_matmul on both of its wgmma tiles, fused_sampled_dw
+           with and without its expert axis).  fused_sampled_dw's expert
+           axis (E experts' dW in one launch) at the MoE phases' expert
+           shapes (timed beside E launches of the call without the axis)
+           and at ragged ones (E=3, odd k, k < 64, widths multiples of 8
+           not of 64, duplicate indices, a misaligned view), E = 1 bit
+           for bit the call without the axis; the routers' narrow dW
            flash_attention_fwd, fused_sampled_dw and sampled_matmul report
            the route each case took (launches_by_route; wgmma wherever the
            shape allows, edge shapes and misaligned operands included);
@@ -84,6 +90,28 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            40 -> 4: prefill of 2 x 2048 tokens through make_prefill_step
            (the flash kernel at 64/8 heads, wgmma) and 16 decode steps,
            each held against the model's own forward as in prefill/decode
+  moe      granite-moe-1b-a400m at published width and full depth (24
+           layers, 32 experts top-8): 6 WTA-CRS 0.3 steps at B=4, S=1024
+           (every linear sampled: the router over B*S rows, each expert
+           over its capacity slots, every expert's dW in one launch a
+           weight); losses falling, lb_loss part of the loss, drop_frac,
+           launches as launches_per_step implies and all on wgmma, peak,
+           ms and device-busy ms a step; 2 exact steps for the peak; in a
+           child process with deterministic algorithms on, 2 steps under
+           remat none and wtacrs_names with bit-equal losses; prefill of
+           4 x 2048 tokens against the forward; 16 bf16 decode steps
+           (timed, their distance to a teacher-forced forward at capacity
+           factor E / top-k, where no entry drops, measured), then 8 f32
+           decode steps held against that forward in f32 (in bf16 a
+           router logit rounded in another order flips top-k experts);
+           4 greedy requests through the pool each bit-equal to itself
+           alone and to the solo route
+  moe_wide dbrx-132b at published width (48/8 heads of 128, 16 experts of
+           6144 x 10752): depth 40 -> 2 prefills 2 x 2048 tokens and takes
+           8 decode steps, checked as in moe; depth 1
+           trains 3 WTA-CRS steps at B=1, S=2048 under the factored
+           OptimSpec: losses falling, launches as implied and on wgmma,
+           state bytes on the card equal to memory_report's, peak
 
 then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -126,6 +154,8 @@ from repro_torch.kernels import \
 from repro_torch.launch import train_steps  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.serve import ServeSession, ServeSpec  # noqa: E402
@@ -140,7 +170,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
               "adaptive", "accumulate", "optim", "run", "resume",
-              "serve_parity", "prefill", "decode", "pool", "wide_serve")
+              "serve_parity", "prefill", "decode", "pool", "wide_serve",
+              "moe", "moe_wide")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -203,6 +234,33 @@ GATHER_OPTIM_D = (6144, 24576)
 FUSED_OPTIM = [(6144, 24576), (24576, 6144), (6144, 6144), (6144, 1024)]
 FLASH_COMMAND_R = (2, 64, 8, 2048, 2048, 128, True)
 FLASH_NEMOTRON = (2, 48, 8, 2048, 2048, 128, True)
+# The MoE phases: granite-moe-1b-a400m at B=4, S=1024 and dbrx-132b at B=1,
+# S=2048, WTA-CRS 0.3 on every linear.  Each expert samples its capacity
+# slots (granite 1280, k = 384; dbrx 640, k = 192), the router the B*S
+# rows (k = 1229 / 614); the prefills' flash heads
+MOE_ARCH, MOE_STEPS, MOE_B, MOE_S = "granite-moe-1b-a400m", 6, 4, 1024
+WIDE_ARCH, WIDE_STEPS, WIDE_B, WIDE_S = "dbrx-132b", 3, 1, 2048
+MOE_WTA = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=4)
+
+
+def moe_shapes(arch, b, s):
+    cfg = get_config(arch)
+    cap = mlp_mod.moe_capacity(cfg, b * s)
+    return {"e": cfg.n_experts, "d": cfg.d_model, "f": cfg.d_ff, "cap": cap,
+            "k": MOE_WTA.budget_rows(cap), "rows": b * s,
+            "k_router": MOE_WTA.budget_rows(b * s)}
+
+
+GRANITE = moe_shapes(MOE_ARCH, MOE_B, MOE_S)
+DBRX = moe_shapes(WIDE_ARCH, WIDE_B, WIDE_S)
+FLASH_GRANITE = (4, 16, 8, 2048, 2048, 64, True)
+FLASH_DBRX = (2, 48, 8, 2048, 2048, 128, True)
+# the expert axis's edges as (E, B, k, n, d_in, d_out): E = 3, odd k and
+# k < 64, d_in / d_out multiples of 8 but not of 64, the k tail 307
+EXPERT_RAGGED = [(3, 2, 13, 40, 24, 16), (3, 1, 65, 70, 136, 200),
+                 (2, 2, 307, 300, 72, 2056), (3, 1, 37, 50, 40, 8)]
+# the moe phase's pool: (prompt length, max_new) of 4 greedy requests
+MOE_SERVE = [(9, 12), (33, 8), (17, 16), (3, 10)]
 
 
 def card_sms() -> int:
@@ -255,6 +313,19 @@ def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def kernel_identifier(mangled):
+    """The ``..._kernel`` identifier of a mangled kernel name: the one whose
+    length is the number written just before it (a digit of the anonymous
+    namespace's hash may run into that number)."""
+    for m in re.finditer(r"_kernel(?=[IE])", mangled):
+        for length in range(len("_kernel") + 1, m.end() + 1):
+            start = m.end() - length
+            if (re.match(r"[A-Za-z_]", mangled[start])
+                    and mangled[:start].endswith(str(length))):
+                return mangled[start:m.end()]
+    return None
+
+
 def ptxas_report(log, source):
     """{kernel instance: registers and spill bytes} of the kernels nvcc
     built from ``source`` (a file of csrc/), read off the build log."""
@@ -264,16 +335,13 @@ def ptxas_report(log, source):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1) if tag in m.group(1) else None
+            kernel = kernel_identifier(name) if name else None
+            if kernel is None:
+                name = None
             if name:
-                # the length-prefixed identifier that names the kernel
-                kernel = next(
-                    name[m.end():m.end() + int(m.group(1))]
-                    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", name)
-                    if name[m.end():m.end() + int(m.group(1))].endswith(
-                        "_kernel"))
                 dtype = ("bf16" if "bfloat16" in name else
                          "f16" if "__half" in name else "f32")
-                args = ", ".join([dtype] + re.findall(r"Li(\d+)E", name))
+                args = ", ".join([dtype] + re.findall(r"L[ib](\d+)E", name))
                 name = f"{kernel}<{args}>"
                 out[name] = {}
             continue
@@ -430,14 +498,16 @@ def dw_inputs(b, k, n, d_in, d_out, dtype, gen, dup=False):
 def dw_bound(hsub, dz, idx):
     """(bound seconds, bound_by) of the sampled weight gradient: the plan's
     distinct dz rows, H' and idx/scale read once, dW written once, against
-    2*B*k*d_in*d_out flops on the unpadded k."""
-    b, k, d_in = hsub.shape
-    d_out = dz.shape[2]
+    2*B*k*d_in*d_out flops on the unpadded k; with a leading expert axis,
+    of all E experts' (E*B samples, E dWs)."""
+    e = hsub.shape[0] if hsub.ndim == 4 else 1
+    b, k, d_in = hsub.shape[-3:]
+    d_out = dz.shape[-1]
     item = hsub.element_size()
-    nbytes = (item * (b * k * d_in + unique_rows(idx) * d_out) + 8 * b * k
-              + 4 * d_in * d_out)
+    nbytes = (item * (e * b * k * d_in + unique_rows(idx.reshape(-1, k))
+                      * d_out) + 8 * e * b * k + 4 * e * d_in * d_out)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * b * k * d_in * d_out / PEAK_FLOPS[hsub.dtype]
+    t_ops = 2 * e * b * k * d_in * d_out / PEAK_FLOPS[hsub.dtype]
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -538,17 +608,20 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
     return case
 
 
+def shifted(x):
+    """``x``'s values in a view that starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.flatten()
+    return flat[1:].view(x.shape)
+
+
 def dw_misaligned_case(name, dtype, gen):
     """A kernel of ``DW_KERNELS`` on operands that start 2 bytes off a
     16-byte boundary at a shape the wgmma route takes: the wmma route, held
     to the plain version at the dW tolerance."""
     b, k, n, d_in, d_out = 2, 70, 90, 128, 192
     hsub, dz, idx, scale = dw_inputs(b, k, n, d_in, d_out, dtype, gen)
-
-    def shifted(x):
-        flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
-        flat[1:] = x.flatten()
-        return flat[1:].view(x.shape)
     hsub, dz = shifted(hsub), shifted(dz)
     out = []
     routes = routes_taken(name, lambda: out.append(
@@ -563,6 +636,75 @@ def dw_misaligned_case(name, dtype, gen):
             "max_abs_err": check_close(
                 f"{name} misaligned {dtype}", out[0], want, rtol, atol),
             "tol": {"rtol": rtol, "atol": atol}}
+
+
+def library_dw_experts(hsub, dz, idx, scale):
+    """The library composition of the expert axis: gather, scale in f32,
+    round to the input dtype, one torch.bmm over the experts.  Timed as a
+    yardstick only; the port never calls it."""
+    e, b, k, d_in = hsub.shape
+    rows = idx.to(torch.int64)[..., None].expand(e, b, k, dz.shape[-1])
+    dz_sub = (torch.gather(dz, 2, rows).to(torch.float32)
+              * scale[..., None]).to(dz.dtype)
+    return torch.bmm(hsub.reshape(e, b * k, d_in).transpose(1, 2),
+                     dz_sub.reshape(e, b * k, -1))
+
+
+def expert_dw_case(e, b, k, n, d_in, d_out, dtype, gen, timed, dup=False,
+                   misaligned=False):
+    """``fused_sampled_dw`` over its expert axis — E experts' (B, k) plans
+    and dWs in one launch — against its plain version (rtol 1e-4, atol
+    1e-4 * sqrt(B*k), as every dW case: the same factors, f32 sums in
+    another order); the first expert alone through the axis bit-equal to
+    the call without it.  Timed: beside its bound, the plain version, the
+    library composition and E launches of the call without the axis."""
+    parts = [dw_inputs(b, k, n, d_in, d_out, dtype, gen, dup)
+             for _ in range(e)]
+    hsub, dz, idx, scale = (torch.stack(x) for x in zip(*parts))
+    del parts
+    if misaligned:
+        hsub, dz = shifted(hsub), shifted(dz)
+    want = fused_sampling.fused_sampled_dw_plain(hsub, dz, idx, scale)
+    rtol, atol = 1e-4, 1e-4 * math.sqrt(b * k)
+    out = []
+    routes = routes_taken("fused_sampled_dw", lambda: out.append(
+        ops.fused_sampled_dw(hsub, dz, idx, scale)))
+    torch.cuda.synchronize()
+    what = (f"fused_sampled_dw E={e} B={b} k={k} n={n} ({d_in},{d_out}) "
+            f"{dtype} misaligned={misaligned}")
+    err = check_close(what, out[0], want, rtol, atol)
+    del out, want
+    one = ops.fused_sampled_dw(hsub[:1], dz[:1], idx[:1], scale[:1])
+    alone = ops.fused_sampled_dw(hsub[0], dz[0], idx[0], scale[0])
+    if not torch.equal(one[0], alone):
+        fail(f"{what}: E = 1 is not the call without the axis bit for bit")
+    case = {
+        "name": "fused_sampled_dw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_sampled_dw.cu",
+        "replaces": "src/repro/kernels/fused_sampling.py:127",
+        "shape": {"E": e, "B": b, "k": k, "n": n, "d_in": d_in,
+                  "d_out": d_out},
+        "dtype": DTYPE_NAMES[dtype], "max_abs_err": err,
+        "tol": {"rtol": rtol, "atol": atol}, "kernel_route": "+".join(routes),
+        "misaligned": misaligned, "duplicate_indices": dup,
+        "e1_bit_equal": True,
+    }
+    if timed:
+        bound_s, bound_by = dw_bound(hsub, dz, idx)
+        case.update({
+            "ms": time_ms(lambda: ops.fused_sampled_dw(hsub, dz, idx,
+                                                       scale)),
+            "plain_ms": time_ms(lambda: fused_sampling.fused_sampled_dw_plain(
+                hsub, dz, idx, scale), warmup=1, reps=3, inner=2),
+            "library_ms": time_ms(lambda: library_dw_experts(hsub, dz, idx,
+                                                             scale)),
+            "library": "torch.gather + f32 scale + round + torch.bmm over "
+                       "the experts",
+            "e_launches_ms": time_ms(lambda: [ops.fused_sampled_dw(
+                hsub[i], dz[i], idx[i], scale[i]) for i in range(e)]),
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
+        })
+    return case
 
 
 def composition_case(gen):
@@ -642,6 +784,13 @@ scale = torch.ones((2, 32), device="cuda")
 try:
     if name == "gather_scale":
         ops.gather_scale(x, idx, scale)
+    elif name == "fused_sampled_dw_experts":
+        # three experts, the bad index in the last one's plan
+        ops.fused_sampled_dw(*(t[None].repeat((3,) + (1,) * t.ndim)
+                               for t in (hsub, x)),
+                             torch.cat([torch.zeros_like(idx)[None]] * 2
+                                       + [idx[None]]),
+                             scale[None].repeat(3, 1, 1))
     else:
         getattr(ops, name)(hsub, x, idx, scale)
     torch.cuda.synchronize()
@@ -654,7 +803,8 @@ sys.exit(1)
 # (kernel, width): sampled_matmul at 64 takes the 64 x 64 wgmma tile, at
 # 2048 the 256 x 128 tiles in clusters of two
 BAD_INDEX_KERNELS = (("gather_scale", 64), ("sampled_matmul", 64),
-                     ("sampled_matmul", 2048), ("fused_sampled_dw", 64))
+                     ("sampled_matmul", 2048), ("fused_sampled_dw", 64),
+                     ("fused_sampled_dw_experts", 64))
 
 
 def bad_index_cases():
@@ -868,6 +1018,38 @@ def phase_kernels():
     cases.append(dict(flash_case(*FLASH_COMMAND_R, bf16, gen, timed=True,
                                  in_summary=True), phase="wide_serve"))
     cases.append(flash_case(*FLASH_NEMOTRON, bf16, gen, timed=True))
+    # the MoE phases' shapes, bf16, timed: row norms over every expert's
+    # capacity slots (E*C rows) and the router's B*S rows, the experts' H'
+    # (E samples of C rows), every expert's dW in one launch (wi/wg
+    # d_model x d_ff, wo d_ff x d_model) and the router's narrow dW (d_out
+    # = E); the prefills' flash heads
+    for phase, m, flash in (("moe", GRANITE, FLASH_GRANITE),
+                            ("moe_wide", DBRX, FLASH_DBRX)):
+        for n, d in ((m["e"] * m["cap"], m["d"]), (m["e"] * m["cap"], m["f"]),
+                     (m["rows"], m["d"])):
+            cases.append(dict(row_norms_case(n, d, bf16, gen, timed=True),
+                              phase=phase))
+        for d in (m["d"], m["f"]):
+            cases.append(dict(gather_scale_case(m["e"], m["cap"], d, m["k"],
+                                                bf16, gen, timed=True),
+                              phase=phase))
+        for d_in, d_out in ((m["d"], m["f"]), (m["f"], m["d"])):
+            cases.append(dict(expert_dw_case(m["e"], 1, m["k"], m["cap"],
+                                             d_in, d_out, bf16, gen,
+                                             timed=True), phase=phase))
+            torch.cuda.empty_cache()
+        cases.append(dict(dw_case("fused_sampled_dw", 1, m["k_router"],
+                                  m["rows"], m["d"], m["e"], bf16, gen,
+                                  timed=True), phase=phase))
+        cases.append(dict(flash_case(*flash, bf16, gen, timed=True,
+                                     in_summary=True), phase=phase))
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for shape in EXPERT_RAGGED:
+            cases.append(expert_dw_case(*shape, dtype, gen, timed=False,
+                                        dup=True))
+    for dtype in (torch.bfloat16, torch.float16):
+        cases.append(expert_dw_case(3, 2, 70, 90, 128, 192, dtype, gen,
+                                    timed=False, misaligned=True))
     composition, comp_launches, comp_routes = composition_case(gen)
     # the route each case must have taken: the wgmma route wherever its
     # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case)
@@ -986,31 +1168,58 @@ def phase_parity():
 trace_linears = functools.lru_cache(maxsize=None)(znorm.trace_linears)
 
 
-def launches_per_step(cfg, policy, seq, microbatches=1):
+def launches_per_step(cfg, policy, seq, microbatches=1, batch=None):
     """Kernel launches one train step implies under a resolved ``policy``,
     read off the model's own linear calls (``znorm.trace_linears``) split
     into plans as ``Ctx.linear_shared`` splits them (``cm.plan_groups``): a
-    plan whose tags sample at ``seq`` (``znorm.sampling_active_tags``)
-    launches row_norms and gather_scale once — twice under
+    plan whose tags sample at ``seq`` (``znorm.sampling_active_tags``;
+    a rows-dim tag, the MoE router, samples the ``batch * seq`` rows of a
+    microbatch) launches row_norms and gather_scale once — twice under
     ``remat="full"``, whose recompute builds the plan again, once under
     ``"wtacrs_names"``, whose recompute takes it from the stash — and
-    fused_sampled_dw once per weight; an exact one launches nothing."""
+    fused_sampled_dw once per weight; an exact one launches nothing.  Each
+    MoE expert FFN (``rec.expert_calls``) samples when its tag does at its
+    capacity slots a sampling group (``models/mlp.py``): its plans launch
+    the same, and its dW once a weight for all the experts."""
     rec = trace_linears(cfg)
-    active = znorm.sampling_active_tags(policy, rec.tags, seq_len=seq)
+    by_rows = [t for t in rec.tags if rec.dims[t] == cm.SAMPLED_DIM_ROWS]
+    active = znorm.sampling_active_tags(
+        policy, [t for t in rec.tags if t not in by_rows], seq_len=seq)
+    if by_rows or rec.expert_calls:
+        if batch is None:
+            fail(f"launches_per_step: {cfg.name} samples over rows; give "
+                 f"the batch")
+        tokens = batch // microbatches * seq
+        active |= znorm.sampling_active_tags(policy, by_rows,
+                                             seq_len=tokens)
     plans_built = 2 if policy.remat == "full" else 1
     out = {"row_norms": 0, "gather_scale": 0, "fused_sampled_dw": 0}
+
+    def plan(n_weights):
+        out["row_norms"] += plans_built
+        out["gather_scale"] += plans_built
+        out["fused_sampled_dw"] += n_weights
+
     for call in rec.calls:
         for group in cm.plan_groups(policy, call):
             if group[0] in active:
-                out["row_norms"] += plans_built
-                out["gather_scale"] += plans_built
-                out["fused_sampled_dw"] += len(group)
+                plan(len(group))
+    for tag, weights_per_plan in rec.expert_calls:
+        g = policy.moe_groups if tokens % policy.moe_groups == 0 else 1
+        cap = g * mlp_mod.moe_capacity(cfg, tokens // g)
+        slots = cap // (policy.moe_groups if cap % policy.moe_groups == 0
+                        else 1)
+        c = policy.config_for(tag)
+        if not c.is_exact and c.budget_rows(slots) < slots:
+            for n_weights in weights_per_plan:
+                plan(n_weights)
     return {name: n * microbatches for name, n in out.items()}
 
 
-def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds):
+def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds, keep=False):
     """Fresh state, ``n_steps`` train steps; returns losses, step times
-    (host clock around a step that ends in a synchronize) and the peak."""
+    (host clock around a step that ends in a synchronize) and the peak
+    (``keep``: and the state and the step function, not freed)."""
     policy = cm.Policy(wtacrs=wtacrs_cfg, remat="none", flash_block=512)
     state = train_steps.init_train_state(cfg, 0)
     step = train_steps.make_train_step(
@@ -1033,6 +1242,8 @@ def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds):
              optim.tree_leaves(state["params"])]
     changed = sum(bool((a != b).any()) for a, b in zip(after, before))
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+    if keep:
+        return losses, times, peak, changed, len(before), n_params, state, step
     del state, step
     torch.cuda.empty_cache()
     return losses, times, peak, changed, len(before), n_params
@@ -1683,9 +1894,16 @@ def device_busy(fn, n):
             "top_ms_per_call": [[name[:80], t / 1e3 / n] for name, t in top]}
 
 
-def forward_logits(cfg, params, tokens, positions, flash_block):
+def forward_logits(cfg, params, tokens, positions, flash_block,
+                   per_row=False):
     """The model's own forward (tensor-op flash, p rounded to bf16) at
-    ``positions``, with the given attention block size."""
+    ``positions``, with the given attention block size; ``per_row``: each
+    sequence through the forward alone (batch 1), so every product runs
+    at other shapes and rounds in another order."""
+    if per_row:
+        return torch.cat([forward_logits(cfg, params, tokens[i:i + 1],
+                                         positions, flash_block)
+                          for i in range(tokens.shape[0])])
     with torch.no_grad():
         full, _ = registry.forward(cfg, params, {"tokens": tokens},
                                    cm.Policy(flash_block=flash_block))
@@ -1694,14 +1912,21 @@ def forward_logits(cfg, params, tokens, positions, flash_block):
     return out
 
 
-def close_to_forward(what, got, forward_a, forward_b, tol):
+def close_to_forward(what, got, forward_a, forward_b, tol, *more,
+                     hold=True):
     """Hold ``got`` against the forward at the reference's tolerance, or,
     where bf16 at this width does not reach it even between two block
     sizes of the forward itself (``forward_a`` vs ``forward_b``: the same
-    function, another order of bf16 roundings), at 1.5x that measured
-    floor.  Returns (max_abs_err, floor, the atol used)."""
-    floor = float((forward_b.double() - forward_a.double()).abs().max())
+    function, another order of bf16 roundings; ``more``: other such
+    evaluations, the largest distance counts), at 1.5x that measured
+    floor.  Returns (max_abs_err, floor, the atol used); ``hold=False``
+    only measures."""
+    floor = max(float((f.double() - forward_a.double()).abs().max())
+                for f in (forward_b, *more))
     atol = max(tol, 1.5 * floor)
+    if not hold:
+        return float((got.double() - forward_a.double()).abs().max()), \
+            floor, atol
     return check_close(what, got, forward_a, tol, atol), floor, atol
 
 
@@ -1747,7 +1972,11 @@ def phase_serve_parity():
 
 
 def phase_prefill(cfg, params, batch, seq, name="prefill"):
-    """make_prefill_step on the full model: warm-up + 3 timed calls."""
+    """make_prefill_step on the full model: warm-up + 3 timed calls.  An
+    MoE model's floor also takes the forward row by row (``per_row``): a
+    router logit rounded to bf16 in another order can flip a token's
+    top-k experts, and the prefill's products differ from the forward's
+    in that way too."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy())
     tokens = data.SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch_at(
         0, batch)["tokens"]
@@ -1775,10 +2004,12 @@ def phase_prefill(cfg, params, batch, seq, name="prefill"):
     # 3e-2 (vocab 256, 2 layers); at vocab 151936 the forward differs from
     # itself under another block size by more than that, so the floor is
     # measured beside it (close_to_forward)
+    more = ([forward_logits(cfg, params, tt, -1, 512, per_row=True)]
+            if cfg.n_experts else [])
     err, floor, atol = close_to_forward(
         f"{name} last logits vs forward", last,
         forward_logits(cfg, params, tt, -1, 512),
-        forward_logits(cfg, params, tt, -1, 256), 3e-2)
+        forward_logits(cfg, params, tt, -1, 256), 3e-2, *more)
     ms = statistics.median(times[1:])
     emit({"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
           "batch": batch, "seq": seq, "prefill_ms": times,
@@ -1794,9 +2025,10 @@ def phase_prefill(cfg, params, batch, seq, name="prefill"):
 
 
 def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
-                 name="decode"):
+                 name="decode", forward_cfg=None, hold=True):
     """``n_gen`` greedy serve_steps from the prefill's states (padded), the
-    first ``n_check`` positions held against a teacher-forced forward."""
+    first ``n_check`` positions held against a teacher-forced forward (of
+    ``forward_cfg``, default ``cfg``; ``hold=False``: only measured)."""
     b, s = tokens.shape
     serve = train_steps.make_serve_step(cfg, cm.Policy())
     n_traced = 3
@@ -1826,18 +2058,23 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
     # 5e-2 is the reference's decode-vs-forward tolerance, held as in the
     # prefill phase against the forward's own floor at this width
     pos = slice(s, s + n_check)
+    fcfg = cfg if forward_cfg is None else forward_cfg
+    # an MoE model's floor also takes the forward row by row (as prefill)
+    more = ([forward_logits(fcfg, params, seq, pos, (s + n_check) // 8,
+                            per_row=True)] if cfg.n_experts else [])
     err, floor, atol = close_to_forward(
         f"{name} logits vs teacher-forced forward",
         torch.stack(checked, dim=1),
-        forward_logits(cfg, params, seq, pos, (s + n_check) // 8),
-        forward_logits(cfg, params, seq, pos, (s + n_check) // 4), 5e-2)
+        forward_logits(fcfg, params, seq, pos, (s + n_check) // 8),
+        forward_logits(fcfg, params, seq, pos, (s + n_check) // 4), 5e-2,
+        *more, hold=hold)
     ms = statistics.median(times)
     emit({"phase": name, "batch": b, "kv_len": s + n_gen + n_traced,
           "steps": n_gen, "step_ms_median": ms, "step_ms": times,
           "decode_tokens_per_s": b / (ms / 1e3), "launches": launches,
           "max_abs_err_vs_forward": err,
           "forward_vs_itself_other_block": floor, "atol_used": atol,
-          "checked_positions": n_check, "profile": trace})
+          "held": hold, "checked_positions": n_check, "profile": trace})
 
 
 def solo_generate(cfg, params, prompts, gen, chunk, cache_len, rows=None):
@@ -1986,6 +2223,304 @@ def phase_wide_serve():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# MoE phases
+# ---------------------------------------------------------------------------
+
+def published(what, cfg, want):
+    """Fail unless ``cfg`` has the published widths ``want``."""
+    got = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.n_experts, cfg.moe_top_k, cfg.d_ff, cfg.vocab_size,
+           cfg.tie_embeddings, cfg.capacity_factor)
+    if got != want:
+        fail(f"{what}: not the published {cfg.name}: {got} != {want}")
+
+
+def no_drop(cfg):
+    """``cfg`` at capacity factor E / top-k: every expert has a slot for
+    every token, so no entry drops — what decode (capacity = the batch)
+    always has.  The forward that decode is held against."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.moe_top_k)
+
+
+def moe_aux(cfg, params, batch):
+    """Exact forward of ``batch``: each layer's drop_frac and lb_loss (a
+    walk of ``lm.apply_block``), the loss, its ce part and its lb_loss."""
+    tb = train_steps._to_device(batch, params["embed"].device)
+    ctx = cm.Ctx(policy=cm.Policy(), compute_dtype=cfg.cdtype)
+    with torch.no_grad():
+        h, positions = lm.embed_inputs(cfg, params, tb, ctx)
+        drops, lbs = [], []
+        for i, layer in enumerate(params["layers"]):
+            h, aux = lm.apply_block(cfg, "attn_moe", layer, ctx, h,
+                                    positions)
+            drops.append(float(aux["drop_frac"]))
+            lbs.append(float(aux["lb_loss"]))
+        del h
+        loss, aux = registry.loss_fn(cfg, params, tb, cm.Policy())
+        logits, _ = registry.forward(cfg, params, tb, cm.Policy())
+        ce = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            tb["labels"].to(torch.int64).reshape(-1))
+        del logits
+    return drops, lbs, float(loss), float(ce), float(aux["lb_loss"])
+
+
+def moe_decode_f32(cfg, params, tokens, n_check, name):
+    """Decode against the teacher-forced forward in f32 compute, at
+    capacity factor E / top-k (nothing drops, as in decode): a prefill of
+    ``tokens`` (the flash kernel's f32 route), ``n_check`` greedy
+    serve_steps, the forward over prompt and fed tokens, held at the
+    reference's decode tolerance 5e-2.  In bf16 the comparison is
+    ill-posed for these models: a router logit rounded in another order
+    flips a token's top-k, and at the reference's expert initialisation
+    (std 1/sqrt(E), ROADMAP Queue C) one flipped expert moves the logits
+    by several units; in f32 no near-tie of that size is left."""
+    cfg32 = dataclasses.replace(no_drop(cfg), compute_dtype="float32")
+    b, s = tokens.shape
+    dev = params["embed"].device
+    last, states = train_steps.make_prefill_step(
+        cfg32, cm.Policy(), device=dev)(params, {"tokens": tokens})
+    states = pad_kv(states, n_check)
+    serve = train_steps.make_serve_step(cfg32, cm.Policy(), device=dev)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    fed, got = [tok], []
+    for g in range(n_check):
+        tok, logits, states = serve(params, tok, s + g, states)
+        got.append(logits)
+        fed.append(tok)
+    del states
+    seq = torch.cat([torch.from_numpy(tokens).to(dev, torch.int32),
+                     torch.stack(fed[:n_check], dim=1)], dim=1)
+    want = forward_logits(cfg32, params, seq, slice(s, s + n_check),
+                          (s + n_check) // 8)
+    err = check_close(f"{name}: f32 decode vs teacher-forced forward",
+                      torch.stack(got, dim=1), want, 5e-2, 5e-2)
+    torch.cuda.empty_cache()
+    return {"phase": name, "batch": b, "prompt": s,
+            "checked_positions": n_check, "compute_dtype": "float32",
+            "capacity_factor": cfg32.capacity_factor,
+            "max_abs_err_vs_forward": err,
+            "tol": {"rtol": 5e-2, "atol": 5e-2}}
+
+
+def moe_pool(cfg, params):
+    """``MOE_SERVE``'s greedy requests through a 4-slot pool: each bit-equal
+    to itself served alone through a pool of the same spec and to the
+    solo route at the pool's shapes."""
+    spec = ServeSpec(arch=cfg.name, reduced=False, max_slots=4,
+                     page_size=16, max_len=128, prefill_chunk=16,
+                     device="cuda")
+    corpus = data.SyntheticLM(cfg.vocab_size, 64, len(MOE_SERVE),
+                              seed=4).batch(np.arange(len(MOE_SERVE)))[
+                                  "tokens"]
+    reqs = [(list(corpus[i, :n]), g) for i, (n, g) in enumerate(MOE_SERVE)]
+    sess = ServeSession(spec, params)
+    t0 = time.perf_counter()
+    handles = [sess.submit(p, max_new=g) for p, g in reqs]
+    sess.run_until_idle()
+    wall = time.perf_counter() - t0
+    got = [h.result(timeout=0) for h in handles]
+    for i, ((p, g), toks) in enumerate(zip(reqs, got)):
+        alone = ServeSession(spec, params)
+        h = alone.submit(p, max_new=g)
+        alone.run_until_idle()
+        if h.result(timeout=0) != toks:
+            fail(f"moe pool: request {i} differs from itself served alone, "
+                 f"first at {first_difference(h.result(timeout=0), toks)}")
+        (solo,), _ = solo_generate(cfg, params, [p], g, spec.prefill_chunk,
+                                   spec.slot_len, spec.max_slots)
+        if solo != toks:
+            fail(f"moe pool: request {i} differs from the solo route at the "
+                 f"pool's shapes, first at {first_difference(solo, toks)}")
+    return {"requests": len(reqs), "wall_s": wall,
+            "tokens_per_s": sess.stats["tokens_generated"] / wall,
+            "equal_to_alone_and_solo": len(reqs)}
+
+
+def moe_remat_child():
+    """granite-moe-1b-a400m of the moe phase, 2 WTA-CRS steps from fresh
+    parameters under remat "none" and "wtacrs_names" (run in a child
+    process with CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms
+    on): the losses bit-equal — step 2's loss reads step 1's gradients, so
+    the load-balancing loss and the router's gradient through it survived
+    the remat — launches as ``launches_per_step`` implies, the peaks."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    ds = data.SyntheticLM(cfg.vocab_size, MOE_S, MOE_B, seed=0)
+    legs = {}
+    for remat in ("none", "wtacrs_names"):
+        policy = cm.Policy(wtacrs=MOE_WTA, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = train_steps.init_train_state(cfg, 0)
+        step = train_steps.make_train_step(
+            cfg, policy, optim.AdamWConfig(),
+            optim.linear_warmup_constant(1e-4, 2))
+        losses = []
+        for i in range(2):
+            state, m = step(state, ds.batch_at(i, MOE_B))
+            losses.append(float(m["loss"]))
+        per_step = launches_per_step(cfg, policy, MOE_S, batch=MOE_B)
+        launches = expect_launches(f"moe remat {remat}", {
+            name: 2 * n for name, n in per_step.items()})
+        legs[remat] = {"losses": losses,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": launches}
+        del state, step
+    if legs["wtacrs_names"]["losses"] != legs["none"]["losses"]:
+        fail(f"moe: remat wtacrs_names losses "
+             f"{legs['wtacrs_names']['losses']} are not none's "
+             f"{legs['none']['losses']} bit for bit")
+    emit({"arch": cfg.name, "legs": legs, "remat_losses_bit_equal": True,
+          "deterministic": True})
+
+
+def phase_moe():
+    """granite-moe-1b-a400m at published width and full depth: train,
+    exact peak, the remat child, prefill, decode, the pool.  Returns the
+    train steps' and the prefill's launches."""
+    cfg = get_config(MOE_ARCH)
+    published("moe", cfg, (1024, 16, 8, 64, 32, 8, 512, 49155, True, 1.25))
+    if cfg.n_layers != 24:
+        fail(f"moe: {cfg.n_layers} layers, the published model has 24")
+    ds = data.SyntheticLM(cfg.vocab_size, MOE_S, MOE_B, seed=0)
+    policy = cm.Policy(wtacrs=MOE_WTA)
+    per_step = launches_per_step(cfg, policy, MOE_S, batch=MOE_B)
+    reset_launches()
+    (losses, times, peak, changed, n_leaves, n_params, state,
+     step) = run_steps(cfg, MOE_WTA, MOE_STEPS, MOE_B, MOE_S, ds, keep=True)
+    launches = expect_launches("moe train", {
+        name: n * MOE_STEPS for name, n in per_step.items()})
+    by_route = expect_route("moe train", "fused_sampled_dw", "wgmma")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"moe: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"moe: loss did not fall: {losses}")
+    if changed != n_leaves:
+        fail(f"moe: only {changed} of {n_leaves} parameter leaves changed")
+    drops, lbs, loss, ce, lb = moe_aux(cfg, state["params"],
+                                       ds.batch_at(0, MOE_B))
+    # the loss is the cross-entropy plus 0.01 * lb_loss / n_layers, lb_loss
+    # the layers' sum (f32 sums of the same terms in another order: 1e-5)
+    if not (math.isfinite(lb) and lb > 0
+            and abs(lb - sum(lbs)) <= 1e-5 * lb
+            and abs(loss - (ce + 0.01 * lb / cfg.n_layers)) <= 1e-5 * loss):
+        fail(f"moe: lb_loss {lb} (layers {sum(lbs)}), loss {loss}, ce {ce}")
+    busy = device_busy(lambda: step(state, ds.batch_at(MOE_STEPS, MOE_B)),
+                       1)
+    del state, step
+    torch.cuda.empty_cache()
+    exact_losses, exact_times, exact_peak, *_ = run_steps(
+        cfg, EXACT_CONFIG, 2, MOE_B, MOE_S, ds)
+    remat = run_child("moe_remat_child", timeout=600)
+    emit({"phase": "moe_train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": n_params, "batch": MOE_B, "seq": MOE_S, "budget": 0.3,
+          "capacity": GRANITE["cap"], "k_expert": GRANITE["k"],
+          "k_router": GRANITE["k_router"], "losses": losses,
+          "step_ms": times,
+          "step_ms_median_after_first": statistics.median(times[1:]),
+          "peak_bytes": peak, "lb_loss": lb, "lb_loss_by_layer": lbs,
+          "ce_loss": ce, "loss": loss, "drop_frac_by_layer": drops,
+          "launches": launches, "launches_per_step": per_step,
+          "fused_sampled_dw_launches_by_route": by_route,
+          "profile": busy, "exact_losses": exact_losses,
+          "exact_step_ms": exact_times, "peak_bytes_exact": exact_peak,
+          "remat_child": remat})
+    params = registry.init_params(cfg, 0)
+    (prefill_launches, _), tokens, _, states = phase_prefill(
+        cfg, params, MOE_B, 2 * MOE_S, name="moe_prefill")
+    del states
+    # decode dispatches at capacity = the batch and never drops: it starts
+    # from a prefill, and is held against a forward, that drop nothing
+    last, states = train_steps.make_prefill_step(no_drop(cfg), cm.Policy())(
+        params, {"tokens": tokens})
+    phase_decode(cfg, params, tokens, last, states, n_gen=16, n_check=16,
+                 name="moe_decode", forward_cfg=no_drop(cfg), hold=False)
+    del last, states
+    emit(moe_decode_f32(cfg, params, tokens, 8, "moe_decode_f32"))
+    emit({"phase": "moe_pool", "arch": cfg.name, **moe_pool(cfg, params)})
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches, flash_attention_fwd=prefill_launches[
+        "flash_attention_fwd"])
+
+
+def phase_moe_wide():
+    """dbrx-132b at published width: depth 2 prefills and decodes, depth 1
+    trains under the factored OptimSpec.  Returns the train steps' and the
+    prefill's launches."""
+    cfg = dataclasses.replace(get_config(WIDE_ARCH), n_layers=2)
+    published("moe_wide", cfg, (6144, 48, 8, 128, 16, 4, 10752, 100352,
+                                False, 1.25))
+    params = registry.init_params(cfg, 0)
+    (prefill_launches, _), tokens, _, states = phase_prefill(
+        cfg, params, 2, WIDE_S, name="moe_wide_prefill")
+    del states
+    last, states = train_steps.make_prefill_step(no_drop(cfg), cm.Policy())(
+        params, {"tokens": tokens})
+    phase_decode(cfg, params, tokens, last, states, n_gen=8, n_check=8,
+                 name="moe_wide_decode", forward_cfg=no_drop(cfg),
+                 hold=False)
+    del last, states
+    emit(moe_decode_f32(cfg, params, tokens, 8, "moe_wide_decode_f32"))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=1)
+    spec = optim_specs()["factored"]
+    policy = cm.Policy(wtacrs=MOE_WTA)
+    per_step = launches_per_step(cfg, policy, WIDE_S, batch=WIDE_B)
+    meta = registry.init_params(cfg, 0, device="meta")
+    report = optim_lib.memory_report(spec, meta)
+    ds = data.SyntheticLM(cfg.vocab_size, WIDE_S, WIDE_B, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_steps.init_train_state(cfg, 0, opt=spec)
+    on_card = optim_lib.tree_bytes(state["opt"])
+    if on_card != report["state_bytes"]:
+        fail(f"moe_wide: {on_card} state bytes on the card, memory_report "
+             f"says {report['state_bytes']}")
+    step = train_steps.make_train_step(
+        cfg, policy, spec, optim.linear_warmup_constant(1e-4, 2))
+    reset_launches()
+    losses, times = [], []
+    for i in range(WIDE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch_at(i, WIDE_B))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_launches("moe_wide train", {
+        k: n * WIDE_STEPS for k, n in per_step.items()})
+    by_route = expect_route("moe_wide train", "fused_sampled_dw", "wgmma")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"moe_wide: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"moe_wide: loss did not fall: {losses}")
+    del state, step
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_wide_train", "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "n_params": sum(p.numel() for p in optim.tree_leaves(meta)),
+          "batch": WIDE_B, "seq": WIDE_S, "budget": 0.3, "spec": "factored",
+          "capacity": DBRX["cap"], "k_expert": DBRX["k"],
+          "k_router": DBRX["k_router"], "losses": losses, "step_ms": times,
+          "peak_bytes": peak, "state_bytes_on_card": on_card,
+          "state_bytes_memory_report": report["state_bytes"],
+          "memory_report": report, "launches": launches,
+          "launches_per_step": per_step,
+          "fused_sampled_dw_launches_by_route": by_route})
+    return dict(launches, flash_attention_fwd=prefill_launches[
+        "flash_attention_fwd"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2010,7 +2545,8 @@ def main() -> int:
               "capability": list(torch.cuda.get_device_capability(0))})
     if set(phases) & {"build", "kernels", "parity", "train", "memory",
                       "adaptive", "accumulate", "optim", "run", "resume",
-                      "serve_parity", "prefill", "wide_serve"}:
+                      "serve_parity", "prefill", "wide_serve", "moe",
+                      "moe_wide"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -2020,7 +2556,9 @@ def main() -> int:
               "library": os.path.relpath(lib),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln],
-              "sampled_matmul_ptxas": smm_ptxas})
+              "sampled_matmul_ptxas": smm_ptxas,
+              "fused_sampled_dw_ptxas": ptxas_report(
+                  log, "fused_sampled_dw.cu")})
         # the wgmma route holds 128 accumulators a thread: a spill there
         # would put the sum in local memory
         for kernel, info in smm_ptxas.items():
@@ -2088,13 +2626,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "wide_serve" in phases:
         phase_launches["wide_serve"] = phase_wide_serve()
+    if "moe" in phases:
+        phase_launches["moe"] = phase_moe()
+    if "moe_wide" in phases:
+        phase_launches["moe_wide"] = phase_moe_wide()
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
         # main paths' shapes in bf16, with the launches the train phase
         # (row_norms, gather_scale, fused_sampled_dw), the composition
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
-        # counted — for the optim and wide_serve shapes those phases' —
+        # counted — for the optim, wide_serve, moe and moe_wide shapes those
+        # phases' —
         # and beside them the launches of the Run phase's fit
         summary = []
         for c in cases:

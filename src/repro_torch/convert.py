@@ -1,8 +1,11 @@
 """Parameters across the two packages, as numpy.
 
-The reference (``repro.models.registry.init_params``) yields, for a dense
-decoder arch, ``{"embed", "unit": (block,), "final_norm"[, "head"]}``
-where every leaf of ``block`` carries a leading ``n_repeats`` axis.  The
+The reference (``repro.models.registry.init_params``) yields, for a
+decoder arch of one block a pattern unit (dense ``attn`` or MoE
+``attn_moe``), ``{"embed", "unit": (block,), "final_norm"[, "head"]}``
+where every leaf of ``block`` carries a leading ``n_repeats`` axis (an MoE
+block's ``moe/router`` (R, d, E) and ``moe/{wi,wg,wo}`` (R, E, d, f) give
+the port's per-layer (d, E) and (E, d, f)).  The
 port keeps a list of per-layer dicts (``models/lm.py``).  The functions
 below map one onto the other so both packages can be run on the same
 values; none imports the reference — the caller hands over numpy arrays
@@ -29,10 +32,10 @@ def _map(fn, tree):
 
 
 def _check(cfg: ArchConfig) -> None:
-    if tuple(cfg.pattern) != ("attn",):
+    if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
         raise NotImplementedError(
-            f"{cfg.name}: only the single-block dense pattern ('attn',) "
-            f"is ported; got {cfg.pattern}")
+            f"{cfg.name}: only the single-block patterns ('attn',) and "
+            f"('attn_moe',) are ported; got {cfg.pattern}")
 
 
 def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],

@@ -35,6 +35,13 @@ dW of the backward go through the hand-written kernels
 (``repro_torch.kernels.ops``); the large exact products stay
 ``torch.matmul``.
 
+An MoE layer's experts run as one batched linear (``expert_linear``): the
+(E, C, D) capacity slots of E experts against stacked (E, D, F) weights,
+each expert's C slots sampled as G plans of C/G rows, and every expert's
+dW from one launch of the ``fused_sampled_dw`` kernel's expert axis — the
+counterpart of the reference's ``jax.vmap`` over its experts' sampled
+linears (``repro/models/mlp.py::_expert_ffn``).
+
 Rematerialisation (``Policy.remat="wtacrs_names"``) keeps exactly the
 tensors the reference names ``wtacrs_saved`` — H', idx and scale — across
 a layer's recompute: a :class:`RematStash` handed to the sampled linears
@@ -87,7 +94,9 @@ def _rowgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):
     """dW = sum_b H'_b^T @ (dZ_b[idx_b] * scale_b): one launch of the
-    fused kernel, f32 out, cast to the (compute-dtype) weight's dtype."""
+    fused kernel, f32 out, cast to the (compute-dtype) weight's dtype.
+    With a leading expert axis on every operand, each expert's dW in the
+    same one launch."""
     dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale,
                                      tile=cfg.kernel.dw_tile)
     return dw.to(out_dtype)
@@ -302,6 +311,78 @@ def wtacrs_linear_shared(h: torch.Tensor, ws, key: Optional[int] = None,
     return _dispatch_sampled_dense(h, tuple(ws), key, znorm, cfg,
                                    biases=biases, shared=True, plan=plan,
                                    stash=stash)
+
+
+# ---------------------------------------------------------------------------
+# Expert-batched sampled linear (MoE)
+# ---------------------------------------------------------------------------
+
+class _ExpertSampledLinear(torch.autograd.Function):
+    """E experts' linears in one: h (E, C, D) by stacked weights
+    (E, D, F_i), one output (E, C, F_i) per weight.  Each expert's C rows
+    are ``groups`` samples of C/G rows with a plan each (E·G plans from
+    one batched build); several weights share the plans and ONE stored H'
+    (an expert's wi/wg, as ``_SampledLinearShared``).  Saves (H', idx,
+    scale) and the weights; the backward's dW of every expert is one
+    launch of ``fused_sampled_dw`` over the expert axis a weight.  No
+    gradient-norm tap: the reference caches none for the experts."""
+
+    @staticmethod
+    def forward(ctx, h, cfg, gen, groups, stash, *ws):
+        zs = tuple(torch.bmm(h, w) for w in ws)
+        e, c, d = h.shape
+        samples = h.reshape(e * groups, c // groups, d)
+        ctx.save_for_backward(*_kept(samples, None, cfg, gen, None, stash),
+                              *ws)
+        ctx.cfg, ctx.groups = cfg, groups
+        return zs
+
+    @staticmethod
+    def backward(ctx, *dzs):
+        h_sub, idx, scale, *ws = ctx.saved_tensors
+        e, g, k = ws[0].shape[0], ctx.groups, idx.shape[-1]
+        dh, dws = None, []
+        for dz, w in zip(dzs, ws):
+            dz = dz.contiguous()
+            d = torch.bmm(dz, w.transpose(1, 2))
+            dh = d if dh is None else dh + d
+            dws.append(_sampled_dw(
+                h_sub.view(e, g, k, h_sub.shape[-1]),
+                dz.view(e, g, dz.shape[1] // g, dz.shape[2]),
+                idx.view(e, g, k), scale.view(e, g, k), ctx.cfg, w.dtype))
+        return (dh.to(h_sub.dtype), None, None, None, None, *dws)
+
+
+def expert_linear(h: torch.Tensor, ws, key: Optional[int],
+                  cfg: WTACRSConfig = WTACRSConfig(), groups: int = 1,
+                  stash: Optional[RematStash] = None
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Every expert's linear at once, estimator-approximated weight
+    gradients: h (E, C, D), every w (E, D, F_i) -> one (E, C, F_i) a
+    weight.  The forward is exact (``torch.bmm``); each expert's C rows
+    are sampled as ``groups`` plans of C/G rows (C % groups == 0) and
+    several weights share them (``_ExpertSampledLinear``).  As for a
+    dense linear, the EXACT kind or a budget covering all C/G rows runs
+    the plain products.  ``key`` seeds one ``torch.Generator`` that draws
+    all E·G plans in one batched build (independent rows of one draw)."""
+    e, c, _ = h.shape
+    if c % groups:
+        raise ValueError(f"{c} capacity slots do not split into {groups} "
+                         f"sampling groups")
+    rows = c // groups
+    if cfg.is_exact or cfg.budget_rows(rows) >= rows:
+        return tuple(torch.bmm(h, w) for w in ws)
+    spec = registry.get_estimator(cfg.kind)
+    if len(ws) > 1 and not spec.supports_shared:
+        raise ValueError(f"estimator {cfg.kind_name!r} does not support "
+                         f"shared plans")
+    gen = None
+    if spec.needs_key:
+        if key is None:
+            raise ValueError(f"estimator {cfg.kind_name!r} requires a key")
+        gen = torch.Generator(device=h.device)
+        gen.manual_seed(int(key))
+    return _ExpertSampledLinear.apply(h, cfg, gen, groups, stash, *ws)
 
 
 def read_grad_norm_tap(grads_znorm: torch.Tensor) -> torch.Tensor:

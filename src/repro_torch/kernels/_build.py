@@ -41,7 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_row_norms": (_P, _P, _I, _I, _I, _P),
     "repro_fused_sampled_dw": (_P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_fwd": (_P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_gather_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

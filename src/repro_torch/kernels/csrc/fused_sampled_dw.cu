@@ -1,5 +1,7 @@
-// fused_sampled_dw: dW[d_in, d_out] (f32) =
-//     sum_b hsub[b]^T @ round_T(f32(dz[b, idx[b, :], :]) * scale[b, :, None])
+// fused_sampled_dw: dW[e, d_in, d_out] (f32) =
+//     sum_b hsub[e, b]^T @ round_T(f32(dz[e, b, idx[e, b, :], :])
+//                                   * scale[e, b, :, None])
+// for every expert e of ne (ne = 1: the plain sampled dW of one weight).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/fused_sampling.py::fused_sampled_dw.  That kernel keeps
@@ -43,6 +45,16 @@
 //    loads issued into registers before the current tile is multiplied.
 //  * fma (f32): f32 FMAs (TF32 would cost three decimal digits that the
 //    f32 callers are promised).
+//
+// The expert axis is the counterpart of the reference's jax.vmap over its
+// experts' sampled linears (src/repro/models/mlp.py::_expert_ffn), under
+// which the Pallas kernel becomes one batched pallas_call with the expert
+// as an extra grid axis.  Here the wgmma route's persistent blocks walk
+// (expert, tile) pairs, expert-major, and the wmma and fma routes put the
+// expert on blockIdx.z; each expert's dW tile sums that expert's B samples
+// in the same order as an ne = 1 call, so ne = 1 is that call bit for bit.
+// One launch serves all of a layer's experts: at granite-moe-1b-a400m's 32
+// experts of 1024 x 512 one expert fills only 32 of 132 SMs.
 //
 // Ragged everything: the k tail and the d_in/d_out edges are predicates
 // that put ZEROS into shared memory (a select, never 0 * garbage), so the
@@ -165,6 +177,13 @@ fused_dw_mma_kernel(const T* __restrict__ hsub, const T* __restrict__ dz,
                     const float* __restrict__ scale, float* __restrict__ out,
                     int nb, int k, int n, int d_in, int d_out, int vec_a,
                     int vec_b) {
+  // expert blockIdx.z: its samples, plan and dW
+  const long long e = blockIdx.z;
+  hsub += e * nb * k * d_in;
+  dz += e * nb * n * d_out;
+  idx += e * nb * k;
+  scale += e * nb * k;
+  out += e * d_in * d_out;
   constexpr int THREADS = WARPS_M * WARPS_N * 32;
   constexpr int LDA = BM + 8;  // +16 bytes a row: spreads rows over banks
   constexpr int LDB = BN + 8;
@@ -310,12 +329,15 @@ __device__ __forceinline__ uint32_t scale2(uint32_t w, float s, __half) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-template <typename T, int kTile>
+// kExperts: ne > 1.  The one-weight instance (ne = 1) compiles the expert
+// arithmetic away: the loader is this route's bottleneck, and an expert
+// lookup on its path cost the plain sampled dW 1-5 % (PERF.md).
+template <typename T, int kTile, bool kExperts>
 __global__ void __launch_bounds__(DwLayout<kTile>::kThreads, 1)
 fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
                       const T* __restrict__ dz, const int* __restrict__ idx,
                       const float* __restrict__ scale,
-                      float* __restrict__ out, int nb, int k, int n,
+                      float* __restrict__ out, int ne, int nb, int k, int n,
                       int d_in, int d_out) {
   using namespace repro::hopper;
   using L = DwLayout<kTile>;
@@ -336,17 +358,34 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
            (g % kWgPlanSlots) * 2 * kWgBK;
   };
 
-  // A persistent block: tiles blockIdx.x, + gridDim.x, ... (d_in tiles
-  // fastest, so the blocks running together share dZ' columns in L2), all
-  // through one ring, so the next tile's loads overlap this one's epilogue.
-  // g counts the block's steps over all its tiles.
+  // A persistent block: (expert, tile) pairs blockIdx.x, + gridDim.x, ...
+  // (expert-major, d_in tiles fastest, so the blocks running together
+  // share dZ' columns in L2), all through one ring, so the next tile's
+  // loads overlap this one's epilogue.  g counts the block's steps over all
+  // its tiles; the samples of expert e are e * nb ... e * nb + nb - 1.
   const int n_m = (d_in + kTile - 1) / kTile;
-  const int n_tiles = n_m * ((d_out + kTile - 1) / kTile);
+  const int per_expert = n_m * ((d_out + kTile - 1) / kTile);
+  const int n_tiles = ne * per_expert;
   const int my_tiles = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int nkb = (k + kWgBK - 1) / kWgBK;
   const int steps = nb * nkb;
   const int total = my_tiles * steps;
-  assert_rows(idx, (long long)nb * k, n);
+  // the expert and the tile within it of the block's local tile t
+  auto expert_of = [&](int t) -> int {
+    if constexpr (kExperts) {
+      return ((int)blockIdx.x + t * (int)gridDim.x) / per_expert;
+    } else {
+      return 0;
+    }
+  };
+  auto tile_of = [&](int t) -> int {
+    if constexpr (kExperts) {
+      return ((int)blockIdx.x + t * (int)gridDim.x) % per_expert;
+    } else {
+      return (int)blockIdx.x + t * (int)gridDim.x;
+    }
+  };
+  assert_rows(idx, (long long)ne * nb * k, n);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -376,10 +415,19 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
     // loaders makes it visible to all of them.  The loader waits on nothing
     // but a free stage and a plan fetched steps ago.
     StepCursor fetch, issue;
+    // the fetched tile's expert's first plan entry, found once a tile: a
+    // division on every step would sit on the loader's critical path
+    int fetch_tile = -1;
+    long long fetch_base = 0;
     auto fetch_plan = [&](int g) {
+      if (kExperts && fetch.tile != fetch_tile) {
+        fetch_tile = fetch.tile;
+        fetch_base = (long long)expert_of(fetch_tile) * nb * k;
+      }
       const int kk = pt % kWgBK;
       const int ks = fetch.kb * kWgBK + kk;
-      const long long at = (long long)fetch.b * k + min(ks, k - 1);
+      const long long at = fetch_base + (long long)fetch.b * k +
+                           min(ks, k - 1);
       cp_async4(plan(g) + pt,
                 pt < kWgBK ? static_cast<const void*>(idx + at)
                            : static_cast<const void*>(scale + at),
@@ -390,14 +438,15 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
       if (g < total) fetch_plan(g);
       cp_async_commit();
     }
-    int tile_seen = -1, i0 = 0, col = 0;
+    int tile_seen = -1, i0 = 0, col = 0, sb = 0;
     for (int g = 0; g < total; ++g) {
       const int st = g % kWgStages;
       if (issue.tile != tile_seen) {
         tile_seen = issue.tile;
-        const int tile = (int)blockIdx.x + tile_seen * (int)gridDim.x;
+        const int tile = tile_of(tile_seen);
         i0 = (tile % n_m) * kTile;
         col = (tile / n_m) * kTile + jc * 8;
+        sb = expert_of(tile_seen) * nb;
       }
       unsigned char* stage = sm + st * L::kStage;
       cp_async_wait<kWgPlanAhead - 1>();  // step g's plan has landed ...
@@ -409,11 +458,11 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
 #pragma unroll
         for (int c = 0; c < kTile / 64; ++c) {
           tma_load_3d(stage + c * L::kAtom, &map_h, &full[st], i0 + 64 * c,
-                      issue.kb * kWgBK, issue.b);
+                      issue.kb * kWgBK, sb + issue.b);
         }
       }
       const int ks0 = issue.kb * kWgBK + kk0;
-      const T* zb = dz + (long long)issue.b * n * d_out + col;
+      const T* zb = dz + (long long)(sb + issue.b) * n * d_out + col;
       const bool col_ok = col < d_out;
 #pragma unroll
       for (int q = 0; q < L::kChunks; ++q) {
@@ -463,9 +512,10 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
     const bool odd = t4 & 1;
     float acc[kTile / 2];
     for (int g = 0; g < total; g += steps) {
-      const int tile = (int)blockIdx.x + (g / steps) * (int)gridDim.x;
+      const int tile = tile_of(g / steps);
       const int i0 = (tile % n_m) * kTile;
       const int j0 = (tile / n_m) * kTile;
+      float* eout = out + (long long)expert_of(g / steps) * d_in * d_out;
 #pragma unroll
       for (int i = 0; i < kTile / 2; ++i) acc[i] = 0.f;
       for (int u = g; u < g + steps; ++u) {
@@ -502,7 +552,7 @@ fused_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
         const float y1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : a3, 1);
         const int c = j0 + nb8 * 8 + 2 * (t4 & 2);
         if (row < d_in && c < d_out) {
-          *reinterpret_cast<float4*>(out + (long long)row * d_out + c) =
+          *reinterpret_cast<float4*>(eout + (long long)row * d_out + c) =
               odd ? make_float4(y0, y1, a2, a3) : make_float4(a0, a1, y0, y1);
         }
       }
@@ -524,6 +574,13 @@ fused_dw_f32_kernel(const float* __restrict__ hsub,
                     int nb, int k, int n, int d_in, int d_out, int vec_a,
                     int vec_b) {
   constexpr int BM = kF32Tile, BN = kF32Tile;
+  // expert blockIdx.z: its samples, plan and dW
+  const long long e = blockIdx.z;
+  hsub += e * nb * k * d_in;
+  dz += e * nb * n * d_out;
+  idx += e * nb * k;
+  scale += e * nb * k;
+  out += e * d_in * d_out;
   __shared__ __align__(16) float As[kF32BK * BM];
   __shared__ __align__(16) float Bs[kF32BK * BN];
 
@@ -583,84 +640,99 @@ inline unsigned cdiv(int a, int b) { return (unsigned)((a + b - 1) / b); }
 
 // tile 0 lets the shape decide: 128x128 tiles reuse each loaded element
 // twice as often as 64x64, but a narrow dW (the k/v projections) would
-// leave most SMs without a tile.
-int pick_tile(int tile, int d_in, int d_out) {
+// leave most SMs without a tile.  The experts' tiles all count.
+int pick_tile(int tile, int ne, int d_in, int d_out) {
   if (tile != 0) return tile;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (cdiv(d_in, 128) * cdiv(d_out, 128) >= (unsigned)sms) ? 128 : 64;
+  return ((long long)ne * cdiv(d_in, 128) * cdiv(d_out, 128) >= sms) ? 128
+                                                                     : 64;
 }
 
 template <typename T>
 int launch_mma(const void* hsub, const void* dz, const void* idx,
-               const void* scale, void* out, int nb, int k, int n, int d_in,
-               int d_out, int tile, cudaStream_t stream) {
+               const void* scale, void* out, int ne, int nb, int k, int n,
+               int d_in, int d_out, int tile, cudaStream_t stream) {
+  // an expert's operands start a whole number of rows after the first's,
+  // so they keep its 16-byte alignment when the rows are whole chunks
   const int vec_a = aligned16(hsub) && (d_in % Chunk<T>::kElems == 0);
   const int vec_b = aligned16(dz) && (d_out % Chunk<T>::kElems == 0);
-  tile = pick_tile(tile, d_in, d_out);
+  tile = pick_tile(tile, ne, d_in, d_out);
   const T* h = static_cast<const T*>(hsub);
   const T* z = static_cast<const T*>(dz);
   const int* ix = static_cast<const int*>(idx);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   if (tile == 128) {
-    dim3 grid(cdiv(d_in, 128), cdiv(d_out, 128));
+    dim3 grid(cdiv(d_in, 128), cdiv(d_out, 128), ne);
     fused_dw_mma_kernel<T, 128, 128, 4, 2><<<grid, 256, 0, stream>>>(
         h, z, ix, sc, o, nb, k, n, d_in, d_out, vec_a, vec_b);
   } else {
-    dim3 grid(cdiv(d_in, 64), cdiv(d_out, 64));
+    dim3 grid(cdiv(d_in, 64), cdiv(d_out, 64), ne);
     fused_dw_mma_kernel<T, 64, 64, 2, 2><<<grid, 128, 0, stream>>>(
         h, z, ix, sc, o, nb, k, n, d_in, d_out, vec_a, vec_b);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kTile>
+template <typename T, int kTile, bool kExperts>
 int launch_wgmma_tile(const void* hsub, const void* dz, const void* idx,
-                      const void* scale, void* out, int nb, int k, int n,
-                      int d_in, int d_out, cudaStream_t stream) {
+                      const void* scale, void* out, int ne, int nb, int k,
+                      int n, int d_in, int d_out, cudaStream_t stream) {
   using L = DwLayout<kTile>;
-  CUtensorMap map_h;
-  if (!hopper::make_map_3d(&map_h, hsub, d_in, k, nb, kWgBK)) return -4;
+  CUtensorMap map_h;  // every expert's samples along the third axis
+  if (!hopper::make_map_3d(&map_h, hsub, d_in, k, (uint64_t)ne * nb, kWgBK)) {
+    return -4;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_dw_wgmma_kernel<T, kTile>,
+      fused_dw_wgmma_kernel<T, kTile, kExperts>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = (long long)cdiv(d_in, kTile) * cdiv(d_out, kTile);
+  const long long tiles =
+      (long long)ne * cdiv(d_in, kTile) * cdiv(d_out, kTile);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  fused_dw_wgmma_kernel<T, kTile><<<grid, L::kThreads, L::kBytes, stream>>>(
+  fused_dw_wgmma_kernel<T, kTile, kExperts>
+      <<<grid, L::kThreads, L::kBytes, stream>>>(
       map_h, static_cast<const T*>(dz), static_cast<const int*>(idx),
-      static_cast<const float*>(scale), static_cast<float*>(out), nb, k, n,
-      d_in, d_out);
+      static_cast<const float*>(scale), static_cast<float*>(out), ne, nb, k,
+      n, d_in, d_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_wgmma(const void* hsub, const void* dz, const void* idx,
-                 const void* scale, void* out, int nb, int k, int n, int d_in,
-                 int d_out, int tile, cudaStream_t stream) {
+                 const void* scale, void* out, int ne, int nb, int k, int n,
+                 int d_in, int d_out, int tile, cudaStream_t stream) {
   // TMA needs 16-byte strides and base; dZ' rows go in 16-byte chunks
   if (d_in % 8 != 0 || d_out % 8 != 0 || !aligned16(hsub) || !aligned16(dz)) {
     return -2;
   }
-  if (pick_tile(tile, d_in, d_out) == 128) {
-    return launch_wgmma_tile<T, 128>(hsub, dz, idx, scale, out, nb, k, n,
-                                     d_in, d_out, stream);
+  const bool wide = pick_tile(tile, ne, d_in, d_out) == 128;
+  if (ne > 1) {
+    return wide ? launch_wgmma_tile<T, 128, true>(hsub, dz, idx, scale, out,
+                                                  ne, nb, k, n, d_in, d_out,
+                                                  stream)
+                : launch_wgmma_tile<T, 64, true>(hsub, dz, idx, scale, out,
+                                                 ne, nb, k, n, d_in, d_out,
+                                                 stream);
   }
-  return launch_wgmma_tile<T, 64>(hsub, dz, idx, scale, out, nb, k, n, d_in,
-                                  d_out, stream);
+  return wide ? launch_wgmma_tile<T, 128, false>(hsub, dz, idx, scale, out,
+                                                 ne, nb, k, n, d_in, d_out,
+                                                 stream)
+              : launch_wgmma_tile<T, 64, false>(hsub, dz, idx, scale, out, ne,
+                                                nb, k, n, d_in, d_out, stream);
 }
 
 int launch_f32(const void* hsub, const void* dz, const void* idx,
-               const void* scale, void* out, int nb, int k, int n, int d_in,
-               int d_out, cudaStream_t stream) {
+               const void* scale, void* out, int ne, int nb, int k, int n,
+               int d_in, int d_out, cudaStream_t stream) {
   const int vec_a = aligned16(hsub) && (d_in % 4 == 0);
   const int vec_b = aligned16(dz) && (d_out % 4 == 0);
-  dim3 grid(cdiv(d_in, kF32Tile), cdiv(d_out, kF32Tile));
+  dim3 grid(cdiv(d_in, kF32Tile), cdiv(d_out, kF32Tile), ne);
   fused_dw_f32_kernel<<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(hsub), static_cast<const float*>(dz),
       static_cast<const int*>(idx), static_cast<const float*>(scale),
@@ -673,8 +745,9 @@ enum Route : int { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 
 }  // namespace
 
-// hsub (nb, k, d_in) and dz (nb, n, d_out) of `dtype`, idx (nb, k) int32,
-// scale (nb, k) f32, out (d_in, d_out) f32; all contiguous.  `tile`: 0 lets
+// hsub (ne, nb, k, d_in) and dz (ne, nb, n, d_out) of `dtype`, idx
+// (ne, nb, k) int32, scale (ne, nb, k) f32, out (ne, d_in, d_out) f32; all
+// contiguous; ne experts (1 for one weight, up to 65535).  `tile`: 0 lets
 // the shape decide, 64 or 128 pins the bf16/f16 output tile (f32 inputs
 // always take the 64x64 FMA kernel).  `route`: 0 fma (f32), 1 wmma, 2
 // wgmma (bf16/f16; d_in and d_out multiples of 8, hsub and dz 16-byte
@@ -684,11 +757,12 @@ enum Route : int { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 // and allocates nothing.
 extern "C" int repro_fused_sampled_dw(const void* hsub, const void* dz,
                                       const void* idx, const void* scale,
-                                      void* out, int nb, int k, int n,
-                                      int d_in, int d_out, int dtype, int tile,
-                                      int route, void* stream) {
+                                      void* out, int ne, int nb, int k,
+                                      int n, int d_in, int d_out, int dtype,
+                                      int tile, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile != 0 && tile != 64 && tile != 128) return -2;
+  if (ne < 1 || ne > 65535) return -2;
   if (dtype != repro::kF32 && dtype != repro::kBF16 && dtype != repro::kF16) {
     return -1;
   }
@@ -696,17 +770,18 @@ extern "C" int repro_fused_sampled_dw(const void* hsub, const void* dz,
   const bool bf16 = dtype == repro::kBF16;
   switch (route) {
     case kRouteFma:
-      return launch_f32(hsub, dz, idx, scale, out, nb, k, n, d_in, d_out, s);
+      return launch_f32(hsub, dz, idx, scale, out, ne, nb, k, n, d_in, d_out,
+                        s);
     case kRouteWmma:
-      return bf16 ? launch_mma<__nv_bfloat16>(hsub, dz, idx, scale, out, nb,
-                                              k, n, d_in, d_out, tile, s)
-                  : launch_mma<__half>(hsub, dz, idx, scale, out, nb, k, n,
-                                       d_in, d_out, tile, s);
+      return bf16 ? launch_mma<__nv_bfloat16>(hsub, dz, idx, scale, out, ne,
+                                              nb, k, n, d_in, d_out, tile, s)
+                  : launch_mma<__half>(hsub, dz, idx, scale, out, ne, nb, k,
+                                       n, d_in, d_out, tile, s);
     case kRouteWgmma:
-      return bf16 ? launch_wgmma<__nv_bfloat16>(hsub, dz, idx, scale, out, nb,
-                                                k, n, d_in, d_out, tile, s)
-                  : launch_wgmma<__half>(hsub, dz, idx, scale, out, nb, k, n,
-                                         d_in, d_out, tile, s);
+      return bf16 ? launch_wgmma<__nv_bfloat16>(hsub, dz, idx, scale, out, ne,
+                                                nb, k, n, d_in, d_out, tile, s)
+                  : launch_wgmma<__half>(hsub, dz, idx, scale, out, ne, nb, k,
+                                         n, d_in, d_out, tile, s);
     default:
       return -2;
   }

@@ -117,7 +117,9 @@ class Policy:
     and the sampled linears' kept tensors (H', idx, scale), which the
     recompute reuses.  ``flash_block`` / ``flash_mode`` set the attention
     block size and whether the causal upper triangle of block pairs is
-    skipped (``triangular``) or masked (``full``).
+    skipped (``triangular``) or masked (``full``).  ``moe_groups`` splits
+    an MoE layer's tokens into dispatch groups and each expert's capacity
+    slots into as many sampling plans (``models/mlp.py``).
     """
     wtacrs: WTACRSConfig = WTACRSConfig(kind=EstimatorKind.EXACT)
     lora: LoRAConfig = LoRAConfig()
@@ -127,6 +129,22 @@ class Policy:
     remat: str = "none"            # none | full | wtacrs_names
     flash_block: int = 512
     flash_mode: str = "full"       # full | triangular
+    # the reference's MoE dispatch sharding constraint (expert axis,
+    # capacity axes): a mesh constraint, which the one-device port has no
+    # mesh for
+    moe_pspec: Optional[Tuple] = None
+    # WTA-CRS sampling groups over the expert capacity dim (and the token
+    # groups of the dispatch): each expert draws moe_groups plans
+    moe_groups: int = 1
+
+    def __post_init__(self):
+        if self.moe_pspec is not None:
+            raise NotImplementedError(
+                "Policy.moe_pspec is a mesh sharding constraint; the port "
+                "runs on one device, and meshes wait for ROADMAP Queue A.9")
+        if self.moe_groups < 1:
+            raise ValueError(f"moe_groups must be >= 1, got "
+                             f"{self.moe_groups}")
 
     def config_for(self, tag: str) -> WTACRSConfig:
         """Estimator config for one fully-prefixed linear tag."""
@@ -192,13 +210,17 @@ class tag_recorder:
     in call order; ``.dims`` maps each recorded tag to its sampled
     dimension (SAMPLED_DIM_*), and ``.calls`` holds the tags of every
     ``Ctx.linear`` / ``Ctx.linear_shared`` call, one tuple a call, repeats
-    included.  Pass the recorder as ``Ctx(recorder=...)`` — there is no
-    module-level sink."""
+    included.  ``.expert_calls`` holds one ``(tag, weights_per_plan)`` for
+    every MoE expert FFN (``models/mlp.py::_expert_ffn``: the experts'
+    ``<prefix>moe_expert`` plans, not ``Ctx.linear`` tags, so they stay out
+    of ``.tags``).  Pass the recorder as ``Ctx(recorder=...)`` — there is
+    no module-level sink."""
 
     def __init__(self):
         self.tags: list = []
         self.dims: Dict[str, str] = {}
         self.calls: list = []
+        self.expert_calls: list = []
 
     def record(self, tag: str, sampled_dim: str) -> None:
         if tag not in self.tags:

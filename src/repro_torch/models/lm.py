@@ -9,6 +9,11 @@ Parameter tree (plain dicts of tensors, weights (d_in, d_out))::
                   "mlp": {"wi", ["wg"], "wo"}}, ... n_layers ],
      "final_norm": {"gamma"}, ["head": (D, V)]}
 
+An ``attn_moe`` block holds ``"moe": {"router": (D, E), "wi", "wg":
+(E, D, F), "wo": (E, F, D)}`` in place of ``"mlp"``; its load-balancing
+loss is summed over the layers into ``forward``'s aux and enters
+``lm_loss`` as ``0.01 * lb_loss / n_layers``, as in the reference.
+
 The reference stacks the layers of one pattern unit along a leading
 repeat axis and scans over it; here the layers are a Python list and the
 loop is written out (``repro_torch.convert`` maps between the two).  The
@@ -33,8 +38,9 @@ from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.train import optim as optim_lib
 
-_LATER = ("block type {btype!r} is not ported yet (MoE, SSM/recurrent and "
+_LATER = ("block type {btype!r} is not ported yet (SSM/recurrent and "
           "shared-attention blocks are later items of ROADMAP.md)")
+_BLOCKS = ("attn", "attn_moe")
 
 
 # ---------------------------------------------------------------------------
@@ -57,12 +63,16 @@ def _init_attn_core(cfg, gen, dtype, device):
 
 
 def init_block(cfg, btype: str, gen, dtype, device):
-    if btype != "attn":
+    if btype not in _BLOCKS:
         raise NotImplementedError(_LATER.format(btype=btype))
-    return {"norm1": cm.init_norm(cfg, dtype, device),
-            "attn": _init_attn_core(cfg, gen, dtype, device),
-            "norm2": cm.init_norm(cfg, dtype, device),
-            "mlp": mlp_lib.init_mlp(cfg, gen, dtype, device)}
+    p = {"norm1": cm.init_norm(cfg, dtype, device),
+         "attn": _init_attn_core(cfg, gen, dtype, device),
+         "norm2": cm.init_norm(cfg, dtype, device)}
+    if btype == "attn_moe":
+        p["moe"] = mlp_lib.init_moe(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = mlp_lib.init_mlp(cfg, gen, dtype, device)
+    return p
 
 
 def _project_qkv(cfg, p, ctx, x, positions):
@@ -87,10 +97,19 @@ def _project_qkv(cfg, p, ctx, x, positions):
     return q, k, v
 
 
+def _ffn(cfg, p, ctx: cm.Ctx, x) -> Tuple[torch.Tensor, Dict]:
+    """The block's MLP or MoE on the normed x: (output, aux)."""
+    if "moe" in p:
+        return mlp_lib.apply_moe(cfg, p["moe"], ctx, x)
+    return mlp_lib.apply_mlp(cfg, p["mlp"], ctx, x), {}
+
+
 def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions
                 ) -> Tuple[torch.Tensor, Dict]:
-    """Training application of one block.  h: (B, S, D)."""
-    if btype != "attn":
+    """Training application of one block.  h: (B, S, D).  Returns (h,
+    aux); an ``attn_moe`` block's aux holds ``lb_loss`` and
+    ``drop_frac``."""
+    if btype not in _BLOCKS:
         raise NotImplementedError(_LATER.format(btype=btype))
     rs = cfg.residual_scale
     x = cm.apply_norm(cfg, p["norm1"], h)
@@ -102,8 +121,8 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions
                    p["attn"]["wo"])
     h = h + rs * o
     x = cm.apply_norm(cfg, p["norm2"], h)
-    m = mlp_lib.apply_mlp(cfg, p["mlp"], ctx, x)
-    return h + rs * m, {}
+    m, aux = _ffn(cfg, p, ctx, x)
+    return h + rs * m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +131,13 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions
 
 def _check_ported(cfg: ArchConfig) -> None:
     for btype in cfg.pattern:
-        if btype != "attn":
+        if btype not in _BLOCKS:
             raise NotImplementedError(_LATER.format(btype=btype))
-    if cfg.is_encdec or cfg.family == "vlm" or cfg.n_experts:
+    if cfg.is_encdec or cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoder-only archs are ported so far "
-            f"(enc-dec, VLM and MoE are later items of ROADMAP.md)")
+            f"{cfg.name}: only decoder-only archs (dense and MoE) are "
+            f"ported so far (enc-dec and VLM are later items of "
+            f"ROADMAP.md)")
 
 
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
@@ -178,7 +198,10 @@ class _RematLayer(torch.autograd.Function):
     the stash), so the gradients are those of ``remat="none"``.
 
     ``run(inputs, stash, recompute)`` applies the layer to the flat
-    ``inputs`` (see ``_remat_layer``)."""
+    ``inputs`` (see ``_remat_layer``) and returns its output, or (output,
+    load-balancing loss) for an MoE layer — as the reference's checkpointed
+    scan unit carries (h, aux_lb) — so the loss and the router's gradient
+    through it survive the remat."""
 
     @staticmethod
     def forward(ctx, run, keep_sampled: bool, *inputs):
@@ -191,7 +214,7 @@ class _RematLayer(torch.autograd.Function):
         return out
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         saved = ctx.saved_tensors
         inputs = [x.detach().requires_grad_(need) for x, need in zip(
             saved[:ctx.n_inputs], ctx.needs_input_grad[2:])]
@@ -199,17 +222,20 @@ class _RematLayer(torch.autograd.Function):
                  if ctx.keep_sampled else None)
         with torch.enable_grad():
             out = ctx.run(inputs, stash, True)
+        outs = out if isinstance(out, tuple) else (out,)
         wanted = [x for x in inputs if x.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out,
+        grads = iter(torch.autograd.grad(outs, wanted, grad_outs,
                                          allow_unused=True))
         return (None, None, *(next(grads) if x.requires_grad else None
                               for x in inputs))
 
 
-def _remat_layer(cfg, btype, layer, sub, h, positions):
+def _remat_layer(cfg, btype, layer, sub, h, positions
+                 ) -> Tuple[torch.Tensor, Dict]:
     """``apply_block`` of one layer as a ``_RematLayer``, its inputs the
     layer input ``h``, the layer's parameter leaves and ``sub``'s znorm
-    slices."""
+    slices.  Returns (h, aux) with aux's ``lb_loss`` for an MoE layer
+    (its ``drop_frac`` is not carried)."""
     weights = []
     optim_lib.tree_map(weights.append, layer)
     tags = sorted(sub.znorms) if sub.znorms is not None else []
@@ -221,14 +247,19 @@ def _remat_layer(cfg, btype, layer, sub, h, positions):
         # the recompute records no tag a second time
         c = dataclasses.replace(sub, znorms=zn, stash=stash,
                                 recorder=None if recompute else sub.recorder)
-        return apply_block(cfg, btype, p, c, inputs[0], positions)[0]
+        out, aux = apply_block(cfg, btype, p, c, inputs[0], positions)
+        return (out, aux["lb_loss"]) if "lb_loss" in aux else out
 
     inputs = [h, *weights, *(sub.znorms[t] for t in tags)]
     if not (torch.is_grad_enabled() and any(x.requires_grad
                                             for x in inputs)):
-        return run(inputs, None, False)      # no backward to remat for
-    return _RematLayer.apply(run, sub.policy.remat == "wtacrs_names",
-                             *inputs)
+        out = run(inputs, None, False)       # no backward to remat for
+    else:
+        out = _RematLayer.apply(run, sub.policy.remat == "wtacrs_names",
+                                *inputs)
+    if isinstance(out, tuple):
+        return out[0], {"lb_loss": out[1]}
+    return out, {}
 
 
 def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
@@ -247,6 +278,7 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
     ctx = cm.Ctx(policy=policy, key=key, znorms=None, recorder=recorder,
                  compute_dtype=cfg.cdtype)
     h, positions = embed_inputs(cfg, params, batch, ctx)
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
     n_pat = len(cfg.pattern)
     for i, layer in enumerate(params["layers"]):
         ridx, j = divmod(i, n_pat)
@@ -256,13 +288,15 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
             sub = dataclasses.replace(
                 sub, znorms={t: z[ridx] for t, z in znorms.items()})
         if policy.remat == "none":
-            h, _ = apply_block(cfg, cfg.pattern[j], layer, sub, h,
-                               positions)
+            h, aux = apply_block(cfg, cfg.pattern[j], layer, sub, h,
+                                 positions)
         else:
-            h = _remat_layer(cfg, cfg.pattern[j], layer, sub, h, positions)
+            h, aux = _remat_layer(cfg, cfg.pattern[j], layer, sub, h,
+                                  positions)
+        if "lb_loss" in aux:
+            lb = lb + aux["lb_loss"]
     h = cm.apply_norm(cfg, params["final_norm"], h)
-    return _logits(cfg, params, h), {
-        "lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+    return _logits(cfg, params, h), {"lb_loss": lb}
 
 
 def _logits(cfg, params, h):
@@ -316,7 +350,7 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
         o = ctx_r.linear("attn_o", _flash_prefill(q, k, v), p["attn"]["wo"])
         h = h + cfg.residual_scale * o
         x = cm.apply_norm(cfg, p["norm2"], h)
-        h = h + cfg.residual_scale * mlp_lib.apply_mlp(cfg, p["mlp"], ctx_r, x)
+        h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
         caches[j]["k"].append(k.to(cfg.cdtype))
         caches[j]["v"].append(v.to(cfg.cdtype))
     states = tuple({"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
@@ -333,8 +367,9 @@ def block_decode_init(cfg, btype, batch_size: int, max_len: int,
                       device="cuda"):
     """Decode state for ONE block type, un-stacked (no repeat axis):
     a (B, max_len, KVH, Dh) KV cache in the compute dtype for attention
-    blocks.  The serving slot pool builds its per-block pools from it."""
-    if btype != "attn":
+    blocks (dense or MoE).  The serving slot pool builds its per-block
+    pools from it."""
+    if btype not in _BLOCKS:
         raise NotImplementedError(_LATER.format(btype=btype))
     device = resolve_device(device)
     shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -370,8 +405,7 @@ def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
     o = ctx.linear("attn_o", o.reshape(b, 1, hh * dh), p["attn"]["wo"])
     h1 = h1 + cfg.residual_scale * o
     x = cm.apply_norm(cfg, p["norm2"], h1)
-    m = mlp_lib.apply_mlp(cfg, p["mlp"], ctx, x)
-    return h1 + cfg.residual_scale * m
+    return h1 + cfg.residual_scale * _ffn(cfg, p, ctx, x)[0]
 
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
@@ -404,7 +438,9 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
 def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
             key=None, znorms=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy (labels = batch["labels"], negative =
-    masked), computed in f32."""
+    masked), computed in f32; an MoE arch adds ``0.01 * lb_loss /
+    n_layers``.  As in the reference, ``aux["ce_loss"]`` is the returned
+    loss, that term included."""
     logits, aux = forward(cfg, params, batch, policy, key, znorms)
     labels = batch["labels"].to(torch.int64)
     logits = logits.to(torch.float32)
@@ -414,5 +450,7 @@ def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
     nll = logz - gold
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux["lb_loss"] / cfg.n_layers
     aux["ce_loss"] = loss
     return loss, aux

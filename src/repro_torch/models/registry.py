@@ -1,6 +1,6 @@
 """Model API dispatch: config lookup, parameter init, the loss and the
-serving entry points for every ported architecture (dense decoder-only
-LMs so far)."""
+serving entry points for every ported architecture (decoder-only LMs,
+dense and MoE, so far)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -55,9 +55,7 @@ def serve_compatible(cfg: ArchConfig) -> Tuple[bool, str]:
     if cfg.family == "vlm" or cfg.pos_mode not in ("rope", "none"):
         return False, (f"{cfg.family} arch with pos_mode {cfg.pos_mode!r}: "
                        f"VLM / learned positions are not ported yet")
-    if cfg.n_experts:
-        return False, "MoE arch: the MoE blocks are not ported yet"
-    other = sorted(set(cfg.pattern) - {"attn"})
+    other = sorted(set(cfg.pattern) - {"attn", "attn_moe"})
     if other:
         return False, (f"block types {other} (SSM / recurrent / shared "
                        f"attention) are not ported yet")

@@ -31,7 +31,7 @@ _LATER = ("block type {btype!r} has slot-indexed recurrent state, which "
 
 
 def _check_attn(btype: str) -> None:
-    if btype != "attn":
+    if btype not in ("attn", "attn_moe"):
         raise NotImplementedError(_LATER.format(btype=btype))
 
 

@@ -76,9 +76,9 @@ class ServeSpec:
         if self.arch not in ARCH_NAMES:
             raise ValueError(
                 f"arch {self.arch!r} cannot be served through the slot "
-                f"pool: the port serves the dense decoder-only archs "
-                f"{ARCH_NAMES}; MoE, SSM, encoder-decoder and VLM archs "
-                f"are not ported yet")
+                f"pool: the port serves the decoder-only archs "
+                f"{ARCH_NAMES}; SSM, encoder-decoder and VLM archs are "
+                f"not ported yet")
         ok, reason = registry.serve_compatible(self.config)
         if not ok:
             raise ValueError(

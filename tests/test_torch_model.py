@@ -24,7 +24,8 @@ from repro_torch.models.registry import get_config
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b"]
+ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b",
+         "granite-moe-1b-a400m", "dbrx-132b"]
 
 
 def _both(arch, compute_dtype):
@@ -55,7 +56,7 @@ def test_reduced_configs_are_the_reference_field_for_field(arch):
     assert get_config(arch).cdtype is torch.bfloat16
     assert get_config(arch).pdtype is torch.float32
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("dbrx-132b")
+        get_config("zamba2-2.7b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -303,6 +304,6 @@ def test_shared_plan_keys_fold_the_prefixed_tags():
 
 def test_unported_blocks_and_options_raise():
     tcfg = get_config("qwen2.5-3b", reduced=True)
-    moe = dataclasses.replace(tcfg, pattern=("attn_moe",))
+    ssm = dataclasses.replace(tcfg, pattern=("mamba",))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.init_params(moe, 0, device="cpu")
+        lm.init_params(ssm, 0, device="cpu")

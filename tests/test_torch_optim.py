@@ -331,7 +331,8 @@ def test_from_legacy_adamw_continues_bit_identically():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "nemotron-4-15b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "nemotron-4-15b",
+                                  "granite-moe-1b-a400m", "dbrx-132b"])
 @pytest.mark.parametrize("name", SPEC_NAMES)
 def test_memory_report_equals_the_reference(arch, name):
     jparams, _ = jax_registry.abstract_params(jax_get_config(arch,
@@ -625,7 +626,8 @@ def _clip_between_layers(jcfg, jstate, policy, batch):
     return threshold
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "nemotron-4-15b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "nemotron-4-15b",
+                                  "granite-moe-1b-a400m"])
 @pytest.mark.parametrize("name", SPEC_NAMES + ["factored@one_layer_clipped"])
 def test_three_det_topk_steps_under_each_spec_match_reference(arch, name):
     """``make_train_step`` with an ``OptimSpec``, f32 compute,

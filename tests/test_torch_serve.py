@@ -147,7 +147,8 @@ def _spec(**kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b",
-                                  "command-r-35b"])
+                                  "command-r-35b", "granite-moe-1b-a400m",
+                                  "dbrx-132b"])
 def test_prefill_matches_jax_in_f32(arch):
     jcfg, tcfg, jparams, params = _both(arch, "float32")
     toks = _tokens(tcfg, 2, 32)
@@ -242,6 +243,12 @@ def test_decode_step_matches_jax_with_per_row_positions():
 def test_command_r_decode_matches_jax():
     """command-r-35b: LayerNorm, tied embeddings, rope theta 8e6."""
     _decode_matches_jax("command-r-35b")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "dbrx-132b"])
+def test_moe_decode_matches_jax(arch):
+    """MoE blocks: decode dispatches at capacity = the batch (no drops)."""
+    _decode_matches_jax(arch)
 
 
 def _decode_matches_jax(arch):
@@ -376,7 +383,7 @@ def test_greedy_solo_route_equals_jax_run_generate(jax_run, port_run, prompt,
 # ServeSpec: construction-time validation
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["whisper-base", "dbrx-132b", "zamba2-2.7b",
+@pytest.mark.parametrize("arch", ["whisper-base", "xlstm-125m", "zamba2-2.7b",
                                   "qwen2-vl-2b"])
 def test_servespec_rejects_archs_not_ported_at_construction(arch):
     with pytest.raises(ValueError, match="not ported yet"):
@@ -385,7 +392,7 @@ def test_servespec_rejects_archs_not_ported_at_construction(arch):
 
 @pytest.mark.parametrize("change,reason", [
     (dict(encoder_layers=2), "encoder-decoder"),
-    (dict(n_experts=4, moe_top_k=2), "MoE"),
+    (dict(pattern=("slstm",)), "slstm"),
     (dict(pattern=("attn", "mamba")), "mamba"),
     (dict(family="vlm", pos_mode="mrope"), "VLM"),
 ])

@@ -88,7 +88,9 @@ def test_synthetic_lm_batches_are_byte_identical():
         assert ca[name].tobytes() == cb[name].tobytes()
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b",
+                                  "command-r-35b", "granite-moe-1b-a400m",
+                                  "dbrx-132b"])
 def test_three_det_topk_steps_match_reference(arch):
     """f32 compute, ``kind="det_topk"``: loss, grad norm and the updated
     parameters of three whole steps agree to 1e-4.  A near-tie in the
