@@ -16,16 +16,25 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            composition row_norms -> plan -> gather_scale -> sampled_matmul
            against fused_sampled_dw at full width; a plan index outside
            [0, n) ends each gathering kernel in a device-side assert
-           (sampled_matmul on both of its wgmma tiles, fused_sampled_dw
+           (gather_scale on both routes and, on bulk, in every dtype;
+           sampled_matmul on both of its wgmma tiles, fused_sampled_dw
            with and without its expert axis).  fused_sampled_dw's expert
            axis (E experts' dW in one launch) at the MoE phases' expert
            shapes (timed beside E launches of the call without the axis)
            and at ragged ones (E=3, odd k, k < 64, widths multiples of 8
            not of 64, duplicate indices, a misaligned view), E = 1 bit
            for bit the call without the axis; the routers' narrow dW
-           flash_attention_fwd, fused_sampled_dw and sampled_matmul report
-           the route each case took (launches_by_route; wgmma wherever the
-           shape allows, edge shapes and misaligned operands included);
+           flash_attention_fwd, fused_sampled_dw, sampled_matmul and
+           gather_scale report the route each case took (launches_by_route;
+           wgmma, or bulk for the gather, wherever the shape allows, edge
+           shapes and misaligned operands included); gather_scale bit-equal
+           three calls in a row at the bulk route's edges (rows packed to
+           an item with a shorter last item, rows in pieces with a shorter
+           last piece, B*k below the SM count, k = 1, every slot one row,
+           the 2-D form; a misaligned view on the warp route), each timed
+           shape on both routes pinned in turns (warp, bulk, bulk, warp)
+           and L2-cold (a 128 MB write before each call) beside
+           torch.gather;
            sampled_matmul's timed cases also time the kernel alone on
            operands planned once; flash bf16 is
            also held against the tensor-op models/attention.py
@@ -35,7 +44,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            S=1024, WTA-CRS at budget 0.3: 6 steps through
            get_config -> init_train_state -> make_train_step -> train_step;
            losses finite and falling, launch counts as expected, every
-           fused_sampled_dw launch on the wgmma route
+           fused_sampled_dw launch on the wgmma route and every
+           gather_scale launch on bulk (so too in optim, moe, moe_wide)
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side;
            then, in a child process with deterministic algorithms on, 2
            steps under the reference's `mixed` OptimSpec in four legs:
@@ -210,6 +220,20 @@ FLASH_EDGE = [(1, 8, 1, 200, 333, 128, True), (1, 8, 1, 333, 200, 64, True),
 GATHER_MAIN_D = (2048, 11008)
 GATHER_RAGGED_2D = [(64, 96, 16), (50, 130, 20)]
 GATHER_RAGGED_BATCHED = (3, 7, 5, 4)
+
+
+def gather_edges(dtype):
+    """The bulk route's edges as (B, n, d, k), d by element size, against
+    its 4 KB items: rows of 2064 bytes, one an item (bf16 d = 1032); rows
+    of 16400 bytes in five equal pieces (f32 d = 4100); rows of 1040 bytes
+    three to an item with a shorter last item (B*k = 62); rows of 12304
+    bytes in pieces of 3088 with a shorter last one; B*k below the SM
+    count; k = 1 at a width cut into pieces."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return [(2, 300, 2064 // item, 33), (2, 300, 16400 // item, 33),
+            (2, 300, 1040 // item, 31), (2, 300, 12304 // item, 33),
+            (1, 64, 2048, 5), (1, 50, 6144, 1)]
+
 # sampled_matmul: the reference sweeps as 2-D (k, d_in, d_out, n) and
 # batched (B, k, n, d_in, d_out)
 SMM_SWEEP_2D = [(16, 32, 24, 64), (20, 130, 70, 50), (8, 16, 16, 16),
@@ -287,6 +311,8 @@ def nvidia_smi_line() -> str:
 # GPU clock cycles the card spins before each timed group (about 10 ms on
 # an H100): long enough for the host to enqueue the whole group behind it.
 HOST_LEAD_CYCLES = 20_000_000
+# bytes written before an L2-cold call: above the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 * 2**20
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
@@ -433,47 +459,101 @@ def unique_rows(idx):
     return sum(int(torch.unique(idx[i]).numel()) for i in range(idx.shape[0]))
 
 
-def gather_scale_case(b, n, d, k, dtype, gen, timed, two_d=False):
-    """``gather_scale`` against its plain version, bit for bit; the plan
-    repeats rows (slot 1 names slot 0's row), as sampling with
-    replacement does."""
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median over ``reps`` single calls of ``fn``, each timed with CUDA
+    events right after a write of ``L2_FLUSH_BYTES`` that evicts the 50 MB
+    L2, so its inputs come from HBM (the warm ``time_ms`` can beat the HBM
+    bound where the inputs fit in L2)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_LEAD_CYCLES // 10)
+        flush.zero_()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def gather_scale_case(b, n, d, k, dtype, gen, timed, two_d=False,
+                      same_row=False, misaligned=False):
+    """``gather_scale`` against its plain version, bit for bit, three calls
+    in a row; the plan repeats rows (slot 1 names slot 0's row, or with
+    ``same_row`` every slot names one row), as sampling with replacement
+    does; ``misaligned`` hands it a view 2 bytes (f32: 4) off a 16-byte
+    boundary.  Timed: the two routes pinned through the C entry point in
+    turns (warp, bulk, bulk, warp), each also L2-cold beside
+    ``torch.gather``, the bound and the plain version."""
     x = torch.randn((b, n, d), generator=gen, device="cuda",
                     dtype=torch.float32).to(dtype)
+    if misaligned:
+        x = shifted(x)
     idx = torch.randint(0, n, (b, k), generator=gen, device="cuda"
                         ).to(torch.int32)
-    if k > 1:
+    if same_row:
+        idx[:] = idx[:, :1]
+    elif k > 1:
         idx[:, 1] = idx[:, 0]
     scale = torch.rand((b, k), generator=gen, device="cuda") * 2.0 + 0.25
     args = (x[0], idx[0], scale[0]) if two_d else (x, idx, scale)
-    got = ops.gather_scale(*args)
-    torch.cuda.synchronize()
     want = gather_scale_mod.gather_scale_plain(x, idx, scale)
+    what = (f"gather_scale B={b} n={n} d={d} k={k} 2d={two_d} {dtype} "
+            f"same_row={same_row} misaligned={misaligned}")
     # kernel and plain version make the same single f32 multiply and the
-    # same single rounding of every element: equal to the bit (atol 0)
+    # same single rounding of every element: equal to the bit (atol 0); a
+    # missing proxy fence or ring wait would show only sometimes, so three
+    # calls
+    max_err, routes = 0.0, set()
+    for _ in range(3):
+        out = []
+        routes.update(routes_taken("gather_scale", lambda: out.append(
+            ops.gather_scale(*args))))
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_close(
+            what, out[0], want[0] if two_d else want, 0.0, 0.0))
     case = {
         "name": "gather_scale", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gather_scale.cu",
         "replaces": "src/repro/kernels/gather_scale.py:43",
         "shape": {"B": None if two_d else b, "n": n, "d": d, "k": k},
-        "dtype": DTYPE_NAMES[dtype],
-        "max_abs_err": check_close(
-            f"gather_scale B={b} n={n} d={d} k={k} 2d={two_d} {dtype}",
-            got, want[0] if two_d else want, 0.0, 0.0),
+        "dtype": DTYPE_NAMES[dtype], "max_abs_err": max_err,
         "tol": {"rtol": 0.0, "atol": 0.0},
+        "kernel_route": "+".join(sorted(routes)), "misaligned": misaligned,
+        "duplicate_indices": "all" if same_row else k > 1,
     }
     if timed:
         item = x.element_size()
         nbytes = item * d * (unique_rows(idx) + b * k) + 8 * b * k
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = b * k * d / PEAK_FLOPS[torch.float32]
+
+        def pinned(route):
+            return lambda: gather_scale_mod.launch(x, idx, scale, route)
+
+        def library():
+            return torch.gather(x, 1, idx.to(torch.int64)[:, :, None].expand(
+                b, k, d))
+        warp_a = time_ms(pinned("warp"))
+        bulk_a = time_ms(pinned("bulk"))
+        bulk_b = time_ms(pinned("bulk"))
+        warp_b = time_ms(pinned("warp"))
         case.update({
-            "ms": time_ms(lambda: ops.gather_scale(x, idx, scale)),
+            "ms": (bulk_a + bulk_b) / 2, "warp_ms": (warp_a + warp_b) / 2,
+            "turns_ms": {"warp": [warp_a, warp_b], "bulk": [bulk_a, bulk_b]},
             "plain_ms": time_ms(lambda: gather_scale_mod.gather_scale_plain(
                 x, idx, scale)),
-            "library_ms": time_ms(lambda: torch.gather(
-                x, 1, idx.to(torch.int64)[:, :, None].expand(b, k, d))),
+            "library_ms": time_ms(library),
             "library": "torch.gather(x, 1, idx.long()[:, :, None]"
                        ".expand(B, k, d)) (the plain H' gather)",
+            "cold_ms": cold_ms(pinned("bulk")),
+            "warp_cold_ms": cold_ms(pinned("warp")),
+            "library_cold_ms": cold_ms(library),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
@@ -769,18 +849,20 @@ def composition_case(gen):
 
 
 # The child of ``bad_index_cases``: one kernel handed a plan index outside
-# [0, n); prints the first line of the error the synchronisation raises.
+# [0, n); prints the first line of the error the synchronisation raises and
+# the routes of the kernel's launches.
 BAD_INDEX_CHILD = r"""
 import sys
 import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch.kernels import ops
-name, d = sys.argv[2], int(sys.argv[3])
-x = torch.ones((2, 8, d), dtype=torch.bfloat16, device="cuda")
-hsub = torch.ones((2, 32, d), dtype=torch.bfloat16, device="cuda")
+name, d, dtype = sys.argv[2], int(sys.argv[3]), getattr(torch, sys.argv[4])
+x = torch.ones((2, 8, d), dtype=dtype, device="cuda")
+hsub = torch.ones((2, 32, d), dtype=dtype, device="cuda")
 idx = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
 idx[1, 5] = 8
 scale = torch.ones((2, 32), device="cuda")
+fn = getattr(ops, name.replace("_experts", ""))
 try:
     if name == "gather_scale":
         ops.gather_scale(x, idx, scale)
@@ -792,47 +874,64 @@ try:
                                        + [idx[None]]),
                              scale[None].repeat(3, 1, 1))
     else:
-        getattr(ops, name)(hsub, x, idx, scale)
+        fn(hsub, x, idx, scale)
     torch.cuda.synchronize()
 except RuntimeError as err:
-    print(str(err).strip().splitlines()[0])
+    routes = sorted(r for r, c in fn.launches_by_route.items() if c)
+    print(str(err).strip().splitlines()[0] + " [route " + "+".join(routes)
+          + "]")
     sys.exit(0)
 print("no error")
 sys.exit(1)
 """
-# (kernel, width): sampled_matmul at 64 takes the 64 x 64 wgmma tile, at
-# 2048 the 256 x 128 tiles in clusters of two
-BAD_INDEX_KERNELS = (("gather_scale", 64), ("sampled_matmul", 64),
-                     ("sampled_matmul", 2048), ("fused_sampled_dw", 64),
-                     ("fused_sampled_dw_experts", 64))
+# (kernel, width, dtype): gather_scale at 64 takes the bulk route in every
+# dtype, at 63 (bf16, a ragged row) the warp route; sampled_matmul at 64
+# takes the 64 x 64 wgmma tile, at 2048 the 256 x 128 tiles in clusters of
+# two
+BAD_INDEX_KERNELS = (("gather_scale", 64, "bfloat16"),
+                     ("gather_scale", 64, "float16"),
+                     ("gather_scale", 64, "float32"),
+                     ("gather_scale", 63, "bfloat16"),
+                     ("sampled_matmul", 64, "bfloat16"),
+                     ("sampled_matmul", 2048, "bfloat16"),
+                     ("fused_sampled_dw", 64, "bfloat16"),
+                     ("fused_sampled_dw_experts", 64, "bfloat16"))
 
 
 def bad_index_cases():
     """Every kernel that gathers by a plan index, handed one outside
     [0, n): the launch must end in a device-side assert, raised at the
-    next synchronisation, never in a row of zeros or a read out of range.
-    One child process a kernel, all started together, since the assert
-    ends its process's CUDA context."""
+    next synchronisation, never in a row of zeros or a read out of range
+    (gather_scale on both routes: the bulk route checks an index before it
+    issues a copy from it).  One child process a case, all started
+    together, since the assert ends its process's CUDA context."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    procs = {f"{name} d={d}": subprocess.Popen(
-        [sys.executable, "-c", BAD_INDEX_CHILD, src, name, str(d)],
+    procs = {(name, d, dtype): subprocess.Popen(
+        [sys.executable, "-c", BAD_INDEX_CHILD, src, name, str(d), dtype],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        for name, d in BAD_INDEX_KERNELS}
+        for name, d, dtype in BAD_INDEX_KERNELS}
     out = {}
     try:
-        for name, proc in procs.items():
+        for key, proc in procs.items():
             text, _ = proc.communicate(timeout=300)
-            out[name] = (proc.returncode, text.strip())
+            out[key] = (proc.returncode, text.strip())
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for name, (code, msg) in out.items():
+    for (name, d, dtype), (code, msg) in out.items():
+        what = f"{name} d={d} {dtype}"
         if code != 0 or "device-side assert" not in msg:
-            fail(f"bad index: {name} ended with {msg!r} (exit {code}), "
+            fail(f"bad index: {what} ended with {msg!r} (exit {code}), "
                  f"expected a device-side assert")
-    return {name: msg for name, (_, msg) in out.items()}
+        if name == "gather_scale":
+            route = gather_scale_mod.gather_route(d, getattr(torch, dtype))
+            if not msg.endswith(f"[route {route}]"):
+                fail(f"bad index: {what} ended with {msg!r}, expected the "
+                     f"{route} route")
+    return {f"{name} d={d} {dtype}": msg
+            for (name, d, dtype), (_, msg) in out.items()}
 
 
 def flash_bound(bh, bkvh, sq, skv, dh, causal, dtype):
@@ -994,6 +1093,15 @@ def phase_kernels():
                                            timed=False, two_d=True))
         cases.append(gather_scale_case(*GATHER_RAGGED_BATCHED, dtype, gen,
                                        timed=False))
+        for shape in gather_edges(dtype):
+            cases.append(gather_scale_case(*shape, dtype, gen, timed=False))
+        cases.append(gather_scale_case(2, 40, 1024, 64, dtype, gen,
+                                       timed=False, same_row=True))
+        cases.append(gather_scale_case(1, 128, 4096, 100, dtype, gen,
+                                       timed=False, two_d=True))
+        # a view off a 16-byte boundary at a bulk width takes the warp route
+        cases.append(gather_scale_case(2, 60, 1024, 30, dtype, gen,
+                                       timed=False, misaligned=True))
     for dtype in (torch.bfloat16, torch.float32):
         for k, d_in, d_out, n in SMM_SWEEP_2D:
             cases.append(dw_case("sampled_matmul", 1, k, n, d_in, d_out,
@@ -1052,7 +1160,9 @@ def phase_kernels():
                                     timed=False, misaligned=True))
     composition, comp_launches, comp_routes = composition_case(gen)
     # the route each case must have taken: the wgmma route wherever its
-    # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case)
+    # shape, dtype and alignment allow (every FLASH_EDGE / FUSED_EDGE case),
+    # gather_scale's bulk route wherever a row is whole 16-byte chunks and
+    # the operands are aligned
     for c in cases:
         if "kernel_route" not in c:
             continue
@@ -1064,6 +1174,8 @@ def phase_kernels():
         elif c["name"] == "fused_sampled_dw":
             want = fused_sampling.dw_route(sh["d_in"], sh["d_out"], dtype,
                                            aligned)
+        elif c["name"] == "gather_scale":
+            want = gather_scale_mod.gather_route(sh["d"], dtype, aligned)
         else:
             want = sampled_matmul_mod.smm_route(
                 sh["d_in"], sh["d_out"], dtype, aligned, card_sms()).route
@@ -1256,12 +1368,14 @@ def phase_train(cfg, ds, n_steps):
         cfg, wta, n_steps, B, S, ds)
     launches = launch_counts()
     by_route = dict(ops.fused_sampled_dw.launches_by_route)
+    gather_routes = dict(ops.gather_scale.launches_by_route)
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "n_params": n_params, "batch": B, "seq": S, "budget": 0.3,
           "losses": losses, "step_ms": times,
           "step_ms_median_after_first": statistics.median(times[1:]),
           "peak_bytes": peak, "launches": launches,
-          "fused_sampled_dw_launches_by_route": by_route})
+          "fused_sampled_dw_launches_by_route": by_route,
+          "gather_scale_launches_by_route": gather_routes})
     if not all(math.isfinite(x) for x in losses):
         fail(f"train: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -1270,6 +1384,7 @@ def phase_train(cfg, ds, n_steps):
     expect_launches("train", {name: n * n_steps
                               for name, n in per_step.items()})
     expect_route("train", "fused_sampled_dw", "wgmma")
+    expect_route("train", "gather_scale", "bulk")
     # gamma of the norms and the biases move too: every leaf must change
     if changed != n_leaves:
         fail(f"train: only {changed} of {n_leaves} parameter leaves changed")
@@ -1554,6 +1669,7 @@ def phase_optim():
             k: n * OPT_STEPS for k, n in per_step.items()})
         by_route = expect_route(f"optim {name}", "fused_sampled_dw",
                                 "wgmma")
+        gather_routes = expect_route(f"optim {name}", "gather_scale", "bulk")
         for k, n in got.items():
             launches[k] += n
         if not all(math.isfinite(x) for x in losses):
@@ -1567,7 +1683,8 @@ def phase_optim():
             "state_bytes_memory_report": report["state_bytes"],
             "state_bytes_allocated": allocated,
             "memory_report": report, "launches": got,
-            "fused_sampled_dw_launches_by_route": by_route}
+            "fused_sampled_dw_launches_by_route": by_route,
+            "gather_scale_launches_by_route": gather_routes}
         del state, step, params, m
     torch.cuda.empty_cache()
     # one subspace refresh (the SVD and the moments' rotation) of the mixed
@@ -2397,6 +2514,7 @@ def phase_moe():
     launches = expect_launches("moe train", {
         name: n * MOE_STEPS for name, n in per_step.items()})
     by_route = expect_route("moe train", "fused_sampled_dw", "wgmma")
+    gather_routes = expect_route("moe train", "gather_scale", "bulk")
     if not all(math.isfinite(x) for x in losses):
         fail(f"moe: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -2428,6 +2546,7 @@ def phase_moe():
           "ce_loss": ce, "loss": loss, "drop_frac_by_layer": drops,
           "launches": launches, "launches_per_step": per_step,
           "fused_sampled_dw_launches_by_route": by_route,
+          "gather_scale_launches_by_route": gather_routes,
           "profile": busy, "exact_losses": exact_losses,
           "exact_step_ms": exact_times, "peak_bytes_exact": exact_peak,
           "remat_child": remat})
@@ -2500,6 +2619,7 @@ def phase_moe_wide():
     launches = expect_launches("moe_wide train", {
         k: n * WIDE_STEPS for k, n in per_step.items()})
     by_route = expect_route("moe_wide train", "fused_sampled_dw", "wgmma")
+    gather_routes = expect_route("moe_wide train", "gather_scale", "bulk")
     if not all(math.isfinite(x) for x in losses):
         fail(f"moe_wide: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -2516,7 +2636,8 @@ def phase_moe_wide():
           "state_bytes_memory_report": report["state_bytes"],
           "memory_report": report, "launches": launches,
           "launches_per_step": per_step,
-          "fused_sampled_dw_launches_by_route": by_route})
+          "fused_sampled_dw_launches_by_route": by_route,
+          "gather_scale_launches_by_route": gather_routes})
     return dict(launches, flash_attention_fwd=prefill_launches[
         "flash_attention_fwd"])
 
@@ -2584,8 +2705,8 @@ def main() -> int:
             train_launches, wta_peak = phase_train(cfg, ds, n_steps=6)
             for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
                 launches[name] = train_launches[name]
-            by_route["fused_sampled_dw"] = dict(
-                ops.fused_sampled_dw.launches_by_route)
+            for name in ("gather_scale", "fused_sampled_dw"):
+                by_route[name] = dict(getattr(ops, name).launches_by_route)
         if "memory" in phases:
             phase_memory(cfg, ds, wta_peak)
         if "adaptive" in phases:

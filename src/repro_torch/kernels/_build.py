@@ -44,7 +44,7 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_fwd": (_P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_gather_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_gather_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_sampled_matmul": (_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }

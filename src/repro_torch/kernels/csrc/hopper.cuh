@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels, as
 // inline PTX: mbarriers, the async-proxy fence, cp.async with zero fill,
 // TMA tile loads from a tensor map (multicast to the blocks of a cluster
-// too) and TMA tile stores, thread block clusters (rank, cluster barrier,
-// an arrival on a peer block's mbarrier), wgmma (shared-memory descriptors
-// with the 128-byte swizzle, fence / commit / wait, m64nNk16 bf16/f16 ->
-// f32 with A from shared memory or registers), setmaxnreg and named
-// barriers; on the host, the tensor-map encoder (cuTensorMapEncodeTiled)
-// looked up at run time through the CUDA runtime, so the library needs no
-// -lcuda.
+// too), 1-D bulk loads and TMA tile stores, thread block clusters (rank,
+// cluster barrier, an arrival on a peer block's mbarrier), wgmma
+// (shared-memory descriptors with the 128-byte swizzle, fence / commit /
+// wait, m64nNk16 bf16/f16 -> f32 with A from shared memory or registers),
+// setmaxnreg and named barriers; on the host, the tensor-map encoder
+// (cuTensorMapEncodeTiled) looked up at run time through the CUDA runtime,
+// so the library needs no -lcuda.
 //
 // Shared-memory tiles are stacks of 128-byte swizzle atoms: 8 rows of 128
 // bytes (64 16-bit values), 16-byte chunk c of row r stored at chunk
@@ -163,6 +163,18 @@ __device__ __forceinline__ void tma_load_3d_multicast(
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+
+// A 1-D bulk copy, no tensor map: `bytes` contiguous bytes (a multiple of
+// 16, both addresses 16-byte aligned) from global into shared memory,
+// counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

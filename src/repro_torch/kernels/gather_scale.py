@@ -1,16 +1,29 @@
-"""The row gather that builds H' — the CUDA kernel's wrapper, its plain
-PyTorch version and its launch counter.
+"""The row gather that builds H' — the CUDA kernels' wrapper, its plain
+PyTorch version and its launch counters.
 
     out[b, t, :] = (x[b, idx[b, t], :] in f32 * scale[b, t]) rounded once
                    to x.dtype
 
 Replaces the TPU kernel ``repro/kernels/gather_scale.py::gather_scale``
 (and the ``block_d`` column padding ``repro/kernels/ops.py`` wrapped
-around it).  The kernel is ``csrc/gather_scale.cu``: one warp per output
-row, 16-byte loads and stores, an element-wise loop where a ragged ``d``
-breaks the alignment.  On an H100 it is bound by bytes — the distinct
-source rows read once and the ``B*k`` output rows written once
-(``2*B*k*d*itemsize + 8*B*k`` at most) against 3.35 TB/s.
+around it).  The kernels are in ``csrc/gather_scale.cu``; ``gather_route``
+picks one of two routes for a call:
+
+* ``bulk`` (a row of ``d * itemsize`` bytes a multiple of 16, ``x`` and the
+  output 16-byte aligned — every main-path shape): the output is cut into
+  items of at most 4 KB (whole narrow rows, or equal pieces of a wide one),
+  sized by bytes, and a persistent grid of as many blocks as fit on each
+  SM strides over them; each block keeps two items in flight as 1-D bulk async copies
+  into a two-stage shared-memory ring, then scales each arrived stage and
+  stores it with 16-byte vectors.
+* ``warp`` (any other width or alignment): one warp per output row,
+  16-byte loads and stores, an element-wise loop where a ragged ``d``
+  breaks the alignment.
+
+On an H100 both are bound by bytes — the distinct source rows read once
+and the ``B*k`` output rows written once (``2*B*k*d*itemsize + 8*B*k`` at
+most) against 3.35 TB/s.  ``gather_scale.launches`` counts launches,
+``.launches_by_route`` splits them by route.
 
 This is the forward half of WTA-CRS: every sampled linear builds its
 stored H' through it with unit scale (``core/linear.py``), which is
@@ -23,6 +36,19 @@ import torch
 
 from repro_torch.kernels import _build
 
+# C route codes are the positions (csrc/gather_scale.cu: enum Route)
+ROUTES = ("warp", "bulk")
+
+
+def gather_route(d: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The one kernel route a call takes: ``bulk`` when a row of ``d``
+    elements of ``dtype`` is a whole number of 16-byte chunks and ``x`` and
+    the output start on a 16-byte boundary (``aligned``; the bulk copies
+    need both), ``warp`` otherwise."""
+    if (d * dtype.itemsize) % 16 == 0 and aligned:
+        return "bulk"
+    return "warp"
+
 
 def gather_scale_plain(x: torch.Tensor, idx: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
@@ -32,6 +58,23 @@ def gather_scale_plain(x: torch.Tensor, idx: torch.Tensor,
     rows = idx.to(torch.int64)[:, :, None].expand(b, k, x.shape[2])
     sub = torch.gather(x, 1, rows)
     return (sub.to(torch.float32) * scale[:, :, None]).to(x.dtype)
+
+
+def launch(x: torch.Tensor, idx: torch.Tensor, scale: torch.Tensor,
+           route: str) -> torch.Tensor:
+    """Route ``route``'s kernel on the batched form's checked CUDA operands
+    -> (B, k, d).  Raises if the launch is refused (``bulk`` on a ragged
+    width or a misaligned ``x``).  Counts nothing: ``gather_scale`` does."""
+    b, n, d = x.shape
+    k = idx.shape[1]
+    out = torch.empty((b, k, d), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _build.library().repro_gather_scale(
+            x.data_ptr(), idx.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            b, n, k, d, _build.DTYPE_CODES[x.dtype], ROUTES.index(route),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, f"gather_scale ({route} route)")
+    return out
 
 
 def gather_scale(x: torch.Tensor, idx: torch.Tensor,
@@ -71,15 +114,13 @@ def gather_scale(x: torch.Tensor, idx: torch.Tensor,
         return out[0] if single else out
     if not x.is_cuda:
         raise ValueError(f"gather_scale runs on cuda or cpu, not {dev}")
-    out = torch.empty((b, k, d), dtype=x.dtype, device=dev)
-    with torch.cuda.device(dev):
-        code = _build.library().repro_gather_scale(
-            x3.data_ptr(), idx2.data_ptr(), scale2.data_ptr(), out.data_ptr(),
-            b, n, k, d, _build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "gather_scale")
+    # the output comes from torch.empty, which starts on a 16-byte boundary
+    route = gather_route(d, x.dtype, _build.aligned16(x3))
+    out = launch(x3, idx2, scale2, route)
     gather_scale.launches += 1
+    gather_scale.launches_by_route[route] += 1
     return out[0] if single else out
 
 
 gather_scale.launches = 0
+gather_scale.launches_by_route = dict.fromkeys(ROUTES, 0)

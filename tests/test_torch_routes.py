@@ -1,7 +1,7 @@
 """The kernel routes of the port and the C interface they go through,
-checked without a card or a compiler: ``flash_route``, ``dw_route`` and
-``smm_route`` map every shape to exactly one route (the main paths' shapes
-to ``wgmma``),
+checked without a card or a compiler: ``flash_route``, ``dw_route``,
+``smm_route`` and ``gather_route`` map every shape to exactly one route
+(the main paths' shapes to ``wgmma``, or ``bulk`` for the gather),
 the route codes match the C enums, and every ``extern "C"`` entry point in
 ``csrc/*.cu`` takes as many parameters as its ``_build._SIGNATURES`` entry
 declares (a ctypes arity mismatch is silent until the card runs it)."""
@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sampling
+from repro_torch.kernels import gather_scale as gather_mod
 from repro_torch.kernels import sampled_matmul as smm
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -45,7 +46,8 @@ def test_entry_point_arity_matches_its_signature(name):
 @pytest.mark.parametrize("module,source", [
     (flash_mod, "flash_attention_fwd.cu"),
     (fused_sampling, "fused_sampled_dw.cu"),
-    (smm, "sampled_matmul.cu")])
+    (smm, "sampled_matmul.cu"),
+    (gather_mod, "gather_scale.cu")])
 def test_route_codes_match_the_c_enum(module, source):
     text = (_build.CSRC / source).read_text()
     enum = re.search(r"enum Route : int \{([^}]*)\}", text).group(1)
@@ -128,6 +130,46 @@ def test_smm_main_shapes_take_the_wgmma_route(d_in, d_out, tile, dtype):
     assert (tile == 256) == (2 * blocks >= 132)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_route_maps_every_width_to_one_route(dtype, aligned):
+    item = torch.empty((), dtype=dtype).element_size()
+    for d in (1, 2, 3, 4, 5, 7, 8, 12, 16, 130, 1032, 4100, 24576, 24577):
+        route = gather_mod.gather_route(d, dtype, aligned)
+        assert route in gather_mod.ROUTES
+        if aligned and d * item % 16 == 0:
+            assert route == "bulk"
+        else:
+            assert route == "warp"
+
+
+@pytest.mark.parametrize("d", [512, 1024, 2048, 6144, 10752, 11008, 24576])
+def test_gather_main_shapes_take_the_bulk_route(d):
+    # granite's d_ff / d_model, qwen2.5-3b's, dbrx's and nemotron-4-15b's
+    # widths in the path's bf16, and the f32 train rows
+    assert gather_mod.gather_route(d, torch.bfloat16) == "bulk"
+    assert gather_mod.gather_route(d, torch.float32) == "bulk"
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 1030),
+                                     (torch.float16, 4099),
+                                     (torch.float32, 4101),
+                                     (torch.bfloat16, 3)])
+def test_gather_ragged_widths_take_the_warp_route(dtype, d):
+    assert gather_mod.gather_route(d, dtype) == "warp"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_misaligned_views_take_the_warp_route(dtype):
+    flat = torch.zeros(8 * 64 + 8, dtype=dtype)
+    view = flat[1:1 + 8 * 64].view(8, 64)
+    assert not _build.aligned16(view)
+    assert gather_mod.gather_route(64, dtype,
+                                   _build.aligned16(view)) == "warp"
+    assert gather_mod.gather_route(64, dtype,
+                                   _build.aligned16(flat[:64])) == "bulk"
+
+
 def test_alignment_is_read_from_the_data_pointer():
     flat = torch.zeros(64, dtype=torch.bfloat16)
     assert _build.aligned16(flat[:32], flat[8:40])
@@ -136,13 +178,19 @@ def test_alignment_is_read_from_the_data_pointer():
 
 @pytest.mark.parametrize("name,module", [
     ("flash_attention_fwd", flash_mod), ("fused_sampled_dw", fused_sampling),
-    ("sampled_matmul", smm)])
+    ("sampled_matmul", smm), ("gather_scale", gather_mod)])
 def test_launches_by_route_names_every_route_and_cpu_calls_count_none(
         name, module):
     fn = getattr(ops, name)
     assert set(fn.launches_by_route) == set(module.ROUTES)
     before = dict(fn.launches_by_route)
-    if name == "flash_attention_fwd":
+    launches = fn.launches
+    if name == "gather_scale":
+        x = torch.randn(2, 5, 16, dtype=torch.bfloat16)
+        idx = torch.zeros(2, 3, dtype=torch.int32)
+        fn(x, idx, torch.ones(2, 3))
+        fn(x[0], idx[0], torch.ones(3))
+    elif name == "flash_attention_fwd":
         q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
         fn(q, q[:1].clone(), q[:1].clone(), group=2)
     else:
@@ -150,3 +198,4 @@ def test_launches_by_route_names_every_route_and_cpu_calls_count_none(
         z = torch.randn(1, 4, 8, dtype=torch.bfloat16)
         fn(h, z, torch.zeros(1, 3, dtype=torch.int32), torch.ones(1, 3))
     assert fn.launches_by_route == before
+    assert fn.launches == launches
