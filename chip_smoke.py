@@ -122,6 +122,25 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            trains 3 WTA-CRS steps at B=1, S=2048 under the factored
            OptimSpec: losses falling, launches as implied and on wgmma,
            state bytes on the card equal to memory_report's, peak
+  ssm      zamba2-2.7b at published width (d_model 2560, 80 Mamba2 heads
+           of 64, state 64, the shared block's 32/32 heads of 80, d_ff
+           10240, vocab 32000): depth 54 -> 12 trains 4 WTA-CRS 0.3 steps
+           (every linear sampled, each use of the shared block its own
+           plans) and 2 exact ones at B=2, S=2048, checked as in moe;
+           the whole model (54 layers, 2.06 B parameters) trains 2 steps
+           at B=1 under remat "full", its peak beside the reckoned one;
+           at full depth a prefill of 2 x 2048 tokens (flash on its mma
+           route at Dh 80) and 16 decode steps, their bf16 distance to the
+           forward measured (at random weights the card's bf16 GEMM
+           roundings, which differ with the row count, grow through the
+           54 layers far past the forward's own floor), the same in f32
+           held against the f32 forward at 5e-2; 4 pool requests each
+           bit-equal to itself alone and to the solo route
+  xlstm    xlstm-125m at full size (12 layers): 3 WTA-CRS steps (the last
+           one traced) and 1 exact step at B=4, S=1024, the device's idle
+           share of a step (the host's per-time-step loop); prefill 2 x
+           1024 and 16 decode steps held against the forward in bf16 and
+           in f32, 4 pool requests as in ssm
 
 then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -181,7 +200,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
               "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
-              "moe", "moe_wide")
+              "moe", "moe_wide", "ssm", "xlstm")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -284,7 +303,24 @@ FLASH_DBRX = (2, 48, 8, 2048, 2048, 128, True)
 EXPERT_RAGGED = [(3, 2, 13, 40, 24, 16), (3, 1, 65, 70, 136, 200),
                  (2, 2, 307, 300, 72, 2056), (3, 1, 37, 50, 40, 8)]
 # the moe phase's pool: (prompt length, max_new) of 4 greedy requests
+# (also the ssm and xlstm phases')
 MOE_SERVE = [(9, 12), (33, 8), (17, 16), (3, 10)]
+# The recurrent phases, WTA-CRS 0.3 on every linear: zamba2-2.7b at
+# published width, depth cut 54 -> 12 (two pattern units) at B=2, S=2048
+# (k = 614), then at full depth under remat "full" at B=1; xlstm-125m at
+# full size at B=4, S=1024 (k = 307).  Their sampled linears' (d_in,
+# d_out), the row widths their plans and H' read, zamba2's prefill heads
+# (32/32 of 80: the flash kernel's mma route)
+SSM_ARCH, SSM_DEPTH, SSM_STEPS, SSM_B, SSM_S = "zamba2-2.7b", 12, 4, 2, 2048
+SSM_K = MOE_WTA.budget_rows(SSM_S)
+SSM_ROW_D = (2560, 5120, 10240)
+SSM_DW = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
+          (10240, 2560)]
+FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 80, True)
+XLSTM_ARCH, XLSTM_STEPS, XLSTM_B, XLSTM_S = "xlstm-125m", 3, 4, 1024
+XLSTM_K = MOE_WTA.budget_rows(XLSTM_S)
+XLSTM_ROW_D = (768, 1536)
+XLSTM_DW = [(768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 768)]
 
 
 def card_sms() -> int:
@@ -1151,6 +1187,24 @@ def phase_kernels():
                                   timed=True), phase=phase))
         cases.append(dict(flash_case(*flash, bf16, gen, timed=True,
                                      in_summary=True), phase=phase))
+    # the recurrent phases' shapes, bf16, timed: row norms and H' at every
+    # width a plan reads, every sampled dW (zamba2's mamba_in d_out 10448 is
+    # a multiple of 8, not of 64; xlstm's mlstm_if has d_out 8), zamba2's
+    # prefill flash heads on the mma route (Dh 80)
+    for phase, b, s, k, row_d, dws in (
+            ("ssm", SSM_B, SSM_S, SSM_K, SSM_ROW_D, SSM_DW),
+            ("xlstm", XLSTM_B, XLSTM_S, XLSTM_K, XLSTM_ROW_D, XLSTM_DW)):
+        for d in row_d:
+            cases.append(dict(row_norms_case(b * s, d, bf16, gen, timed=True),
+                              phase=phase))
+            cases.append(dict(gather_scale_case(b, s, d, k, bf16, gen,
+                                                timed=True), phase=phase))
+        for d_in, d_out in dws:
+            cases.append(dict(dw_case("fused_sampled_dw", b, k, s, d_in,
+                                      d_out, bf16, gen, timed=True),
+                              phase=phase))
+    cases.append(dict(flash_case(*FLASH_ZAMBA2, bf16, gen, timed=True,
+                                 in_summary=True), phase="ssm"))
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for shape in EXPERT_RAGGED:
             cases.append(expert_dw_case(*shape, dtype, gen, timed=False,
@@ -1328,37 +1382,56 @@ def launches_per_step(cfg, policy, seq, microbatches=1, batch=None):
     return {name: n * microbatches for name, n in out.items()}
 
 
-def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds, keep=False):
+def run_steps(cfg, wtacrs_cfg, n_steps, batch, seq, ds, keep=False,
+              trace_last=False):
     """Fresh state, ``n_steps`` train steps; returns losses, step times
     (host clock around a step that ends in a synchronize) and the peak
-    (``keep``: and the state and the step function, not freed)."""
+    (``keep``: and the state and the step function, not freed;
+    ``trace_last``: the last step runs under ``device_busy``, whose record
+    is returned last, and its time is not among the step times)."""
     policy = cm.Policy(wtacrs=wtacrs_cfg, remat="none", flash_block=512)
     state = train_steps.init_train_state(cfg, 0)
     step = train_steps.make_train_step(
         cfg, policy, optim.AdamWConfig(),
         optim.linear_warmup_constant(1e-4, 2), microbatches=1,
         use_znorm_cache=False)
-    before = [p[:64].flatten()[:64].clone()
-              for p in optim.tree_leaves(state["params"])]
+    # a sample of each leaf; of an untied embedding, rows of tokens the
+    # data holds (a row no batch reads gets no gradient)
+    rows = torch.from_numpy(np.unique(ds.batch_at(0, batch)["tokens"])[:64]
+                            ).cuda().to(torch.int64)
+
+    def sample(path, p):
+        return (p[rows] if path == "embed" and not cfg.tie_embeddings
+                else p[:64]).flatten()[:64]
+
+    before = [sample(path, p).clone()
+              for path, p in optim.named_leaves(state["params"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, traced = [], [], []
     for i in range(n_steps):
-        t0 = time.perf_counter()
-        state, m = step(state, ds.batch_at(i, batch))
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
+        if trace_last and i == n_steps - 1:
+            out = []
+            traced.append(device_busy(lambda: out.append(step(
+                state, ds.batch_at(i, batch))), 1))
+            state, m = out[0]
+        else:
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, batch))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    after = [p[:64].flatten()[:64] for p in
-             optim.tree_leaves(state["params"])]
+    after = [sample(path, p)
+             for path, p in optim.named_leaves(state["params"])]
     changed = sum(bool((a != b).any()) for a, b in zip(after, before))
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
     if keep:
-        return losses, times, peak, changed, len(before), n_params, state, step
+        return (losses, times, peak, changed, len(before), n_params, state,
+                step, *traced)
     del state, step
     torch.cuda.empty_cache()
-    return losses, times, peak, changed, len(before), n_params
+    return (losses, times, peak, changed, len(before), n_params, *traced)
 
 
 def phase_train(cfg, ds, n_steps):
@@ -1986,29 +2059,33 @@ def phase_resume():
 # ---------------------------------------------------------------------------
 
 def device_busy(fn, n):
-    """``n`` calls of ``fn`` under torch.profiler: host wall time a call
-    while traced (tracing slows the host), device time a call summed over
-    the kernels and copies the trace holds, and their count a call."""
+    """``n`` calls of ``fn`` under torch.profiler tracing the card only:
+    host wall time a call while traced (tracing slows the host), device
+    time a call summed over the kernels and copies the trace holds, and
+    their count a call.  The trace's raw events are summed as they come
+    (building the profiler's per-event Python objects costs ≈0.3 ms an
+    event: minutes at the million device ops of an xlstm-125m step)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name, total, count = {}, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ns = e.duration_ns()
+            by_name[e.name()] = by_name.get(e.name(), 0) + ns
+            total += ns
+            count += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"traced_calls": n, "wall_ms_per_call_traced": wall / n,
-            "device_busy_ms_per_call": sum(e.device_time_total
-                                           for e in dev) / 1e3 / n,
-            "device_ops_per_call": len(dev) / n,
-            "top_ms_per_call": [[name[:80], t / 1e3 / n] for name, t in top]}
+            "device_busy_ms_per_call": total / 1e6 / n,
+            "device_ops_per_call": count / n,
+            "top_ms_per_call": [[name[:80], t / 1e6 / n] for name, t in top]}
 
 
 def forward_logits(cfg, params, tokens, positions, flash_block,
@@ -2048,9 +2125,38 @@ def close_to_forward(what, got, forward_a, forward_b, tol, *more,
 
 
 def pad_kv(states, extra):
-    """(R, B, S, KVH, Dh) caches -> (R, B, S + extra, KVH, Dh)."""
+    """(R, B, S, KVH, Dh) caches -> (R, B, S + extra, KVH, Dh); recurrent
+    states (no "k"/"v") as they are."""
     return tuple({n: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
-                  for n, x in st.items()} for st in states)
+                  if n in ("k", "v") else x for n, x in st.items()}
+                 for st in states)
+
+
+def recurrent(cfg):
+    return any(b in ("mamba", "mlstm", "slstm") for b in cfg.pattern)
+
+
+def teacher_forced(cfg, tokens, fed):
+    """The (b, s) prompt ``tokens`` and the ``fed`` (b,) tokens as one
+    sequence on the card, and its length.  A recurrent layer's forward
+    takes whole chunks of 256 positions (as the reference's): the sequence
+    is filled up with token 0 after the fed ones, which a causal forward
+    does not let the checked positions see."""
+    seq = torch.cat([torch.from_numpy(tokens).cuda().to(torch.int32),
+                     torch.stack(fed, dim=1)], dim=1)
+    total = seq.shape[1]
+    if recurrent(cfg):
+        total = -(-total // 256) * 256
+        seq = torch.nn.functional.pad(seq, (0, total - seq.shape[1]))
+    return seq, total
+
+
+def attention_layers(cfg):
+    """Layers that run attention (dense, MoE or a use of the shared
+    block): one flash launch each a prefill."""
+    return sum(cfg.pattern[i % len(cfg.pattern)] in ("attn", "attn_moe",
+                                                     "shared_attn")
+               for i in range(cfg.n_layers))
 
 
 def phase_serve_parity():
@@ -2088,12 +2194,15 @@ def phase_serve_parity():
           "tol": {"rtol": 1e-4, "atol": 1e-4}})
 
 
-def phase_prefill(cfg, params, batch, seq, name="prefill"):
-    """make_prefill_step on the full model: warm-up + 3 timed calls.  An
-    MoE model's floor also takes the forward row by row (``per_row``): a
-    router logit rounded to bf16 in another order can flip a token's
-    top-k experts, and the prefill's products differ from the forward's
-    in that way too."""
+def phase_prefill(cfg, params, batch, seq, name="prefill", hold=True):
+    """make_prefill_step on the full model: warm-up + 3 timed calls, one
+    flash launch an attention layer, on the route its heads take.  An MoE
+    or recurrent model's floor also takes the forward row by row
+    (``per_row``): a router logit rounded to bf16 in another order can flip
+    a token's top-k experts, and the recurrent layers carry the GEMMs'
+    shape-dependent bf16 roundings through every position; the prefill's
+    products differ from the forward's in those ways too.  ``hold=False``:
+    the distance is measured only."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy())
     tokens = data.SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch_at(
         0, batch)["tokens"]
@@ -2107,10 +2216,13 @@ def phase_prefill(cfg, params, batch, seq, name="prefill"):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated()
+    n_attn = attention_layers(cfg)
     launches = expect_launches(name, {
         "row_norms": 0, "fused_sampled_dw": 0,
-        "flash_attention_fwd": 4 * cfg.n_layers})
-    by_route = expect_route(name, "flash_attention_fwd", "wgmma")
+        "flash_attention_fwd": 4 * n_attn})
+    route = flash_mod.flash_route(cfg.head_dim, cfg.cdtype, True)
+    by_route = (expect_route(name, "flash_attention_fwd", route)
+                if n_attn else {})
     if not bool(torch.isfinite(last.float()).all()):
         fail(f"{name}: non-finite last logits")
     trace = device_busy(lambda: prefill(params, {"tokens": tokens}), 1)
@@ -2122,11 +2234,11 @@ def phase_prefill(cfg, params, batch, seq, name="prefill"):
     # itself under another block size by more than that, so the floor is
     # measured beside it (close_to_forward)
     more = ([forward_logits(cfg, params, tt, -1, 512, per_row=True)]
-            if cfg.n_experts else [])
+            if cfg.n_experts or recurrent(cfg) else [])
     err, floor, atol = close_to_forward(
         f"{name} last logits vs forward", last,
         forward_logits(cfg, params, tt, -1, 512),
-        forward_logits(cfg, params, tt, -1, 256), 3e-2, *more)
+        forward_logits(cfg, params, tt, -1, 256), 3e-2, *more, hold=hold)
     ms = statistics.median(times[1:])
     emit({"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
           "batch": batch, "seq": seq, "prefill_ms": times,
@@ -2134,10 +2246,10 @@ def phase_prefill(cfg, params, batch, seq, name="prefill"):
           "prompt_tokens_per_s": batch * seq / (ms / 1e3),
           "peak_bytes": peak, "launches": launches,
           "flash_launches_by_route": by_route,
-          "flash_launches_per_call": cfg.n_layers,
+          "flash_launches_per_call": n_attn,
           "max_abs_err_vs_forward": err,
           "forward_vs_itself_other_block": floor, "atol_used": atol,
-          "profile": trace})
+          "held": hold, "profile": trace})
     return (launches, by_route), tokens, last, states
 
 
@@ -2169,21 +2281,22 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
                         n_traced)
     launches = expect_launches(name, {
         "row_norms": 0, "fused_sampled_dw": 0, "flash_attention_fwd": 0})
-    seq = torch.cat([torch.from_numpy(tokens).cuda().to(torch.int32),
-                     torch.stack(fed[:n_check], dim=1)], dim=1)
+    seq, total = teacher_forced(cfg, tokens, fed[:n_check])
     # the forward's tensor-op flash needs blocks that tile S + 8 = 8 * 257;
     # 5e-2 is the reference's decode-vs-forward tolerance, held as in the
     # prefill phase against the forward's own floor at this width
     pos = slice(s, s + n_check)
     fcfg = cfg if forward_cfg is None else forward_cfg
-    # an MoE model's floor also takes the forward row by row (as prefill)
-    more = ([forward_logits(fcfg, params, seq, pos, (s + n_check) // 8,
-                            per_row=True)] if cfg.n_experts else [])
+    # an MoE or recurrent model's floor also takes the forward row by row
+    # (as prefill)
+    more = ([forward_logits(fcfg, params, seq, pos, total // 8,
+                            per_row=True)]
+            if cfg.n_experts or recurrent(cfg) else [])
     err, floor, atol = close_to_forward(
         f"{name} logits vs teacher-forced forward",
         torch.stack(checked, dim=1),
-        forward_logits(fcfg, params, seq, pos, (s + n_check) // 8),
-        forward_logits(fcfg, params, seq, pos, (s + n_check) // 4), 5e-2,
+        forward_logits(fcfg, params, seq, pos, total // 8),
+        forward_logits(fcfg, params, seq, pos, total // 4), 5e-2,
         *more, hold=hold)
     ms = statistics.median(times)
     emit({"phase": name, "batch": b, "kv_len": s + n_gen + n_traced,
@@ -2384,17 +2497,23 @@ def moe_aux(cfg, params, batch):
     return drops, lbs, float(loss), float(ce), float(aux["lb_loss"])
 
 
-def moe_decode_f32(cfg, params, tokens, n_check, name):
-    """Decode against the teacher-forced forward in f32 compute, at
-    capacity factor E / top-k (nothing drops, as in decode): a prefill of
-    ``tokens`` (the flash kernel's f32 route), ``n_check`` greedy
-    serve_steps, the forward over prompt and fed tokens, held at the
-    reference's decode tolerance 5e-2.  In bf16 the comparison is
-    ill-posed for these models: a router logit rounded in another order
-    flips a token's top-k, and at the reference's expert initialisation
-    (std 1/sqrt(E), ROADMAP Queue C) one flipped expert moves the logits
-    by several units; in f32 no near-tie of that size is left."""
-    cfg32 = dataclasses.replace(no_drop(cfg), compute_dtype="float32")
+def decode_f32(cfg, params, tokens, n_check, name):
+    """Prefill and decode against the teacher-forced forward in f32
+    compute (an MoE model at capacity factor E / top-k: nothing drops, as
+    in decode): a prefill of ``tokens`` (the flash kernel's f32 route),
+    ``n_check`` greedy serve_steps, the forward over prompt and fed tokens
+    (filled up to whole chunks of 256 for a recurrent model), the
+    prefill's last logits and every decode step's held at the reference's
+    decode tolerance 5e-2.  In bf16 the comparison is ill-posed for these
+    models at random weights: for an MoE model a router logit rounded in
+    another order flips a token's top-k, and at the reference's expert
+    initialisation (std 1/sqrt(E), ROADMAP Queue C) one flipped expert
+    moves the logits by several units; a recurrent model carries the
+    bf16 roundings of the card's GEMMs, which differ with the number of
+    rows, through every later position and layer (ROADMAP Queue C).  In
+    f32 neither is left at that size."""
+    cfg32 = dataclasses.replace(no_drop(cfg) if cfg.n_experts else cfg,
+                                compute_dtype="float32")
     b, s = tokens.shape
     dev = params["embed"].device
     last, states = train_steps.make_prefill_step(
@@ -2402,18 +2521,17 @@ def moe_decode_f32(cfg, params, tokens, n_check, name):
     states = pad_kv(states, n_check)
     serve = train_steps.make_serve_step(cfg32, cm.Policy(), device=dev)
     tok = torch.argmax(last, dim=-1).to(torch.int32)
-    fed, got = [tok], []
+    fed, got = [tok], [last]
     for g in range(n_check):
         tok, logits, states = serve(params, tok, s + g, states)
         got.append(logits)
         fed.append(tok)
     del states
-    seq = torch.cat([torch.from_numpy(tokens).to(dev, torch.int32),
-                     torch.stack(fed[:n_check], dim=1)], dim=1)
-    want = forward_logits(cfg32, params, seq, slice(s, s + n_check),
-                          (s + n_check) // 8)
-    err = check_close(f"{name}: f32 decode vs teacher-forced forward",
-                      torch.stack(got, dim=1), want, 5e-2, 5e-2)
+    seq, total = teacher_forced(cfg, tokens, fed[:n_check])
+    want = forward_logits(cfg32, params, seq, slice(s - 1, s + n_check),
+                          total // 8)
+    err = check_close(f"{name}: f32 prefill + decode vs teacher-forced "
+                      f"forward", torch.stack(got, dim=1), want, 5e-2, 5e-2)
     torch.cuda.empty_cache()
     return {"phase": name, "batch": b, "prompt": s,
             "checked_positions": n_check, "compute_dtype": "float32",
@@ -2422,7 +2540,7 @@ def moe_decode_f32(cfg, params, tokens, n_check, name):
             "tol": {"rtol": 5e-2, "atol": 5e-2}}
 
 
-def moe_pool(cfg, params):
+def pool_requests(cfg, params, what):
     """``MOE_SERVE``'s greedy requests through a 4-slot pool: each bit-equal
     to itself served alone through a pool of the same spec and to the
     solo route at the pool's shapes."""
@@ -2444,12 +2562,12 @@ def moe_pool(cfg, params):
         h = alone.submit(p, max_new=g)
         alone.run_until_idle()
         if h.result(timeout=0) != toks:
-            fail(f"moe pool: request {i} differs from itself served alone, "
+            fail(f"{what}: request {i} differs from itself served alone, "
                  f"first at {first_difference(h.result(timeout=0), toks)}")
         (solo,), _ = solo_generate(cfg, params, [p], g, spec.prefill_chunk,
                                    spec.slot_len, spec.max_slots)
         if solo != toks:
-            fail(f"moe pool: request {i} differs from the solo route at the "
+            fail(f"{what}: request {i} differs from the solo route at the "
                  f"pool's shapes, first at {first_difference(solo, toks)}")
     return {"requests": len(reqs), "wall_s": wall,
             "tokens_per_s": sess.stats["tokens_generated"] / wall,
@@ -2561,8 +2679,9 @@ def phase_moe():
     phase_decode(cfg, params, tokens, last, states, n_gen=16, n_check=16,
                  name="moe_decode", forward_cfg=no_drop(cfg), hold=False)
     del last, states
-    emit(moe_decode_f32(cfg, params, tokens, 8, "moe_decode_f32"))
-    emit({"phase": "moe_pool", "arch": cfg.name, **moe_pool(cfg, params)})
+    emit(decode_f32(cfg, params, tokens, 8, "moe_decode_f32"))
+    emit({"phase": "moe_pool", "arch": cfg.name,
+          **pool_requests(cfg, params, "moe pool")})
     del params
     torch.cuda.empty_cache()
     return dict(launches, flash_attention_fwd=prefill_launches[
@@ -2586,7 +2705,7 @@ def phase_moe_wide():
                  name="moe_wide_decode", forward_cfg=no_drop(cfg),
                  hold=False)
     del last, states
-    emit(moe_decode_f32(cfg, params, tokens, 8, "moe_wide_decode_f32"))
+    emit(decode_f32(cfg, params, tokens, 8, "moe_wide_decode_f32"))
     del params
     torch.cuda.empty_cache()
 
@@ -2641,6 +2760,171 @@ def phase_moe_wide():
     return dict(launches, flash_attention_fwd=prefill_launches[
         "flash_attention_fwd"])
 
+def published_ssm(what, cfg, want):
+    """Fail unless ``cfg`` has the published widths ``want``."""
+    got = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.tie_embeddings, cfg.ssm_state,
+           cfg.ssm_head_dim, cfg.ssm_expand, cfg.ssm_conv, cfg.pattern)
+    if got != want:
+        fail(f"{what}: not the published {cfg.name}: {got} != {want}")
+
+
+def recurrent_train(what, cfg, b, s, n_steps, n_exact):
+    """``n_steps`` WTA-CRS 0.3 steps (every linear sampled) and
+    ``n_exact`` exact ones from fresh parameters at (b, s): losses finite
+    and falling, every leaf moved, launches as ``launches_per_step``
+    implies with every dW on wgmma and every H' on bulk, peaks, ms a step
+    (host clock around a synchronized step, the untraced ones) and the
+    last WTA-CRS step's device-busy ms (traced).  Returns (record,
+    launches)."""
+    ds = data.SyntheticLM(cfg.vocab_size, s, b, seed=0)
+    per_step = launches_per_step(cfg, cm.Policy(wtacrs=MOE_WTA), s, batch=b)
+    reset_launches()
+    (losses, times, peak, changed, n_leaves, n_params,
+     busy) = run_steps(cfg, MOE_WTA, n_steps, b, s, ds, trace_last=True)
+    launches = expect_launches(f"{what} train", {
+        name: n * n_steps for name, n in per_step.items()})
+    by_route = expect_route(f"{what} train", "fused_sampled_dw", "wgmma")
+    gather_routes = expect_route(f"{what} train", "gather_scale", "bulk")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{what}: loss did not fall: {losses}")
+    if changed != n_leaves:
+        fail(f"{what}: only {changed} of {n_leaves} parameter leaves changed")
+    exact_losses, exact_times, exact_peak, *_ = run_steps(
+        cfg, EXACT_CONFIG, n_exact, b, s, ds)
+    ms = statistics.median(times[1:])
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params,
+            "batch": b, "seq": s, "budget": 0.3,
+            "k": MOE_WTA.budget_rows(s), "losses": losses, "step_ms": times,
+            "step_ms_median_after_first": ms, "peak_bytes": peak,
+            "launches": launches, "launches_per_step": per_step,
+            "fused_sampled_dw_launches_by_route": by_route,
+            "gather_scale_launches_by_route": gather_routes,
+            "profile": busy,
+            "device_idle_share": 1.0 - busy["device_busy_ms_per_call"] / ms,
+            "exact_losses": exact_losses, "exact_step_ms": exact_times,
+            "peak_bytes_exact": exact_peak}, launches
+
+
+def ssm_full_depth(cfg, n_steps=2):
+    """The whole zamba2-2.7b (54 layers) trains on one card: ``n_steps``
+    WTA-CRS steps at B=1, S=2048 under remat "full" (each layer keeps only
+    its input; the recompute redraws its plans).  The peak is reckoned
+    beside the measured one: f32 parameters, gradients and both Adam
+    moments (16 bytes a parameter), the 54 bf16 layer inputs and one Mamba
+    layer's recompute (its SSD's (B, S/256, 256, 256, H) f32 products,
+    about four alive at once)."""
+    policy = cm.Policy(wtacrs=MOE_WTA, remat="full")
+    per_step = launches_per_step(cfg, policy, SSM_S, batch=1)
+    n_params = sum(p.numel() for p in optim.tree_leaves(
+        registry.init_params(cfg, 0, device="meta")))
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    reckoned = {"state": 16 * n_params,
+                "layer_inputs": cfg.n_layers * SSM_S * cfg.d_model * 2,
+                "one_layer_recompute": 4 * SSM_S * 256 * nh * 4}
+    ds = data.SyntheticLM(cfg.vocab_size, SSM_S, 1, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_steps.init_train_state(cfg, 0)
+    step = train_steps.make_train_step(
+        cfg, policy, optim.AdamWConfig(),
+        optim.linear_warmup_constant(1e-4, 2))
+    reset_launches()
+    losses, times = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch_at(i, 1))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_launches("ssm full depth", {
+        name: n * n_steps for name, n in per_step.items()})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ssm full depth: non-finite loss in {losses}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "n_params": n_params, "batch": 1,
+            "seq": SSM_S, "remat": "full", "losses": losses,
+            "step_ms": times, "peak_bytes": peak,
+            "peak_bytes_reckoned": sum(reckoned.values()),
+            "reckoning": reckoned, "launches": launches}
+
+
+def recurrent_serve(what, cfg, params, b, s, hold_bf16):
+    """Prefill b x s prompts in bf16 (timed), 16 greedy bf16 decode steps
+    from its states (timed), each against the forward, the same prefill
+    and 16 decode steps in f32 held against the f32 forward, and the
+    pool's 4 greedy requests.  ``hold_bf16=False``: the bf16 distances are
+    measured only — zamba2's are far above the forward's own floor at
+    random weights (``decode_f32``).  Returns the bf16 prefill's
+    launches."""
+    (launches, _), tokens, last, states = phase_prefill(
+        cfg, params, b, s, name=f"{what}_prefill", hold=hold_bf16)
+    phase_decode(cfg, params, tokens, last, states, n_gen=16, n_check=16,
+                 name=f"{what}_decode", hold=hold_bf16)
+    del last, states
+    torch.cuda.empty_cache()
+    emit(decode_f32(cfg, params, tokens, 16, f"{what}_decode_f32"))
+    emit({"phase": f"{what}_pool", "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          **pool_requests(cfg, params, f"{what} pool")})
+    return launches
+
+
+def phase_ssm():
+    """zamba2-2.7b at published width: depth 12 trains (4 WTA-CRS, 2 exact
+    steps at B=2, S=2048), full depth trains 2 steps under remat "full"
+    at B=1, and full depth serves (prefill through the flash kernel's mma
+    route at 32/32 heads of 80, decode, the pool; the bf16 distances to
+    the forward measured, the f32 ones held).  Returns the depth-12
+    steps' and the prefill's launches."""
+    t0 = time.perf_counter()
+    full = get_config(SSM_ARCH)
+    published_ssm("ssm", full, (
+        2560, 32, 32, 80, 10240, 32000, False, 64, 64, 2, 4,
+        ("mamba",) * 5 + ("shared_attn",)))
+    if full.n_layers != 54:
+        fail(f"ssm: {full.n_layers} layers, the published model has 54")
+    rec, launches = recurrent_train(
+        "ssm", dataclasses.replace(full, n_layers=SSM_DEPTH), SSM_B, SSM_S,
+        SSM_STEPS, 2)
+    rec["full_depth"] = ssm_full_depth(full)
+    emit({"phase": "ssm_train", **rec})
+    params = registry.init_params(full, 0)
+    prefill = recurrent_serve("ssm", full, params, SSM_B, SSM_S,
+                              hold_bf16=False)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "ssm", "seconds": time.perf_counter() - t0})
+    return dict(launches, flash_attention_fwd=prefill["flash_attention_fwd"])
+
+
+def phase_xlstm():
+    """xlstm-125m at full size (12 layers, nothing cut): 3 WTA-CRS and 1
+    exact step at B=4, S=1024, the share of the step that is the host's
+    time loop (wall against device-busy), then prefill, decode and the
+    pool.  Returns the train steps' launches."""
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    published_ssm("xlstm", cfg, (768, 4, 4, 192, 0, 50304, False, 0, 64, 2,
+                                 4, ("mlstm", "slstm")))
+    if cfg.n_layers != 12:
+        fail(f"xlstm: {cfg.n_layers} layers, the published model has 12")
+    rec, launches = recurrent_train("xlstm", cfg, XLSTM_B, XLSTM_S,
+                                    XLSTM_STEPS, 1)
+    emit({"phase": "xlstm_train", **rec})
+    params = registry.init_params(cfg, 0)
+    recurrent_serve("xlstm", cfg, params, 2, XLSTM_S, hold_bf16=True)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "xlstm", "seconds": time.perf_counter() - t0})
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2667,7 +2951,7 @@ def main() -> int:
     if set(phases) & {"build", "kernels", "parity", "train", "memory",
                       "adaptive", "accumulate", "optim", "run", "resume",
                       "serve_parity", "prefill", "wide_serve", "moe",
-                      "moe_wide"}:
+                      "moe_wide", "ssm", "xlstm"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -2751,14 +3035,18 @@ def main() -> int:
         phase_launches["moe"] = phase_moe()
     if "moe_wide" in phases:
         phase_launches["moe_wide"] = phase_moe_wide()
+    if "ssm" in phases:
+        phase_launches["ssm"] = phase_ssm()
+    if "xlstm" in phases:
+        phase_launches["xlstm"] = phase_xlstm()
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
         # main paths' shapes in bf16, with the launches the train phase
         # (row_norms, gather_scale, fused_sampled_dw), the composition
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
-        # counted — for the optim, wide_serve, moe and moe_wide shapes those
-        # phases' —
+        # counted — for the optim, wide_serve, moe, moe_wide, ssm and xlstm
+        # shapes those phases' —
         # and beside them the launches of the Run phase's fit
         summary = []
         for c in cases:

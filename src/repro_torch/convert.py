@@ -1,12 +1,15 @@
 """Parameters across the two packages, as numpy.
 
 The reference (``repro.models.registry.init_params``) yields, for a
-decoder arch of one block a pattern unit (dense ``attn`` or MoE
-``attn_moe``), ``{"embed", "unit": (block,), "final_norm"[, "head"]}``
-where every leaf of ``block`` carries a leading ``n_repeats`` axis (an MoE
-block's ``moe/router`` (R, d, E) and ``moe/{wi,wg,wo}`` (R, E, d, f) give
-the port's per-layer (d, E) and (E, d, f)).  The
-port keeps a list of per-layer dicts (``models/lm.py``).  The functions
+decoder arch, ``{"embed", "unit": (block_0, ..., block_{P-1}),
+"final_norm"[, "shared"][, "head"]}``, one entry of ``unit`` a position
+of the pattern, every leaf of it with a leading ``n_repeats`` axis (an
+MoE block's ``moe/router`` (R, d, E) and ``moe/{wi,wg,wo}`` (R, E, d, f)
+give the port's per-layer (d, E) and (E, d, f)); its layer ``i`` is
+repeat ``i // P`` of ``unit[i % P]``.  Zamba2's shared attention block is
+``shared``, unstacked, and its positions in ``unit`` are ``{}``
+placeholders.  The port keeps a list of per-layer dicts (``models/lm.py``,
+``{}`` at a shared position) and the same ``shared``.  The functions
 below map one onto the other so both packages can be run on the same
 values; none imports the reference — the caller hands over numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the reference's side).  The
@@ -31,33 +34,27 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _check(cfg: ArchConfig) -> None:
-    if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
-        raise NotImplementedError(
-            f"{cfg.name}: only the single-block patterns ('attn',) and "
-            f"('attn_moe',) are ported; got {cfg.pattern}")
-
-
 def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
                     device="cuda") -> Dict[str, Any]:
     """The reference's unboxed parameter tree (numpy leaves) -> the port's
     parameters in ``cfg.param_dtype`` on ``device``."""
-    _check(cfg)
     device = resolve_device(device)
 
     def to_t(a):
         return torch.from_numpy(np.array(a)).to(device=device,
                                                 dtype=cfg.pdtype)
 
-    block = numpy_tree["unit"][0]
+    units, n_pat = numpy_tree["unit"], len(cfg.pattern)
     params = {
         "embed": to_t(numpy_tree["embed"]),
-        "layers": [_map(lambda a, i=i: to_t(np.asarray(a)[i]), block)
-                   for i in range(cfg.n_repeats)],
+        "layers": [_map(lambda a, r=i // n_pat: to_t(np.asarray(a)[r]),
+                        units[i % n_pat])
+                   for i in range(cfg.n_layers)],
         "final_norm": _map(to_t, numpy_tree["final_norm"]),
     }
-    if "head" in numpy_tree:
-        params["head"] = to_t(numpy_tree["head"])
+    for name in ("shared", "head"):
+        if name in numpy_tree:
+            params[name] = _map(to_t, numpy_tree[name])
     return params
 
 
@@ -83,8 +80,8 @@ def cache_from_jax(numpy_state: Dict[str, Any], device="cuda"
 def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
                     ) -> Dict[str, Any]:
     """The port's parameters -> the reference's layout (f32 numpy leaves,
-    layers stacked along a leading ``n_repeats`` axis)."""
-    _check(cfg)
+    the layers of each pattern position stacked along a leading
+    ``n_repeats`` axis; ``{}`` placeholders stay ``{}``)."""
 
     def to_n(t):
         return t.detach().to(device="cpu", dtype=torch.float32).numpy()
@@ -98,13 +95,16 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
             return {k: zip_map([t[k] for t in trees]) for k in first}
         return stack(*trees)
 
+    n_pat = len(cfg.pattern)
     out = {
         "embed": to_n(params["embed"]),
-        "unit": (zip_map(params["layers"]),),
+        "unit": tuple(zip_map(params["layers"][j::n_pat])
+                      for j in range(n_pat)),
         "final_norm": _map(to_n, params["final_norm"]),
     }
-    if "head" in params:
-        out["head"] = to_n(params["head"])
+    for name in ("shared", "head"):
+        if name in params:
+            out[name] = _map(to_n, params[name])
     return out
 
 

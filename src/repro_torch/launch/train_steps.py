@@ -662,8 +662,10 @@ def make_slot_prefill_step(cfg: ArchConfig, policy: cm.Policy,
 
 def make_slot_reset_step(cfg: ArchConfig, device="cuda"):
     """Reset one slot's recurrent state to the block init constants (for
-    single-token prompts, which run no prefill chunk).  Attention-only
-    archs carry no such state, so the pool comes back as it was."""
+    single-token prompts, which run no prefill chunk, so nothing else
+    clears the evicted predecessor's conv/SSM/mLSTM/sLSTM state out of
+    the slot).  Attention-only archs carry no such state, so their pool
+    comes back as it was."""
     from repro_torch.serve import pool as pool_lib
     device = resolve_device(device)
 

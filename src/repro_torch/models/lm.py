@@ -13,6 +13,11 @@ An ``attn_moe`` block holds ``"moe": {"router": (D, E), "wi", "wg":
 (E, D, F), "wo": (E, F, D)}`` in place of ``"mlp"``; its load-balancing
 loss is summed over the layers into ``forward``'s aux and enters
 ``lm_loss`` as ``0.01 * lb_loss / n_layers``, as in the reference.
+A recurrent block (``mamba``, ``mlstm``, ``slstm``) holds ``"norm1"`` and
+its mixer (``models/ssm.py``).  Zamba2's ``shared_attn`` blocks share one
+attention block, ``params["shared"]``, and their layer slots are ``{}``
+placeholders, as in the reference; each use keeps its own KV cache, draws
+its own plans and adds its dW into the one gradient.
 
 The reference stacks the layers of one pattern unit along a leading
 repeat axis and scans over it; here the layers are a Python list and the
@@ -36,11 +41,20 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.train import optim as optim_lib
 
-_LATER = ("block type {btype!r} is not ported yet (SSM/recurrent and "
-          "shared-attention blocks are later items of ROADMAP.md)")
-_BLOCKS = ("attn", "attn_moe")
+_LATER = ("block type {btype!r} is not ported yet (cross-attention comes "
+          "with the encoder-decoder and VLM slice, ROADMAP.md Queue A.7)")
+_ATTN = ("attn", "attn_moe", "shared_attn")
+BLOCK_TYPES = _ATTN + ssm_lib.RECURRENT
+_INIT = {"mamba": ssm_lib.init_mamba, "mlstm": ssm_lib.init_mlstm,
+         "slstm": ssm_lib.init_slstm}
+_APPLY = {"mamba": ssm_lib.apply_mamba, "mlstm": ssm_lib.apply_mlstm,
+          "slstm": ssm_lib.apply_slstm}
+_DECODE = {"mamba": ssm_lib.mamba_decode_step,
+           "mlstm": ssm_lib.mlstm_decode_step,
+           "slstm": ssm_lib.slstm_decode_step}
 
 
 # ---------------------------------------------------------------------------
@@ -63,8 +77,11 @@ def _init_attn_core(cfg, gen, dtype, device):
 
 
 def init_block(cfg, btype: str, gen, dtype, device):
-    if btype not in _BLOCKS:
+    if btype not in BLOCK_TYPES:
         raise NotImplementedError(_LATER.format(btype=btype))
+    if btype in _INIT:
+        return {"norm1": cm.init_norm(cfg, dtype, device),
+                btype: _INIT[btype](cfg, gen, dtype, device)}
     p = {"norm1": cm.init_norm(cfg, dtype, device),
          "attn": _init_attn_core(cfg, gen, dtype, device),
          "norm2": cm.init_norm(cfg, dtype, device)}
@@ -104,15 +121,20 @@ def _ffn(cfg, p, ctx: cm.Ctx, x) -> Tuple[torch.Tensor, Dict]:
     return mlp_lib.apply_mlp(cfg, p["mlp"], ctx, x), {}
 
 
-def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions
-                ) -> Tuple[torch.Tensor, Dict]:
+def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions,
+                shared=None) -> Tuple[torch.Tensor, Dict]:
     """Training application of one block.  h: (B, S, D).  Returns (h,
     aux); an ``attn_moe`` block's aux holds ``lb_loss`` and
-    ``drop_frac``."""
-    if btype not in _BLOCKS:
+    ``drop_frac``.  A ``shared_attn`` block runs ``shared`` (its ``p`` is
+    the ``{}`` placeholder)."""
+    if btype not in BLOCK_TYPES:
         raise NotImplementedError(_LATER.format(btype=btype))
     rs = cfg.residual_scale
+    if btype == "shared_attn":
+        p = shared
     x = cm.apply_norm(cfg, p["norm1"], h)
+    if btype in _APPLY:
+        return h + rs * _APPLY[btype](cfg, p[btype], ctx, x), {}
     q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
     o = attn_lib.flash_attention(
         q, k, v, causal=True, q_block=ctx.policy.flash_block,
@@ -129,15 +151,24 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions
 # Whole-model init
 # ---------------------------------------------------------------------------
 
+def _layer(cfg: ArchConfig, params, i: int):
+    """(repeat, pattern position, block type, parameters) of layer ``i``:
+    a ``shared_attn`` layer's parameters are the shared block's."""
+    ridx, j = divmod(i, len(cfg.pattern))
+    btype = cfg.pattern[j]
+    p = params["shared"] if btype == "shared_attn" else params["layers"][i]
+    return ridx, j, btype, p
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     for btype in cfg.pattern:
-        if btype not in _BLOCKS:
+        if btype not in BLOCK_TYPES:
             raise NotImplementedError(_LATER.format(btype=btype))
     if cfg.is_encdec or cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only archs (dense and MoE) are "
-            f"ported so far (enc-dec and VLM are later items of "
-            f"ROADMAP.md)")
+            f"{cfg.name}: only decoder-only archs (dense, MoE, SSM and "
+            f"hybrid) are ported so far (enc-dec and VLM are the next "
+            f"slice, ROADMAP.md Queue A.7)")
 
 
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
@@ -157,11 +188,18 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda"):
     params = {
         "embed": cm.dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                                device, scale=0.02),
-        "layers": [init_block(cfg, cfg.pattern[i % len(cfg.pattern)], gen,
-                              dtype, device)
-                   for i in range(cfg.n_layers)],
+        "layers": [],
         "final_norm": cm.init_norm(cfg, dtype, device),
     }
+    for i in range(cfg.n_layers):
+        btype = cfg.pattern[i % len(cfg.pattern)]
+        if btype == "shared_attn":
+            if "shared" not in params:
+                params["shared"] = init_block(cfg, btype, gen, dtype, device)
+            params["layers"].append({})  # the parameters live in "shared"
+        else:
+            params["layers"].append(init_block(cfg, btype, gen, dtype,
+                                               device))
     if not cfg.tie_embeddings:
         params["head"] = cm.dense_init(
             gen, (cfg.d_model, cfg.vocab_size), dtype, device)
@@ -201,7 +239,10 @@ class _RematLayer(torch.autograd.Function):
     ``inputs`` (see ``_remat_layer``) and returns its output, or (output,
     load-balancing loss) for an MoE layer — as the reference's checkpointed
     scan unit carries (h, aux_lb) — so the loss and the router's gradient
-    through it survive the remat."""
+    through it survive the remat.  A ``shared_attn`` layer's parameter
+    inputs are the shared block's tensors: each use gives back its own
+    gradient, and autograd sums them into the one leaf in the order
+    ``remat="none"`` does."""
 
     @staticmethod
     def forward(ctx, run, keep_sampled: bool, *inputs):
@@ -233,9 +274,10 @@ class _RematLayer(torch.autograd.Function):
 def _remat_layer(cfg, btype, layer, sub, h, positions
                  ) -> Tuple[torch.Tensor, Dict]:
     """``apply_block`` of one layer as a ``_RematLayer``, its inputs the
-    layer input ``h``, the layer's parameter leaves and ``sub``'s znorm
-    slices.  Returns (h, aux) with aux's ``lb_loss`` for an MoE layer
-    (its ``drop_frac`` is not carried)."""
+    layer input ``h``, the layer's parameter leaves (the shared block's
+    for a ``shared_attn`` layer) and ``sub``'s znorm slices.  Returns (h,
+    aux) with aux's ``lb_loss`` for an MoE layer (its ``drop_frac`` is not
+    carried)."""
     weights = []
     optim_lib.tree_map(weights.append, layer)
     tags = sorted(sub.znorms) if sub.znorms is not None else []
@@ -247,7 +289,8 @@ def _remat_layer(cfg, btype, layer, sub, h, positions
         # the recompute records no tag a second time
         c = dataclasses.replace(sub, znorms=zn, stash=stash,
                                 recorder=None if recompute else sub.recorder)
-        out, aux = apply_block(cfg, btype, p, c, inputs[0], positions)
+        out, aux = apply_block(cfg, btype, p, c, inputs[0], positions,
+                               shared=p)
         return (out, aux["lb_loss"]) if "lb_loss" in aux else out
 
     inputs = [h, *weights, *(sub.znorms[t] for t in tags)]
@@ -279,20 +322,18 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
                  compute_dtype=cfg.cdtype)
     h, positions = embed_inputs(cfg, params, batch, ctx)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
-    n_pat = len(cfg.pattern)
-    for i, layer in enumerate(params["layers"]):
-        ridx, j = divmod(i, n_pat)
+    for i in range(cfg.n_layers):
+        ridx, j, btype, layer = _layer(cfg, params, i)
         sub = dataclasses.replace(ctx.fold(ridx).fold(j),
                                   tag_prefix=f"b{j}/")
         if znorms is not None:
             sub = dataclasses.replace(
                 sub, znorms={t: z[ridx] for t, z in znorms.items()})
         if policy.remat == "none":
-            h, aux = apply_block(cfg, cfg.pattern[j], layer, sub, h,
-                                 positions)
+            h, aux = apply_block(cfg, btype, layer, sub, h, positions,
+                                 shared=layer)
         else:
-            h, aux = _remat_layer(cfg, cfg.pattern[j], layer, sub, h,
-                                  positions)
+            h, aux = _remat_layer(cfg, btype, layer, sub, h, positions)
         if "lb_loss" in aux:
             lb = lb + aux["lb_loss"]
     h = cm.apply_norm(cfg, params["final_norm"], h)
@@ -330,30 +371,37 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
 
     Attention is the ``flash_attention_fwd`` kernel (its plain version on
     the CPU).  ``states`` has ``decode_state_init``'s layout with
-    max_len == prompt length: a tuple over ``cfg.pattern`` of {"k", "v"}
-    stacked over repeats as (n_repeats, B, S, KVH, Dh) in the compute
-    dtype (the serving layer adds head-room by padding the KV axis).  Only
-    the last position goes through the final norm and the head.
+    max_len == prompt length: a tuple over ``cfg.pattern`` of dicts
+    stacked over repeats — {"k", "v"} (n_repeats, B, S, KVH, Dh) in the
+    compute dtype for an attention block (the serving layer adds head-room
+    by padding the KV axis), the block's recurrent state after the prompt
+    for a recurrent one.  Only the last position goes through the final
+    norm and the head.
     """
     _check_ported(cfg)
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype)
     h, positions = embed_inputs(cfg, params, batch, ctx)
-    b, s = h.shape[0], h.shape[1]
-    n_pat = len(cfg.pattern)
-    caches = [{"k": [], "v": []} for _ in cfg.pattern]
-    for i, p in enumerate(params["layers"]):
-        ridx, j = divmod(i, n_pat)
+    caches = [{} for _ in cfg.pattern]
+    for i in range(cfg.n_layers):
+        ridx, j, btype, p = _layer(cfg, params, i)
         ctx_r = ctx.fold(ridx)
         x = cm.apply_norm(cfg, p["norm1"], h)
-        q, k, v = _project_qkv(cfg, p["attn"], ctx_r, x, positions)
-        o = ctx_r.linear("attn_o", _flash_prefill(q, k, v), p["attn"]["wo"])
-        h = h + cfg.residual_scale * o
-        x = cm.apply_norm(cfg, p["norm2"], h)
-        h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
-        caches[j]["k"].append(k.to(cfg.cdtype))
-        caches[j]["v"].append(v.to(cfg.cdtype))
-    states = tuple({"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
+        if btype in _APPLY:
+            o, st = _APPLY[btype](cfg, p[btype], ctx_r, x,
+                                  return_state=True)
+            h = h + cfg.residual_scale * o
+        else:
+            q, k, v = _project_qkv(cfg, p["attn"], ctx_r, x, positions)
+            o = ctx_r.linear("attn_o", _flash_prefill(q, k, v),
+                             p["attn"]["wo"])
+            h = h + cfg.residual_scale * o
+            x = cm.apply_norm(cfg, p["norm2"], h)
+            h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
+            st = {"k": k.to(cfg.cdtype), "v": v.to(cfg.cdtype)}
+        for name, x in st.items():
+            caches[j].setdefault(name, []).append(x)
+    states = tuple({name: torch.stack(xs) for name, xs in c.items()}
                    for c in caches)
     h = cm.apply_norm(cfg, params["final_norm"], h[:, -1:])
     return _logits(cfg, params, h)[:, 0], states
@@ -367,28 +415,35 @@ def block_decode_init(cfg, btype, batch_size: int, max_len: int,
                       device="cuda"):
     """Decode state for ONE block type, un-stacked (no repeat axis):
     a (B, max_len, KVH, Dh) KV cache in the compute dtype for attention
-    blocks (dense or MoE).  The serving slot pool builds its per-block
-    pools from it."""
-    if btype not in _BLOCKS:
+    blocks (dense, MoE or shared), the O(1) per-sequence state for
+    recurrent ones (``models/ssm.py``).  The serving slot pool builds its
+    per-block pools from it."""
+    if btype not in BLOCK_TYPES:
         raise NotImplementedError(_LATER.format(btype=btype))
     device = resolve_device(device)
+    if btype in ssm_lib.RECURRENT:
+        return ssm_lib.block_state_init(cfg, btype, batch_size, device)
     shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
 
+def stack_repeats(cfg: ArchConfig, one):
+    """A block's un-stacked state with a leading n_repeats axis (a copy a
+    repeat)."""
+    return {name: x[None].repeat((cfg.n_repeats,) + (1,) * x.ndim)
+            for name, x in one.items()}
+
+
 def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
                       device="cuda"):
     """Decode state of every block in the unit, stacked over repeats:
-    a tuple over ``cfg.pattern`` of {"k", "v"} (n_repeats, B, max_len,
-    KVH, Dh) zeros."""
+    a tuple over ``cfg.pattern`` of ``block_decode_init``'s dicts with a
+    leading n_repeats axis (KV caches of zeros, recurrent states at their
+    initial values)."""
     _check_ported(cfg)
-    states = []
-    for btype in cfg.pattern:
-        one = block_decode_init(cfg, btype, batch_size, max_len, device)
-        states.append({name: x[None].repeat((cfg.n_repeats,) + (1,) * x.ndim)
-                       for name, x in one.items()})
-    return tuple(states)
+    return tuple(stack_repeats(cfg, block_decode_init(
+        cfg, btype, batch_size, max_len, device)) for btype in cfg.pattern)
 
 
 def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
@@ -416,8 +471,9 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
     of per-row positions (continuous batching: each row writes its KV at
     its own offset and attends over its own prefix).  The scalar is
     broadcast, so both share one set of numerics.  Each row's new K/V is
-    written into ``states`` in place (no copy of the caches per step);
-    the returned states are that same object.
+    written into ``states`` in place (no copy of the caches per step), and
+    so is each recurrent block's new state (computed whole, then copied
+    over the old); the returned states are that same object.
     """
     _check_ported(cfg)
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
@@ -426,11 +482,18 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64)
     pos = pos.reshape(-1).expand(token.shape)
     h = params["embed"][token][:, None, :].to(cfg.cdtype)
-    n_pat = len(cfg.pattern)
-    for i, p in enumerate(params["layers"]):
-        ridx, j = divmod(i, n_pat)
-        h = _attn_decode(cfg, p, ctx, h, states[j]["k"][ridx],
-                         states[j]["v"][ridx], pos)
+    for i in range(cfg.n_layers):
+        ridx, j, btype, p = _layer(cfg, params, i)
+        if btype in _DECODE:
+            x = cm.apply_norm(cfg, p["norm1"], h)
+            old = {name: t[ridx] for name, t in states[j].items()}
+            o, new = _DECODE[btype](cfg, p[btype], ctx, x, old)
+            h = h + cfg.residual_scale * o
+            for name, t in old.items():
+                t.copy_(new[name])
+        else:
+            h = _attn_decode(cfg, p, ctx, h, states[j]["k"][ridx],
+                             states[j]["v"][ridx], pos)
     h = cm.apply_norm(cfg, params["final_norm"], h)
     return _logits(cfg, params, h)[:, 0], states
 

@@ -1,6 +1,6 @@
 """Model API dispatch: config lookup, parameter init, the loss and the
-serving entry points for every ported architecture (decoder-only LMs,
-dense and MoE, so far)."""
+serving entry points for every ported architecture (decoder-only LMs:
+dense, MoE, SSM and hybrid)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -54,9 +54,10 @@ def serve_compatible(cfg: ArchConfig) -> Tuple[bool, str]:
             "the ragged slot pool cannot provide")
     if cfg.family == "vlm" or cfg.pos_mode not in ("rope", "none"):
         return False, (f"{cfg.family} arch with pos_mode {cfg.pos_mode!r}: "
-                       f"VLM / learned positions are not ported yet")
-    other = sorted(set(cfg.pattern) - {"attn", "attn_moe"})
+                       f"VLM / learned positions are not ported yet (the "
+                       f"next slice, ROADMAP.md Queue A.7)")
+    other = sorted(set(cfg.pattern) - set(lm.BLOCK_TYPES))
     if other:
-        return False, (f"block types {other} (SSM / recurrent / shared "
-                       f"attention) are not ported yet")
+        return False, (f"block types {other} are not ported yet (the "
+                       f"next slice, ROADMAP.md Queue A.7)")
     return True, ""

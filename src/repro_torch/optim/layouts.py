@@ -8,9 +8,11 @@ State structure: the reference's, path-keyed by ITS leaves::
                 "embed": {"v_row": ..., "v_col": ...},
                 ...}}
 
-The reference stacks the layers of a pattern unit into one leaf
-(``unit/0/mlp/wi`` of shape (n_repeats, n, m)); the port holds one
-parameter tensor a layer (``layers/<i>/mlp/wi``).  Its state keeps the
+The reference stacks the layers of each position of the pattern unit into
+one leaf (``unit/<j>/mlp/wi`` of shape (n_repeats, n, m)); the port holds
+one parameter tensor a layer (``layers/<i>/mlp/wi``, layer i being repeat
+i // P of position i % P of a P-block pattern), and zamba2's shared block
+(``shared/...``) is one unstacked leaf in both.  Its state keeps the
 reference's stacked slots, so one ``OptimSpec`` resolves, sizes and
 counts (``memory_report``) exactly as there: every port leaf belongs to
 the stacked leaf ``reference_path`` names, and
@@ -68,15 +70,31 @@ from repro_torch.train.znorm import N_STATS, STATS_DECAY
 _TINY = 1e-30
 
 
-def reference_path(path: str) -> str:
+def reference_path(path: str, n_pattern: int = 1) -> str:
     """The reference's path of the stacked leaf a port leaf belongs to:
-    ``layers/<i>/...`` -> ``unit/0/...`` (every ported arch has one block
-    a pattern unit, so layer i is repeat i of block 0); other paths are
-    the same in both packages."""
+    ``layers/<i>/...`` -> ``unit/<i % n_pattern>/...`` (layer i is a
+    repeat of block i % n_pattern); other paths (``shared/...``,
+    ``embed``, ...) are the same in both packages."""
     parts = path.split("/")
     if parts[0] == "layers":
-        return "/".join(["unit", "0"] + parts[2:])
+        return "/".join(["unit", str(int(parts[1]) % n_pattern)]
+                        + parts[2:])
     return path
+
+
+def pattern_len(params) -> int:
+    """The length P of the pattern unit, read off the layer list: the
+    smallest P dividing the depth such that layer i holds the same block
+    kind (its top-level keys; ``{}`` at a shared position) as layer
+    i % P.  Every ported pattern is its own smallest period (("attn",),
+    ("attn_moe",), ("mlstm", "slstm"), five "mamba" and a "shared_attn"),
+    so this is ``len(cfg.pattern)``."""
+    kinds = [tuple(sorted(layer)) for layer in params.get("layers", [])]
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(kinds[i] == kinds[i % p] for i in range(n)):
+            return p
+    return 1
 
 
 def _groups(params, leaves=None) -> Dict[str, list]:
@@ -85,9 +103,10 @@ def _groups(params, leaves=None) -> Dict[str, list]:
     gradients, paired in as a second element)."""
     named = adamw_lib.named_leaves(params)
     others = [None] * len(named) if leaves is None else leaves
+    n_pat = pattern_len(params)
     out: Dict[str, list] = {}
     for (path, p), x in zip(named, others):
-        out.setdefault(reference_path(path), []).append((p, x))
+        out.setdefault(reference_path(path, n_pat), []).append((p, x))
     return out
 
 

@@ -7,9 +7,12 @@
   by one gather per step.  Pages are the allocation quantum, so a
   finished short request returns its pages to a queued long one at once.
 
-* **Recurrent state** (Mamba conv/SSM, mLSTM, sLSTM) is slot-indexed in
-  the reference.  Those blocks are not ported yet: every helper here
-  raises ``NotImplementedError`` for them.
+* **Recurrent state is slot-indexed.**  Mamba conv/SSM, mLSTM and sLSTM
+  state is O(1) per sequence, so it lives directly at
+  ``(n_repeats, max_slots, ...)`` — the slot id is the batch row, no
+  paging.  Each slot's share (``models/ssm.py::decode_state_bytes`` a
+  block and repeat) is allocated with the pool, so admission charges a
+  recurrent request its slot and its KV pages, nothing more.
 
 The gather/scatter helpers are tensor functions used inside the serve
 and prefill steps (``launch/train_steps.py::make_slot_serve_step``);
@@ -25,14 +28,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-
-_LATER = ("block type {btype!r} has slot-indexed recurrent state, which "
-          "the port's pool does not hold yet (the SSM slice adds it)")
+from repro_torch.models import lm, ssm
 
 
-def _check_attn(btype: str) -> None:
-    if btype not in ("attn", "attn_moe"):
-        raise NotImplementedError(_LATER.format(btype=btype))
+def _recurrent(btype: str) -> bool:
+    if btype not in lm.BLOCK_TYPES:
+        raise NotImplementedError(
+            f"block type {btype!r} is not ported yet (the next slice, "
+            f"ROADMAP.md Queue A.7)")
+    return btype in ssm.RECURRENT
 
 
 def _pool_shape(cfg: ArchConfig, spec):
@@ -41,12 +45,17 @@ def _pool_shape(cfg: ArchConfig, spec):
 
 
 def init_pool(cfg: ArchConfig, spec, device="cuda"):
-    """Device pool state: tuple over ``cfg.pattern`` entries of
-    {"k", "v"} page pools, stacked over repeats."""
+    """Device pool state: tuple over ``cfg.pattern`` entries, stacked over
+    repeats — {"k", "v"} page pools for attention entries, every slot's
+    recurrent state (``block_decode_init`` at ``max_slots`` rows) for
+    recurrent ones."""
     device = resolve_device(device)
     states = []
     for btype in cfg.pattern:
-        _check_attn(btype)
+        if _recurrent(btype):
+            states.append(lm.stack_repeats(cfg, lm.block_decode_init(
+                cfg, btype, spec.max_slots, 0, device)))
+            continue
         shape = _pool_shape(cfg, spec)
         states.append({"k": torch.zeros(shape, dtype=cfg.cdtype,
                                         device=device),
@@ -57,12 +66,16 @@ def init_pool(cfg: ArchConfig, spec, device="cuda"):
 
 def pool_bytes(cfg: ArchConfig, spec) -> int:
     """Total device bytes of the pool, from its shapes (nothing is
-    allocated)."""
+    allocated): two page pools an attention entry, ``max_slots`` slots of
+    ``decode_state_bytes`` a repeat for a recurrent one."""
     item = torch.finfo(cfg.cdtype).bits // 8
     total = 0
     for btype in cfg.pattern:
-        _check_attn(btype)
-        total += 2 * math.prod(_pool_shape(cfg, spec)) * item
+        if _recurrent(btype):
+            total += (cfg.n_repeats * spec.max_slots
+                      * ssm.decode_state_bytes(cfg, btype))
+        else:
+            total += 2 * math.prod(_pool_shape(cfg, spec)) * item
     return total
 
 
@@ -74,11 +87,16 @@ def gather_decode_states(cfg: ArchConfig, pool, page_table: torch.Tensor):
     """Contiguous decode-layout states for all slots (a copy).
 
     page_table: (S, P) integer tensor.  Attention entries gather their
-    pages into (R, S, P*page_size, KVH, Dh)."""
+    pages into (R, S, P*page_size, KVH, Dh); recurrent entries are copied
+    whole (their batch dim already IS the slot dim; the decode step
+    writes its rows in place, and ``scatter_decode_update`` keeps only the
+    active ones)."""
     states = []
     s, p = page_table.shape
     for j, btype in enumerate(cfg.pattern):
-        _check_attn(btype)
+        if _recurrent(btype):
+            states.append({name: x.clone() for name, x in pool[j].items()})
+            continue
 
         def lin(pages):
             r, _, psz, kvh, dh = pages.shape
@@ -91,15 +109,23 @@ def gather_decode_states(cfg: ArchConfig, pool, page_table: torch.Tensor):
 def scatter_decode_update(cfg: ArchConfig, pool, new_states,
                           page_table: torch.Tensor, pos: torch.Tensor,
                           active: torch.Tensor):
-    """Write one decode step's new K/V tokens back into the pool, in place.
+    """Write one decode step's state updates back into the pool, in place.
 
     Each active row's token at its own ``pos`` goes to the owning page;
-    inactive rows are redirected to scratch page 0.  Returns ``pool``."""
+    inactive rows are redirected to scratch page 0.  Recurrent entries
+    take the new state where ``active`` and hold the old one elsewhere: a
+    slot mid-prefill must not have its carried state overwritten by the
+    decode batch it is not yet part of.  Returns ``pool``."""
     s = page_table.shape[0]
     rows = torch.arange(s, device=page_table.device)
     pos_safe = torch.where(active, pos, torch.zeros_like(pos))
     for j, btype in enumerate(cfg.pattern):
-        _check_attn(btype)
+        if _recurrent(btype):
+            for name, old in pool[j].items():
+                keep = active.reshape((1, s) + (1,) * (old.ndim - 2))
+                old.copy_(torch.where(keep, new_states[j][name].to(
+                    old.dtype), old))
+            continue
         psz = pool[j]["k"].shape[2]
         page_ids = torch.where(active, page_table[rows, pos_safe // psz],
                                torch.zeros_like(pos_safe))
@@ -119,14 +145,22 @@ def gather_slot_states(cfg: ArchConfig, pool, page_table_row: torch.Tensor,
                        slot: int, fresh: bool):
     """Decode-layout states (batch = 1) for one slot (a copy).
 
-    ``fresh`` marks the first prefill chunk of a newly admitted request;
-    attention state needs no reset for it (positions beyond the slot's
-    length are masked by ``decode_attention`` and overwritten as the
-    prompt advances)."""
+    ``fresh`` marks the first prefill chunk of a newly admitted request:
+    recurrent state then starts from the block init constants instead of
+    the evicted predecessor's leftovers.  Attention state needs no reset
+    (positions beyond the slot's length are masked by
+    ``decode_attention`` and overwritten as the prompt advances)."""
     p = page_table_row.shape[0]
     states = []
     for j, btype in enumerate(cfg.pattern):
-        _check_attn(btype)
+        if _recurrent(btype):
+            if fresh:
+                states.append(lm.stack_repeats(cfg, lm.block_decode_init(
+                    cfg, btype, 1, 0, page_table_row.device)))
+            else:
+                states.append({name: x[:, slot:slot + 1].clone()
+                               for name, x in pool[j].items()})
+            continue
 
         def lin(pages):
             r, _, psz, kvh, dh = pages.shape
@@ -143,10 +177,14 @@ def scatter_slot_states(cfg: ArchConfig, pool, states,
     ALL of the slot's pages are written (untouched pages write back their
     just-gathered values; page-table entries beyond the request's
     allocation point at scratch page 0, which absorbs the duplicate
-    writes).  Returns ``pool``."""
+    writes); a recurrent entry writes the slot's row.  Returns
+    ``pool``."""
     p = page_table_row.shape[0]
     for j, btype in enumerate(cfg.pattern):
-        _check_attn(btype)
+        if _recurrent(btype):
+            for name, x in pool[j].items():
+                x[:, slot] = states[j][name][:, 0].to(x.dtype)
+            continue
         for name in ("k", "v"):
             pages = pool[j][name]
             r, _, psz, kvh, dh = pages.shape

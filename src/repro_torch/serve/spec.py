@@ -33,7 +33,10 @@ class ServeSpec:
       * ``page_size`` — tokens per KV page.  Every attention layer keeps
         its KV in a shared page pool; a request is charged
         ``ceil((prompt + max_new) / page_size)`` pages at admission and
-        returns them on eviction.
+        returns them on eviction.  Recurrent state (zamba2's Mamba
+        layers, xlstm's cells) is O(1) a sequence and lives in the slot:
+        ``decode_state_bytes`` a recurrent block and repeat, allocated
+        with the pool, so a request's slot is its whole charge for it.
       * ``max_len`` — hard per-request ceiling on prompt + generation
         (fixes the page-table width).
       * ``n_pages`` — pages in the shared pool (per layer).  ``None``
@@ -77,8 +80,8 @@ class ServeSpec:
             raise ValueError(
                 f"arch {self.arch!r} cannot be served through the slot "
                 f"pool: the port serves the decoder-only archs "
-                f"{ARCH_NAMES}; SSM, encoder-decoder and VLM archs are "
-                f"not ported yet")
+                f"{ARCH_NAMES}; encoder-decoder and VLM archs are not "
+                f"ported yet (the next slice, ROADMAP.md Queue A.7)")
         ok, reason = registry.serve_compatible(self.config)
         if not ok:
             raise ValueError(

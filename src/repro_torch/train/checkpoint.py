@@ -11,7 +11,7 @@ The port's train state is a tree of dicts, lists, the ``AdamWState``
 dataclass, tensors and Python ints (``step``, ``base_seed``,
 ``opt.count``).  Keys join the path with ``/`` (``opt/m/layers/3/...``,
 ``opt/count``, ``params/layers/3/...``; an ``OptimSpec``'s layout state
-``opt/leaves/unit/0/mlp/wi/v_row``, the reference's keys); ints are stored
+``opt/leaves/unit/<j>/mlp/wi/v_row``, the reference's keys); ints are stored
 as 0-d int64 and come back as ints.  numpy has no bfloat16, so such leaves are stored as a
 byte view (uint8, last dimension doubled; a 0-d leaf as 2 bytes) with
 ``"bfloat16"`` recorded in the manifest's ``dtypes``.

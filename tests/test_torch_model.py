@@ -25,7 +25,7 @@ from repro_torch.models.registry import get_config
 torch.set_num_threads(1)
 
 ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b",
-         "granite-moe-1b-a400m", "dbrx-132b"]
+         "granite-moe-1b-a400m", "dbrx-132b", "zamba2-2.7b", "xlstm-125m"]
 
 
 def _both(arch, compute_dtype):
@@ -56,7 +56,7 @@ def test_reduced_configs_are_the_reference_field_for_field(arch):
     assert get_config(arch).cdtype is torch.bfloat16
     assert get_config(arch).pdtype is torch.float32
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("zamba2-2.7b")
+        get_config("whisper-base")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -303,7 +303,16 @@ def test_shared_plan_keys_fold_the_prefixed_tags():
 
 
 def test_unported_blocks_and_options_raise():
+    """A recurrent pattern initialises; cross-attention, enc-dec and VLM
+    still raise, naming the next slice."""
     tcfg = get_config("qwen2.5-3b", reduced=True)
     ssm = dataclasses.replace(tcfg, pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.init_params(ssm, 0, device="cpu")
+    layer = lm.init_params(ssm, 0, device="cpu")["layers"][0]
+    assert sorted(layer) == ["mamba", "norm1"]
+    xattn = dataclasses.replace(tcfg, pattern=("xattn",))
+    with pytest.raises(NotImplementedError, match="not ported yet.*A.7"):
+        lm.init_params(xattn, 0, device="cpu")
+    for change in (dict(encoder_layers=2), dict(family="vlm")):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            lm.init_params(dataclasses.replace(tcfg, **change), 0,
+                           device="cpu")

@@ -332,7 +332,8 @@ def test_from_legacy_adamw_continues_bit_identically():
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "nemotron-4-15b",
-                                  "granite-moe-1b-a400m", "dbrx-132b"])
+                                  "granite-moe-1b-a400m", "dbrx-132b",
+                                  "zamba2-2.7b", "xlstm-125m"])
 @pytest.mark.parametrize("name", SPEC_NAMES)
 def test_memory_report_equals_the_reference(arch, name):
     jparams, _ = jax_registry.abstract_params(jax_get_config(arch,

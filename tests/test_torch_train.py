@@ -90,21 +90,24 @@ def test_synthetic_lm_batches_are_byte_identical():
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b",
                                   "command-r-35b", "granite-moe-1b-a400m",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "zamba2-2.7b", "xlstm-125m"])
 def test_three_det_topk_steps_match_reference(arch):
     """f32 compute, ``kind="det_topk"``: loss, grad norm and the updated
     parameters of three whole steps agree to 1e-4.  A near-tie in the
     sampling probabilities could flip a top-k slot between the frameworks;
     the data seed is fixed to one where none does (the tolerance is not
-    loosened for it)."""
+    loosened for it).  xlstm-125m runs Adam at eps 1e-5: its sLSTM i-gate
+    bias has a gradient of rounding noise whose sign the frameworks do not
+    share, which Adam at eps 1e-8 turns into +-lr (ROADMAP Queue C)."""
     jcfg, tcfg, jstate, tstate = _jax_state_and_port_state(arch)
     wta = dict(kind="det_topk", budget=0.3, min_rows=4)
+    eps = dict(eps=1e-5) if arch == "xlstm-125m" else {}
     jstep = jax.jit(jax_train_steps.make_train_step(
         jcfg, jax_cm.Policy(wtacrs=JaxWTACRSConfig(**wta)),
-        jax_optim.AdamWConfig(),
+        jax_optim.AdamWConfig(**eps),
         jax_optim.linear_warmup_constant(LR, WARMUP)))
     tstep = train_steps.make_train_step(
-        tcfg, cm.Policy(wtacrs=WTACRSConfig(**wta)), optim.AdamWConfig(),
+        tcfg, cm.Policy(wtacrs=WTACRSConfig(**wta)), optim.AdamWConfig(**eps),
         optim.linear_warmup_constant(LR, WARMUP), device="cpu")
     ds = data.SyntheticLM(tcfg.vocab_size, SEQ, N_SAMPLES, seed=0)
     for i in range(3):
