@@ -9,6 +9,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
 
   env      card name and power limit (nvidia-smi), torch and CUDA versions
   build    nvcc-builds the kernel library from src/repro_torch/kernels/csrc
+           and reports ptxas registers and spills of the dW, sampled_matmul
+           and flash kernels
   kernels  every kernel against its plain PyTorch version ON THE CARD, at
            the main path's shapes and at ragged ones, bf16/f32/f16; timed
            with CUDA events beside the plain version, a library
@@ -141,6 +143,25 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            share of a step (the host's per-time-step loop); prefill 2 x
            1024 and 16 decode steps held against the forward in bf16 and
            in f32, 4 pool requests as in ssm
+  vlm      qwen2-vl-2b at full size (28 layers, 12/2 heads of 128, M-RoPE;
+           the vision frontend a stub: patch embeddings come in the batch):
+           4 WTA-CRS steps (every linear sampled, vis_proj over the patch
+           rows) and 1 exact step at B=4, S=1024 (256 patches, 768 text
+           tokens of make_synthetic_batch), launches a step as the trace
+           implies (113 row_norms and gather_scale, 197 dW); prefill of 4 x
+           2048 (512 patches) through flash's wgmma route at group 6, 16
+           M-RoPE decode steps, both held in bf16 against the forward; 4
+           pool requests as in moe; Run.generate on 2 text prompts
+           bit-equal to the solo route
+  whisper  whisper-base at full size (6 + 6 layers, 32768-row learned
+           position tables; frame embeddings a stub): 4 WTA-CRS steps
+           (xattn_k / xattn_v sampled over the frames) and 1 exact step at
+           B=8 of 1024 frames and 1024 tokens, launches a step as implied
+           (72 row_norms and gather_scale, 96 dW), the idle share;
+           prime_cross_cache on 2 x 1024 frames and 16 greedy decode steps
+           at a shared scalar position against the teacher-forced forward,
+           in f32 and in bf16; ServeSpec, prefill and per-row positions
+           refused as in the reference
 
 then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -183,7 +204,7 @@ from repro_torch.kernels import \
 from repro_torch.launch import train_steps  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import encdec, lm  # noqa: E402
 from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
@@ -200,7 +221,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
               "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
-              "moe", "moe_wide", "ssm", "xlstm")
+              "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -230,9 +251,11 @@ FLASH_MINICPM = (4, 36, 36, 2048, 2048, 64, True)
 FLASH_RAGGED = [(3, 2, 1, 50, 50, 16, True), (1, 4, 4, 33, 70, 64, False),
                 (1, 4, 4, 32, 64, 128, True)]
 # the wgmma route's edges: Sq != Skv, neither a multiple of its 128-row
-# tiles, group 8 at both of its head dims, causal and not
+# tiles, groups 8 and 6 (qwen2-vl-2b's) at both of its head dims, causal
+# and not
 FLASH_EDGE = [(1, 8, 1, 200, 333, 128, True), (1, 8, 1, 333, 200, 64, True),
-              (2, 8, 1, 130, 130, 128, False), (1, 16, 2, 257, 129, 64, False)]
+              (2, 8, 1, 130, 130, 128, False), (1, 16, 2, 257, 129, 64, False),
+              (1, 12, 2, 200, 333, 128, True), (2, 6, 1, 130, 130, 64, False)]
 # gather_scale: H' of the train path (B=4, n=1024, k=307) at both input
 # widths; the reference sweep's 2-D (n, d, k) shapes; a batched
 # (B, n, d, k) shape with repeated rows
@@ -321,13 +344,41 @@ XLSTM_ARCH, XLSTM_STEPS, XLSTM_B, XLSTM_S = "xlstm-125m", 3, 4, 1024
 XLSTM_K = MOE_WTA.budget_rows(XLSTM_S)
 XLSTM_ROW_D = (768, 1536)
 XLSTM_DW = [(768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 768)]
+# The VLM and encoder-decoder phases, WTA-CRS 0.3 on every linear:
+# qwen2-vl-2b at full size, B=4, S=1024 (256 patch and 768 text tokens;
+# the blocks' plans over all 1024 rows, k = 307, vis_proj's over the 256
+# patch rows, k = 77), its prefill heads (12/2 of 128: group 6 on the
+# wgmma route), Run.generate's (prompt, new tokens); whisper-base at full
+# size, B=8, S=2048 split into 1024 frames and 1024 tokens (k = 307 over
+# each)
+VLM_ARCH, VLM_STEPS, VLM_B, VLM_S = "qwen2-vl-2b", 4, 4, 1024
+VLM_K = MOE_WTA.budget_rows(VLM_S)
+VLM_VIS = registry.train_batch_specs(get_config(VLM_ARCH), VLM_B,
+                                     VLM_S)["patches"][0][1]
+VLM_VIS_K = MOE_WTA.budget_rows(VLM_VIS)
+VLM_ROW_D = (1536, 8960)
+VLM_DW = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+FLASH_VLM = (4, 12, 2, 2048, 2048, 128, True)
+VLM_GEN = (32, 16)
+WHISPER_ARCH, WHISPER_STEPS, WHISPER_B, WHISPER_S = "whisper-base", 4, 8, 2048
+WHISPER_K = MOE_WTA.budget_rows(WHISPER_S // 2)
+WHISPER_ROW_D = (512, 2048)
+WHISPER_DW = [(512, 512), (512, 2048), (2048, 512)]
 
 
 def card_sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+# the script's start on the host clock: each phase line carries the
+# seconds since then (``elapsed_s``), so a run shows where its time limit
+# goes
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -1205,6 +1256,33 @@ def phase_kernels():
                               phase=phase))
     cases.append(dict(flash_case(*FLASH_ZAMBA2, bf16, gen, timed=True,
                                  in_summary=True), phase="ssm"))
+    # the VLM and encoder-decoder phases' shapes, bf16, timed: row norms
+    # and H' at every width a plan reads, every sampled dW; qwen2-vl-2b's
+    # vis_proj plan over the B x 256 patch rows (k = 77: a k tail well
+    # under the wgmma route's 64-row steps) and its prefill's flash heads
+    # at group 6; whisper-base's plans over 1024 frames and 1024 tokens
+    for phase, b, s, k, row_d, dws in (
+            ("vlm", VLM_B, VLM_S, VLM_K, VLM_ROW_D, VLM_DW),
+            ("whisper", WHISPER_B, WHISPER_S // 2, WHISPER_K, WHISPER_ROW_D,
+             WHISPER_DW)):
+        for d in row_d:
+            cases.append(dict(row_norms_case(b * s, d, bf16, gen, timed=True),
+                              phase=phase))
+            cases.append(dict(gather_scale_case(b, s, d, k, bf16, gen,
+                                                timed=True), phase=phase))
+        for d_in, d_out in dws:
+            cases.append(dict(dw_case("fused_sampled_dw", b, k, s, d_in,
+                                      d_out, bf16, gen, timed=True),
+                              phase=phase))
+    d = get_config(VLM_ARCH).d_model
+    cases.append(dict(row_norms_case(VLM_B * VLM_VIS, d, bf16, gen,
+                                     timed=True), phase="vlm"))
+    cases.append(dict(gather_scale_case(VLM_B, VLM_VIS, d, VLM_VIS_K, bf16,
+                                        gen, timed=True), phase="vlm"))
+    cases.append(dict(dw_case("fused_sampled_dw", VLM_B, VLM_VIS_K, VLM_VIS,
+                              d, d, bf16, gen, timed=True), phase="vlm"))
+    cases.append(dict(flash_case(*FLASH_VLM, bf16, gen, timed=True,
+                                 in_summary=True), phase="vlm"))
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for shape in EXPERT_RAGGED:
             cases.append(expert_dw_case(*shape, dtype, gen, timed=False,
@@ -2088,18 +2166,41 @@ def device_busy(fn, n):
             "top_ms_per_call": [[name[:80], t / 1e6 / n] for name, t in top]}
 
 
-def forward_logits(cfg, params, tokens, positions, flash_block,
+def on_card(prompt):
+    """A prompt (``tokens`` and, for a VLM, ``patches`` and
+    ``positions3``; numpy or tensors) as tensors on the card."""
+    return {n: (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                ).cuda() for n, x in prompt.items()}
+
+
+def prompt_rows(prompt, rows):
+    """The sequences ``rows`` (a slice) of a prompt: ``positions3``
+    (3, B, S) holds its batch on dim 1."""
+    return {n: x[:, rows] if n == "positions3" else x[rows]
+            for n, x in prompt.items()}
+
+
+def prompt_len(prompt):
+    """Positions a prompt fills: a VLM's patches and text together."""
+    if "positions3" in prompt:
+        return prompt["positions3"].shape[-1]
+    return prompt["tokens"].shape[1]
+
+
+def forward_logits(cfg, params, batch, positions, flash_block,
                    per_row=False):
-    """The model's own forward (tensor-op flash, p rounded to bf16) at
-    ``positions``, with the given attention block size; ``per_row``: each
-    sequence through the forward alone (batch 1), so every product runs
-    at other shapes and rounds in another order."""
+    """The model's own forward (tensor-op flash, p rounded to bf16) of
+    ``batch`` (a prompt on the card) at ``positions``, with the given
+    attention block size; ``per_row``: each sequence through the forward
+    alone (batch 1), so every product runs at other shapes and rounds in
+    another order."""
     if per_row:
-        return torch.cat([forward_logits(cfg, params, tokens[i:i + 1],
+        return torch.cat([forward_logits(cfg, params,
+                                         prompt_rows(batch, slice(i, i + 1)),
                                          positions, flash_block)
-                          for i in range(tokens.shape[0])])
+                          for i in range(batch["tokens"].shape[0])])
     with torch.no_grad():
-        full, _ = registry.forward(cfg, params, {"tokens": tokens},
+        full, _ = registry.forward(cfg, params, batch,
                                    cm.Policy(flash_block=flash_block))
         out = full[:, positions].clone()
         del full
@@ -2136,19 +2237,27 @@ def recurrent(cfg):
     return any(b in ("mamba", "mlstm", "slstm") for b in cfg.pattern)
 
 
-def teacher_forced(cfg, tokens, fed):
-    """The (b, s) prompt ``tokens`` and the ``fed`` (b,) tokens as one
-    sequence on the card, and its length.  A recurrent layer's forward
-    takes whole chunks of 256 positions (as the reference's): the sequence
-    is filled up with token 0 after the fed ones, which a causal forward
-    does not let the checked positions see."""
-    seq = torch.cat([torch.from_numpy(tokens).cuda().to(torch.int32),
+def teacher_forced(cfg, prompt, fed):
+    """The prompt (its (b, s) tokens; a VLM's patches ahead of them) and
+    the ``fed`` (b,) tokens as one sequence on the card, and the positions
+    it fills.  A VLM's M-RoPE positions run on along all three streams,
+    as decode's do.  A recurrent layer's forward takes whole chunks of 256
+    positions (as the reference's): the sequence is filled up with token 0
+    after the fed ones, which a causal forward does not let the checked
+    positions see."""
+    batch = on_card(prompt)
+    seq = torch.cat([batch["tokens"].to(torch.int32),
                      torch.stack(fed, dim=1)], dim=1)
-    total = seq.shape[1]
+    total = prompt_len(prompt) + len(fed)
     if recurrent(cfg):
         total = -(-total // 256) * 256
         seq = torch.nn.functional.pad(seq, (0, total - seq.shape[1]))
-    return seq, total
+    batch["tokens"] = seq
+    if "positions3" in batch:
+        b = seq.shape[0]
+        batch["positions3"] = torch.arange(
+            total, dtype=torch.int32, device="cuda").expand(3, b, total)
+    return batch, total
 
 
 def attention_layers(cfg):
@@ -2194,25 +2303,30 @@ def phase_serve_parity():
           "tol": {"rtol": 1e-4, "atol": 1e-4}})
 
 
-def phase_prefill(cfg, params, batch, seq, name="prefill", hold=True):
+def phase_prefill(cfg, params, batch, seq, name="prefill", hold=True,
+                  prompt=None):
     """make_prefill_step on the full model: warm-up + 3 timed calls, one
     flash launch an attention layer, on the route its heads take.  An MoE
     or recurrent model's floor also takes the forward row by row
     (``per_row``): a router logit rounded to bf16 in another order can flip
     a token's top-k experts, and the recurrent layers carry the GEMMs'
     shape-dependent bf16 roundings through every position; the prefill's
-    products differ from the forward's in those ways too.  ``hold=False``:
-    the distance is measured only."""
+    products differ from the forward's in those ways too.  ``prompt``: the
+    batch of ``seq`` positions (default ``SyntheticLM`` tokens; a VLM's
+    carries its patches and positions3).  ``hold=False``: the distance is
+    measured only.  Returns (launches, routes), the prompt, the last
+    logits and the states."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy())
-    tokens = data.SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch_at(
-        0, batch)["tokens"]
+    if prompt is None:
+        prompt = {"tokens": data.SyntheticLM(
+            cfg.vocab_size, seq, batch, seed=0).batch_at(0, batch)["tokens"]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     times = []
     for _ in range(4):
         t0 = time.perf_counter()
-        last, states = prefill(params, {"tokens": tokens})
+        last, states = prefill(params, prompt)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated()
@@ -2225,8 +2339,8 @@ def phase_prefill(cfg, params, batch, seq, name="prefill", hold=True):
                 if n_attn else {})
     if not bool(torch.isfinite(last.float()).all()):
         fail(f"{name}: non-finite last logits")
-    trace = device_busy(lambda: prefill(params, {"tokens": tokens}), 1)
-    tt = torch.from_numpy(tokens).cuda()
+    trace = device_busy(lambda: prefill(params, prompt), 1)
+    tt = on_card(prompt)
     # bf16: the kernel rounds p to bf16 as the forward's tensor-op flash
     # does, under running maxima over other blocks (128 keys against 512).
     # The reference holds prefill to its forward at
@@ -2250,15 +2364,17 @@ def phase_prefill(cfg, params, batch, seq, name="prefill", hold=True):
           "max_abs_err_vs_forward": err,
           "forward_vs_itself_other_block": floor, "atol_used": atol,
           "held": hold, "profile": trace})
-    return (launches, by_route), tokens, last, states
+    return (launches, by_route), prompt, last, states
 
 
-def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
+def phase_decode(cfg, params, prompt, last, states, n_gen=64, n_check=8,
                  name="decode", forward_cfg=None, hold=True):
     """``n_gen`` greedy serve_steps from the prefill's states (padded), the
     first ``n_check`` positions held against a teacher-forced forward (of
-    ``forward_cfg``, default ``cfg``; ``hold=False``: only measured)."""
-    b, s = tokens.shape
+    ``forward_cfg``, default ``cfg``; ``hold=False``: only measured).  A
+    VLM decodes on after its patches and text, ``pos`` on all three
+    M-RoPE streams."""
+    b, s = prompt["tokens"].shape[0], prompt_len(prompt)
     serve = train_steps.make_serve_step(cfg, cm.Policy())
     n_traced = 3
     states = pad_kv(states, n_gen + n_traced)
@@ -2281,7 +2397,7 @@ def phase_decode(cfg, params, tokens, last, states, n_gen=64, n_check=8,
                         n_traced)
     launches = expect_launches(name, {
         "row_norms": 0, "fused_sampled_dw": 0, "flash_attention_fwd": 0})
-    seq, total = teacher_forced(cfg, tokens, fed[:n_check])
+    seq, total = teacher_forced(cfg, prompt, fed[:n_check])
     # the forward's tensor-op flash needs blocks that tile S + 8 = 8 * 257;
     # 5e-2 is the reference's decode-vs-forward tolerance, held as in the
     # prefill phase against the forward's own floor at this width
@@ -2497,10 +2613,10 @@ def moe_aux(cfg, params, batch):
     return drops, lbs, float(loss), float(ce), float(aux["lb_loss"])
 
 
-def decode_f32(cfg, params, tokens, n_check, name):
+def decode_f32(cfg, params, prompt, n_check, name):
     """Prefill and decode against the teacher-forced forward in f32
     compute (an MoE model at capacity factor E / top-k: nothing drops, as
-    in decode): a prefill of ``tokens`` (the flash kernel's f32 route),
+    in decode): a prefill of ``prompt`` (the flash kernel's f32 route),
     ``n_check`` greedy serve_steps, the forward over prompt and fed tokens
     (filled up to whole chunks of 256 for a recurrent model), the
     prefill's last logits and every decode step's held at the reference's
@@ -2514,10 +2630,10 @@ def decode_f32(cfg, params, tokens, n_check, name):
     f32 neither is left at that size."""
     cfg32 = dataclasses.replace(no_drop(cfg) if cfg.n_experts else cfg,
                                 compute_dtype="float32")
-    b, s = tokens.shape
+    b, s = prompt["tokens"].shape[0], prompt_len(prompt)
     dev = params["embed"].device
     last, states = train_steps.make_prefill_step(
-        cfg32, cm.Policy(), device=dev)(params, {"tokens": tokens})
+        cfg32, cm.Policy(), device=dev)(params, prompt)
     states = pad_kv(states, n_check)
     serve = train_steps.make_serve_step(cfg32, cm.Policy(), device=dev)
     tok = torch.argmax(last, dim=-1).to(torch.int32)
@@ -2527,7 +2643,7 @@ def decode_f32(cfg, params, tokens, n_check, name):
         got.append(logits)
         fed.append(tok)
     del states
-    seq, total = teacher_forced(cfg, tokens, fed[:n_check])
+    seq, total = teacher_forced(cfg, prompt, fed[:n_check])
     want = forward_logits(cfg32, params, seq, slice(s - 1, s + n_check),
                           total // 8)
     err = check_close(f"{name}: f32 prefill + decode vs teacher-forced "
@@ -2669,17 +2785,17 @@ def phase_moe():
           "exact_step_ms": exact_times, "peak_bytes_exact": exact_peak,
           "remat_child": remat})
     params = registry.init_params(cfg, 0)
-    (prefill_launches, _), tokens, _, states = phase_prefill(
+    (prefill_launches, _), prompt, _, states = phase_prefill(
         cfg, params, MOE_B, 2 * MOE_S, name="moe_prefill")
     del states
     # decode dispatches at capacity = the batch and never drops: it starts
     # from a prefill, and is held against a forward, that drop nothing
     last, states = train_steps.make_prefill_step(no_drop(cfg), cm.Policy())(
-        params, {"tokens": tokens})
-    phase_decode(cfg, params, tokens, last, states, n_gen=16, n_check=16,
+        params, prompt)
+    phase_decode(cfg, params, prompt, last, states, n_gen=16, n_check=16,
                  name="moe_decode", forward_cfg=no_drop(cfg), hold=False)
     del last, states
-    emit(decode_f32(cfg, params, tokens, 8, "moe_decode_f32"))
+    emit(decode_f32(cfg, params, prompt, 8, "moe_decode_f32"))
     emit({"phase": "moe_pool", "arch": cfg.name,
           **pool_requests(cfg, params, "moe pool")})
     del params
@@ -2696,16 +2812,16 @@ def phase_moe_wide():
     published("moe_wide", cfg, (6144, 48, 8, 128, 16, 4, 10752, 100352,
                                 False, 1.25))
     params = registry.init_params(cfg, 0)
-    (prefill_launches, _), tokens, _, states = phase_prefill(
+    (prefill_launches, _), prompt, _, states = phase_prefill(
         cfg, params, 2, WIDE_S, name="moe_wide_prefill")
     del states
     last, states = train_steps.make_prefill_step(no_drop(cfg), cm.Policy())(
-        params, {"tokens": tokens})
-    phase_decode(cfg, params, tokens, last, states, n_gen=8, n_check=8,
+        params, prompt)
+    phase_decode(cfg, params, prompt, last, states, n_gen=8, n_check=8,
                  name="moe_wide_decode", forward_cfg=no_drop(cfg),
                  hold=False)
     del last, states
-    emit(decode_f32(cfg, params, tokens, 8, "moe_wide_decode_f32"))
+    emit(decode_f32(cfg, params, prompt, 8, "moe_wide_decode_f32"))
     del params
     torch.cuda.empty_cache()
 
@@ -2769,15 +2885,17 @@ def published_ssm(what, cfg, want):
         fail(f"{what}: not the published {cfg.name}: {got} != {want}")
 
 
-def recurrent_train(what, cfg, b, s, n_steps, n_exact):
+def full_size_train(what, cfg, b, s, n_steps, n_exact, ds=None):
     """``n_steps`` WTA-CRS 0.3 steps (every linear sampled) and
     ``n_exact`` exact ones from fresh parameters at (b, s): losses finite
     and falling, every leaf moved, launches as ``launches_per_step``
     implies with every dW on wgmma and every H' on bulk, peaks, ms a step
     (host clock around a synchronized step, the untraced ones) and the
-    last WTA-CRS step's device-busy ms (traced).  Returns (record,
+    last WTA-CRS step's device-busy ms (traced).  ``ds``: the batches
+    (default ``SyntheticLM`` tokens of ``s`` positions).  Returns (record,
     launches)."""
-    ds = data.SyntheticLM(cfg.vocab_size, s, b, seed=0)
+    if ds is None:
+        ds = data.SyntheticLM(cfg.vocab_size, s, b, seed=0)
     per_step = launches_per_step(cfg, cm.Policy(wtacrs=MOE_WTA), s, batch=b)
     reset_launches()
     (losses, times, peak, changed, n_leaves, n_params,
@@ -2818,8 +2936,7 @@ def ssm_full_depth(cfg, n_steps=2):
     about four alive at once)."""
     policy = cm.Policy(wtacrs=MOE_WTA, remat="full")
     per_step = launches_per_step(cfg, policy, SSM_S, batch=1)
-    n_params = sum(p.numel() for p in optim.tree_leaves(
-        registry.init_params(cfg, 0, device="meta")))
+    n_params = tensor_params(cfg)
     nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     reckoned = {"state": 16 * n_params,
                 "layer_inputs": cfg.n_layers * SSM_S * cfg.d_model * 2,
@@ -2863,13 +2980,13 @@ def recurrent_serve(what, cfg, params, b, s, hold_bf16):
     measured only — zamba2's are far above the forward's own floor at
     random weights (``decode_f32``).  Returns the bf16 prefill's
     launches."""
-    (launches, _), tokens, last, states = phase_prefill(
+    (launches, _), prompt, last, states = phase_prefill(
         cfg, params, b, s, name=f"{what}_prefill", hold=hold_bf16)
-    phase_decode(cfg, params, tokens, last, states, n_gen=16, n_check=16,
+    phase_decode(cfg, params, prompt, last, states, n_gen=16, n_check=16,
                  name=f"{what}_decode", hold=hold_bf16)
     del last, states
     torch.cuda.empty_cache()
-    emit(decode_f32(cfg, params, tokens, 16, f"{what}_decode_f32"))
+    emit(decode_f32(cfg, params, prompt, 16, f"{what}_decode_f32"))
     emit({"phase": f"{what}_pool", "arch": cfg.name,
           "n_layers": cfg.n_layers,
           **pool_requests(cfg, params, f"{what} pool")})
@@ -2890,7 +3007,7 @@ def phase_ssm():
         ("mamba",) * 5 + ("shared_attn",)))
     if full.n_layers != 54:
         fail(f"ssm: {full.n_layers} layers, the published model has 54")
-    rec, launches = recurrent_train(
+    rec, launches = full_size_train(
         "ssm", dataclasses.replace(full, n_layers=SSM_DEPTH), SSM_B, SSM_S,
         SSM_STEPS, 2)
     rec["full_depth"] = ssm_full_depth(full)
@@ -2915,7 +3032,7 @@ def phase_xlstm():
                                  4, ("mlstm", "slstm")))
     if cfg.n_layers != 12:
         fail(f"xlstm: {cfg.n_layers} layers, the published model has 12")
-    rec, launches = recurrent_train("xlstm", cfg, XLSTM_B, XLSTM_S,
+    rec, launches = full_size_train("xlstm", cfg, XLSTM_B, XLSTM_S,
                                     XLSTM_STEPS, 1)
     emit({"phase": "xlstm_train", **rec})
     params = registry.init_params(cfg, 0)
@@ -2923,6 +3040,223 @@ def phase_xlstm():
     del params
     torch.cuda.empty_cache()
     emit({"phase": "xlstm", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the VLM and encoder-decoder phases
+# ---------------------------------------------------------------------------
+
+class FixedBatch:
+    """One ``registry.make_synthetic_batch`` batch (seed 0, on the host) at
+    every step: a step carries it to the card as a loader's batch.  A
+    falling loss is then the optimizer's doing, not the next batch's
+    luck."""
+
+    def __init__(self, cfg, b, s):
+        self.batch = registry.make_synthetic_batch(cfg, b, s, 0,
+                                                   device="cpu")
+
+    def batch_at(self, step, batch_size):
+        return self.batch
+
+
+def expect_per_step(what, cfg, s, b, want):
+    """Fail unless ``launches_per_step`` (read off the model's trace) is
+    ``want``, the count the model's structure gives."""
+    got = launches_per_step(cfg, cm.Policy(wtacrs=MOE_WTA), s, batch=b)
+    if got != want:
+        fail(f"{what}: the trace implies {got} launches a step, the "
+             f"structure {want}")
+
+
+def published_vlm_encdec(what, cfg, want):
+    """Fail unless ``cfg`` has the published widths and positions
+    ``want``."""
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings,
+           cfg.pos_mode, cfg.encoder_layers, cfg.max_learned_pos)
+    if got != want:
+        fail(f"{what}: not the published {cfg.name}: {got} != {want}")
+
+
+def tensor_params(cfg):
+    """Parameters in the tensors (not ``cfg.n_params()``'s formula)."""
+    return sum(p.numel() for p in optim.tree_leaves(
+        registry.init_params(cfg, 0, device="meta")))
+
+
+def phase_vlm():
+    """qwen2-vl-2b at full size (28 layers, nothing cut): 4 WTA-CRS and 1
+    exact step at B=4, S=1024 (256 patches, 768 text tokens; vis_proj
+    sampled over the patch rows), prefill of 4 x 2048 (512 patches) on
+    flash's wgmma route at 12/2 heads, 16 M-RoPE decode steps held in
+    bf16, 4 pool requests, Run.generate against the solo route.  Returns
+    the train steps' and the prefill's launches."""
+    t0 = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    published_vlm_encdec("vlm", cfg, (28, 1536, 12, 2, 128, 8960, 151936,
+                                      True, "mrope", 0, 4096))
+    n_params = tensor_params(cfg)
+    if n_params != 1_546_073_600 or cfg.n_params() != 1_543_569_408:
+        fail(f"vlm: {n_params} parameters in the tensors, "
+             f"{cfg.n_params()} from n_params()")
+    # 28 layers of 4 plans and 7 dW, vis_proj's one plan and one dW
+    expect_per_step("vlm", cfg, VLM_S, VLM_B, {
+        "row_norms": 113, "gather_scale": 113, "fused_sampled_dw": 197})
+    rec, launches = full_size_train("vlm", cfg, VLM_B, VLM_S, VLM_STEPS, 1,
+                                    ds=FixedBatch(cfg, VLM_B, VLM_S))
+    rec.update(vis_tokens=VLM_VIS, vis_k=VLM_VIS_K,
+               n_params_formula=cfg.n_params(),
+               peak_bytes_state=16 * n_params)
+    emit({"phase": "vlm_train", **rec})
+    params = registry.init_params(cfg, 0)
+    prompt = registry.make_synthetic_batch(cfg, VLM_B, 2 * VLM_S, 1)
+    del prompt["labels"]
+    (prefill_launches, _), prompt, last, states = phase_prefill(
+        cfg, params, VLM_B, 2 * VLM_S, name="vlm_prefill", prompt=prompt)
+    phase_decode(cfg, params, prompt, last, states, n_gen=16, n_check=16,
+                 name="vlm_decode")
+    del last, states, prompt
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm_pool", "arch": cfg.name,
+          **pool_requests(cfg, params, "vlm pool")})
+    run = Run(RunSpec(arch=VLM_ARCH, reduced=False, batch_size=2,
+                      data=DataSpec(seq_len=VLM_GEN[0], n_samples=2)))
+    prompts = data.SyntheticLM(cfg.vocab_size, VLM_GEN[0], 2, seed=5).batch(
+        np.arange(2))["tokens"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = run.generate(prompts, VLM_GEN[1])
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t1)
+    expect_launches("vlm generate", {})
+    want, _ = solo_generate(cfg, params, prompts, VLM_GEN[1],
+                            run.spec.prefill_chunk, sum(VLM_GEN))
+    if got.tolist() != want:
+        at = [first_difference(a, b) for a, b in zip(got.tolist(), want)]
+        fail(f"vlm: Run.generate differs from the solo route at its shapes, "
+             f"first at positions {at} (per row)")
+    emit({"phase": "vlm_generate", "rows": 2, "prompt_len": VLM_GEN[0],
+          "new_tokens": VLM_GEN[1], "ms": gen_ms,
+          "equal_to_solo_route": True})
+    del run, params
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm", "seconds": time.perf_counter() - t0})
+    return dict(launches, flash_attention_fwd=prefill_launches[
+        "flash_attention_fwd"])
+
+
+def whisper_decode(cfg, params, frames, tokens, n_gen, name, hold):
+    """``encdec.prime_cross_cache`` on ``frames``, then ``n_gen`` greedy
+    serve_steps from ``tokens[:, 0]`` at the shared scalar position (each
+    timed, the last 3 traced), held against the teacher-forced forward on
+    the same frames and the fed tokens: at the reference's decode
+    tolerance 5e-2, or 1.5x the forward's own floor at another flash block
+    size (``close_to_forward``); ``hold=False`` only measures.  Returns the
+    record."""
+    b = frames.shape[0]
+    serve = train_steps.make_serve_step(cfg, cm.Policy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        xk, xv = encdec.prime_cross_cache(cfg, params, frames, cm.Policy())
+    torch.cuda.synchronize()
+    prime_ms = 1e3 * (time.perf_counter() - t0)
+    n_traced = 3
+    state = encdec.decode_state_init(cfg, b, n_gen + n_traced,
+                                     enc_len=frames.shape[1])
+    state["xk"].copy_(xk)
+    state["xv"].copy_(xv)
+    del xk, xv
+    tok = tokens[:, 0]
+    fed, checked, times = [tok], [], []
+    reset_launches()
+    for g in range(n_gen):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, logits, state = serve(params, tok, g, state)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+        checked.append(logits)
+        fed.append(tok)
+    traced = iter(range(n_gen, n_gen + n_traced))
+    trace = device_busy(lambda: serve(params, tok, next(traced), state),
+                        n_traced)
+    launches = expect_launches(name, {})
+    del state
+    forced = {"frames": frames, "tokens": torch.stack(fed[:n_gen], dim=1)}
+    err, floor, atol = close_to_forward(
+        f"{name} logits vs teacher-forced forward",
+        torch.stack(checked, dim=1),
+        forward_logits(cfg, params, forced, slice(None), 512),
+        forward_logits(cfg, params, forced, slice(None), 256), 5e-2,
+        hold=hold)
+    ms = statistics.median(times)
+    return {"phase": name, "compute_dtype": DTYPE_NAMES[cfg.cdtype],
+            "batch": b, "frames": frames.shape[1], "steps": n_gen,
+            "prime_cross_cache_ms": prime_ms, "step_ms_median": ms,
+            "step_ms": times, "decode_tokens_per_s": b / (ms / 1e3),
+            "launches": launches, "max_abs_err_vs_forward": err,
+            "forward_vs_itself_other_block": floor, "atol_used": atol,
+            "held": hold, "profile": trace}
+
+
+def phase_whisper():
+    """whisper-base at full size (6 + 6 layers, 32768-row position
+    tables): 4 WTA-CRS and 1 exact step at B=8 of 1024 frames and 1024
+    tokens (the reference's split of S = 2048; xattn_k / xattn_v sampled
+    over the frames), the idle share; prime_cross_cache on 2 x 1024
+    frames and 16 greedy decode steps against the teacher-forced forward,
+    in f32 and in bf16; the refusals the reference has.  Returns the
+    train steps' launches."""
+    t0 = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    published_vlm_encdec("whisper", cfg, (6, 512, 8, 8, 64, 2048, 51865,
+                                          True, "learned", 6, 32768))
+    n_params = tensor_params(cfg)
+    if n_params != 104_182_272 or cfg.n_params() != 104_149_504:
+        fail(f"whisper: {n_params} parameters in the tensors, "
+             f"{cfg.n_params()} from n_params()")
+    # an encoder layer's 4 plans and 6 dW, a decoder layer's 8 and 10
+    expect_per_step("whisper", cfg, WHISPER_S // 2, WHISPER_B, {
+        "row_norms": 72, "gather_scale": 72, "fused_sampled_dw": 96})
+    rec, launches = full_size_train(
+        "whisper", cfg, WHISPER_B, WHISPER_S // 2, WHISPER_STEPS, 1,
+        ds=FixedBatch(cfg, WHISPER_B, WHISPER_S))
+    rec.update(frames=WHISPER_S // 2, n_params_formula=cfg.n_params())
+    emit({"phase": "whisper_train", **rec})
+    params = registry.init_params(cfg, 0)
+    batch = registry.make_synthetic_batch(cfg, 2, WHISPER_S, 1)
+    for dtype, hold in (("float32", True), ("bfloat16", True)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        emit(whisper_decode(c, params, batch["frames"].to(c.cdtype),
+                            batch["tokens"], 16, f"whisper_decode_{dtype}",
+                            hold))
+        torch.cuda.empty_cache()
+    refused = {}
+    try:
+        ServeSpec(arch=WHISPER_ARCH, reduced=False, device="cuda")
+    except ValueError as e:
+        refused["serve_spec"] = str(e)
+    try:
+        train_steps.make_prefill_step(cfg, cm.Policy())(params, batch)
+    except NotImplementedError as e:
+        refused["prefill"] = str(e)
+    state = registry.decode_state_init(cfg, 2, 4)
+    try:
+        registry.decode_step(cfg, params, batch["tokens"][:, 0],
+                             torch.tensor([0, 1], device="cuda"), state,
+                             cm.Policy())
+    except NotImplementedError as e:
+        refused["vector_pos"] = str(e)
+    if sorted(refused) != ["prefill", "serve_spec", "vector_pos"]:
+        fail(f"whisper: only {sorted(refused)} refused")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "whisper", "refused": refused,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -2951,7 +3285,7 @@ def main() -> int:
     if set(phases) & {"build", "kernels", "parity", "train", "memory",
                       "adaptive", "accumulate", "optim", "run", "resume",
                       "serve_parity", "prefill", "wide_serve", "moe",
-                      "moe_wide", "ssm", "xlstm"}:
+                      "moe_wide", "ssm", "xlstm", "vlm", "whisper"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -2963,7 +3297,9 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln],
               "sampled_matmul_ptxas": smm_ptxas,
               "fused_sampled_dw_ptxas": ptxas_report(
-                  log, "fused_sampled_dw.cu")})
+                  log, "fused_sampled_dw.cu"),
+              "flash_attention_fwd_ptxas": ptxas_report(
+                  log, "flash_attention_fwd.cu")})
         # the wgmma route holds 128 accumulators a thread: a spill there
         # would put the sum in local memory
         for kernel, info in smm_ptxas.items():
@@ -3039,14 +3375,18 @@ def main() -> int:
         phase_launches["ssm"] = phase_ssm()
     if "xlstm" in phases:
         phase_launches["xlstm"] = phase_xlstm()
+    if "vlm" in phases:
+        phase_launches["vlm"] = phase_vlm()
+    if "whisper" in phases:
+        phase_launches["whisper"] = phase_whisper()
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
         # main paths' shapes in bf16, with the launches the train phase
         # (row_norms, gather_scale, fused_sampled_dw), the composition
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
-        # counted — for the optim, wide_serve, moe, moe_wide, ssm and xlstm
-        # shapes those phases' —
+        # counted — for the optim, wide_serve, moe, moe_wide, ssm, xlstm,
+        # vlm and whisper shapes those phases' —
         # and beside them the launches of the Run phase's fit
         summary = []
         for c in cases:

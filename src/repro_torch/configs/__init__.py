@@ -7,9 +7,12 @@ from repro_torch.configs.base import ArchConfig
 
 __all__ = ["ArchConfig", "ARCHS", "ARCH_NAMES", "get_config"]
 
-_ARCH_MODULES = ["nemotron_4_15b", "qwen2_5_3b", "command_r_35b",
-                 "minicpm_2b", "granite_moe_1b_a400m", "dbrx_132b",
-                 "xlstm_125m", "zamba2_2_7b"]
+# the reference's order, so that ARCH_NAMES reads the same in both packages
+_ARCH_MODULES = [
+    "dbrx_132b", "granite_moe_1b_a400m", "nemotron_4_15b", "qwen2_5_3b",
+    "command_r_35b", "minicpm_2b", "qwen2_vl_2b", "xlstm_125m",
+    "whisper_base", "zamba2_2_7b",
+]
 
 
 def _load():

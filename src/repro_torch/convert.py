@@ -9,7 +9,12 @@ give the port's per-layer (d, E) and (E, d, f)); its layer ``i`` is
 repeat ``i // P`` of ``unit[i % P]``.  Zamba2's shared attention block is
 ``shared``, unstacked, and its positions in ``unit`` are ``{}``
 placeholders.  The port keeps a list of per-layer dicts (``models/lm.py``,
-``{}`` at a shared position) and the same ``shared``.  The functions
+``{}`` at a shared position) and the same ``shared``.  A VLM adds
+``vis_proj``, learned positions ``pos_embed``, both unstacked.  An
+encoder-decoder (``models/encdec.py``) is ``{"embed", "pos_enc",
+"pos_dec", "encoder", "decoder", "enc_norm", "final_norm"}`` in both
+packages, ``encoder`` and ``decoder`` stacked on a leading layer axis in
+the reference and lists of per-layer dicts in the port.  The functions
 below map one onto the other so both packages can be run on the same
 values; none imports the reference — the caller hands over numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the reference's side).  The
@@ -28,10 +33,23 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 
+# a decoder arch's optional leaves outside the stacked units; the
+# encoder-decoder's stacked layer lists
+_UNSTACKED = ("shared", "head", "vis_proj", "pos_embed")
+_STACKED = ("encoder", "decoder")
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _depth(tree) -> int:
+    """The leading (layer) extent of a stacked tree's leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
 
 
 def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
@@ -44,6 +62,11 @@ def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
         return torch.from_numpy(np.array(a)).to(device=device,
                                                 dtype=cfg.pdtype)
 
+    if cfg.is_encdec:
+        return {name: ([_map(lambda a, i=i: to_t(np.asarray(a)[i]), tree)
+                        for i in range(_depth(tree))]
+                       if name in _STACKED else _map(to_t, tree))
+                for name, tree in numpy_tree.items()}
     units, n_pat = numpy_tree["unit"], len(cfg.pattern)
     params = {
         "embed": to_t(numpy_tree["embed"]),
@@ -52,7 +75,7 @@ def params_from_jax(cfg: ArchConfig, numpy_tree: Dict[str, Any],
                    for i in range(cfg.n_layers)],
         "final_norm": _map(to_t, numpy_tree["final_norm"]),
     }
-    for name in ("shared", "head"):
+    for name in _UNSTACKED:
         if name in numpy_tree:
             params[name] = _map(to_t, numpy_tree[name])
     return params
@@ -95,6 +118,10 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
             return {k: zip_map([t[k] for t in trees]) for k in first}
         return stack(*trees)
 
+    if cfg.is_encdec:
+        return {name: (zip_map(tree) if name in _STACKED
+                       else _map(to_n, tree))
+                for name, tree in params.items()}
     n_pat = len(cfg.pattern)
     out = {
         "embed": to_n(params["embed"]),
@@ -102,7 +129,7 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]
                       for j in range(n_pat)),
         "final_norm": _map(to_n, params["final_norm"]),
     }
-    for name in ("shared", "head"):
+    for name in _UNSTACKED:
         if name in params:
             out[name] = _map(to_n, params[name])
     return out

@@ -99,10 +99,11 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                     device="cuda"):
     """(state, batch) -> (state, metrics).  Paper-faithful WTA-CRS step.
 
-    ``batch`` holds ``tokens`` / ``labels`` (and ``sample_ids``) as numpy
-    arrays or tensors (moved to ``device``); ``metrics`` holds 0-dim
-    tensors ``loss`` and ``grad_norm`` (no host sync is forced here) and
-    the float ``lr``.  Sampling seeds derive from
+    ``batch`` holds ``tokens`` / ``labels`` (and ``sample_ids``; a VLM's
+    ``patches`` and ``positions3``, an encoder-decoder's ``frames``; see
+    ``registry.train_batch_specs``) as numpy arrays or tensors (moved to
+    ``device``); ``metrics`` holds 0-dim tensors ``loss`` and
+    ``grad_norm`` (no host sync is forced here) and the float ``lr``.  Sampling seeds derive from
     ``(state["base_seed"], state["step"])``, so a step is reproducible and
     steps are independent.
 
@@ -198,7 +199,9 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
             tap_parts = []
             for i in range(microbatches):
                 rows = slice(i * mb, (i + 1) * mb)
-                mb_batch = {n: x[rows] for n, x in model_batch.items()}
+                # M-RoPE's positions3 is (3, B, S): its batch is dim 1
+                mb_batch = {n: x[:, rows] if n == "positions3" else x[rows]
+                            for n, x in model_batch.items()}
                 zn = (znorm.gather(cache, ids[rows]) if use_znorm_cache
                       else None)
                 loss_i, g_i, taps_i = grads_of(
@@ -540,7 +543,10 @@ def _tokens(x, device) -> torch.Tensor:
 
 def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda"):
     """(params, batch) -> (last_logits (B, V), states): the whole prompt
-    through the stack, attention on the ``flash_attention_fwd`` kernel."""
+    through the stack, attention on the ``flash_attention_fwd`` kernel (a
+    VLM's batch also carries ``patches`` and ``positions3``).  An
+    encoder-decoder arch raises, as in the reference: its prefill is
+    ``encdec.prime_cross_cache`` and the decode loop."""
     device = resolve_device(device)
     _no_tf32()
 

@@ -95,6 +95,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions3 (3, B, S) = (t, h, w) ids.
+
+    The head_dim/2 frequency slots are split into three contiguous
+    sections (temporal, height, width; (32, 16, 16) at head_dim 128), each
+    rotated by its own position stream (arXiv:2409.12191); angles and the
+    rotation in f32, rounded once to x's dtype."""
+    half = x.shape[-1] // 2
+    if sections is None:
+        t = half // 2
+        hw = (half - t) // 2
+        sections = (t, hw, half - t - hw)
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)][:half], dtype=torch.int64,
+                          device=x.device)                   # (half,)
+    # the position stream of each slot: (half, B, S) -> (B, S, half)
+    pos = positions3.to(torch.float32)[sec_id].permute(1, 2, 0)
+    angles = pos * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The per-forward context: policy + seed + gradient-norm cache plumbing
 # ---------------------------------------------------------------------------

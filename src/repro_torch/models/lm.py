@@ -7,7 +7,13 @@ Parameter tree (plain dicts of tensors, weights (d_in, d_out))::
      "layers": [ {"norm1": {"gamma"}, "attn": {"wq","wk","wv","wo",
                   ["bq","bk","bv"]}, "norm2": {"gamma"},
                   "mlp": {"wi", ["wg"], "wo"}}, ... n_layers ],
-     "final_norm": {"gamma"}, ["head": (D, V)]}
+     "final_norm": {"gamma"}, ["head": (D, V)], ["vis_proj": (D, D)],
+     ["pos_embed": (max_learned_pos, D)]}
+
+A VLM (qwen2-vl-2b) projects its patch embeddings through the sampled
+linear ``vis_proj`` ahead of the layer stack and rotates q/k by M-RoPE's
+three position streams; learned positions add ``pos_embed``.  The
+encoder-decoder archs live in ``models/encdec.py``.
 
 An ``attn_moe`` block holds ``"moe": {"router": (D, E), "wi", "wg":
 (E, D, F), "wo": (E, F, D)}`` in place of ``"mlp"``; its load-balancing
@@ -44,8 +50,6 @@ from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.train import optim as optim_lib
 
-_LATER = ("block type {btype!r} is not ported yet (cross-attention comes "
-          "with the encoder-decoder and VLM slice, ROADMAP.md Queue A.7)")
 _ATTN = ("attn", "attn_moe", "shared_attn")
 BLOCK_TYPES = _ATTN + ssm_lib.RECURRENT
 _INIT = {"mamba": ssm_lib.init_mamba, "mlstm": ssm_lib.init_mlstm,
@@ -78,7 +82,7 @@ def _init_attn_core(cfg, gen, dtype, device):
 
 def init_block(cfg, btype: str, gen, dtype, device):
     if btype not in BLOCK_TYPES:
-        raise NotImplementedError(_LATER.format(btype=btype))
+        raise ValueError(btype)
     if btype in _INIT:
         return {"norm1": cm.init_norm(cfg, dtype, device),
                 btype: _INIT[btype](cfg, gen, dtype, device)}
@@ -107,10 +111,9 @@ def _project_qkv(cfg, p, ctx, x, positions):
     if cfg.pos_mode == "rope":
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_mode != "none":
-        raise NotImplementedError(
-            f"pos_mode {cfg.pos_mode!r} is not ported yet (mrope/learned "
-            f"positions come with the VLM / enc-dec models)")
+    elif cfg.pos_mode == "mrope":
+        q = cm.apply_mrope(q, positions, cfg.rope_theta)
+        k = cm.apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -128,7 +131,7 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions,
     ``drop_frac``.  A ``shared_attn`` block runs ``shared`` (its ``p`` is
     the ``{}`` placeholder)."""
     if btype not in BLOCK_TYPES:
-        raise NotImplementedError(_LATER.format(btype=btype))
+        raise ValueError(btype)
     rs = cfg.residual_scale
     if btype == "shared_attn":
         p = shared
@@ -160,24 +163,14 @@ def _layer(cfg: ArchConfig, params, i: int):
     return ridx, j, btype, p
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    for btype in cfg.pattern:
-        if btype not in BLOCK_TYPES:
-            raise NotImplementedError(_LATER.format(btype=btype))
-    if cfg.is_encdec or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: only decoder-only archs (dense, MoE, SSM and "
-            f"hybrid) are ported so far (enc-dec and VLM are the next "
-            f"slice, ROADMAP.md Queue A.7)")
-
-
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
     """Fresh parameters in ``cfg.param_dtype`` on ``device``, drawn from
     ``torch.Generator(device).manual_seed(seed)`` with the reference's
     shapes, names and distributions (not its random stream).
     ``device="meta"`` gives the tree's shapes without storage (the tag
-    trace of ``train/znorm.py``)."""
-    _check_ported(cfg)
+    trace of ``train/znorm.py``).  A VLM adds ``vis_proj`` (D, D), the
+    projection of the patch stub; learned positions add ``pos_embed``
+    (max_learned_pos, D)."""
     if str(device) == "meta":
         device, gen = torch.device("meta"), None
     else:
@@ -203,6 +196,13 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda"):
     if not cfg.tie_embeddings:
         params["head"] = cm.dense_init(
             gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+    if cfg.family == "vlm":
+        params["vis_proj"] = cm.dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype, device)
+    if cfg.pos_mode == "learned":
+        params["pos_embed"] = cm.dense_init(
+            gen, (cfg.max_learned_pos, cfg.d_model), dtype, device,
+            scale=0.02)
     return params
 
 
@@ -211,13 +211,21 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, batch, ctx):
-    """Token embedding.  Returns (h, positions)."""
+    """Token (+modality-stub) embedding.  Returns (h, positions).
+
+    A VLM's patch embeddings (``batch["patches"]``, (B, S_vis, D)) go
+    through the sampled linear ``vis_proj`` and come before the text, and
+    its positions are ``batch["positions3"]`` (3, B, S); learned positions
+    add ``pos_embed``'s first S rows."""
     tokens = batch["tokens"]
     h = params["embed"][tokens.to(torch.int64)].to(cfg.cdtype)
-    if cfg.pos_mode not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos_mode {cfg.pos_mode!r} is not ported yet")
     b, s = h.shape[0], h.shape[1]
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.cdtype)
+        vis = ctx.linear("vis_proj", patches, params["vis_proj"])
+        return torch.cat([vis, h], dim=1), batch["positions3"]
+    if cfg.pos_mode == "learned":
+        h = h + params["pos_embed"][None, :s].to(cfg.cdtype)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     return h, positions
 
@@ -314,7 +322,6 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
     integer seed; ``znorms`` maps tag -> (n_repeats, B[, S]) estimates.
     Under ``policy.remat`` other than ``"none"`` each layer runs as a
     ``_RematLayer`` (when a backward will follow)."""
-    _check_ported(cfg)
     if policy.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {policy.remat!r}; one of "
                          f"{REMAT_MODES}")
@@ -378,7 +385,6 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
     for a recurrent one.  Only the last position goes through the final
     norm and the head.
     """
-    _check_ported(cfg)
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype)
     h, positions = embed_inputs(cfg, params, batch, ctx)
@@ -419,7 +425,7 @@ def block_decode_init(cfg, btype, batch_size: int, max_len: int,
     recurrent ones (``models/ssm.py``).  The serving slot pool builds its
     per-block pools from it."""
     if btype not in BLOCK_TYPES:
-        raise NotImplementedError(_LATER.format(btype=btype))
+        raise ValueError(btype)
     device = resolve_device(device)
     if btype in ssm_lib.RECURRENT:
         return ssm_lib.block_state_init(cfg, btype, batch_size, device)
@@ -441,18 +447,21 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
     a tuple over ``cfg.pattern`` of ``block_decode_init``'s dicts with a
     leading n_repeats axis (KV caches of zeros, recurrent states at their
     initial values)."""
-    _check_ported(cfg)
     return tuple(stack_repeats(cfg, block_decode_init(
         cfg, btype, batch_size, max_len, device)) for btype in cfg.pattern)
 
 
 def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
     """h1: (B,1,D); k_cache/v_cache: (B, Smax, KVH, Dh) views into the
-    stacked states, written IN PLACE at (row, pos[row]); pos: (B,)."""
+    stacked states, written IN PLACE at (row, pos[row]); pos: (B,), the
+    position of all three M-RoPE streams."""
     b = h1.shape[0]
     hh, dh = cfg.n_heads, cfg.head_dim
     x = cm.apply_norm(cfg, p["norm1"], h1)
-    q, k, v = _project_qkv(cfg, p["attn"], ctx, x, pos[:, None])
+    positions = pos[:, None]
+    if cfg.pos_mode == "mrope":
+        positions = pos[None, :, None].expand(3, b, 1)
+    q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
     rows = torch.arange(b, device=h1.device)
     k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
     v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
@@ -475,13 +484,14 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
     so is each recurrent block's new state (computed whole, then copied
     over the old); the returned states are that same object.
     """
-    _check_ported(cfg)
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype)
     token = token.to(torch.int64)
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64)
     pos = pos.reshape(-1).expand(token.shape)
     h = params["embed"][token][:, None, :].to(cfg.cdtype)
+    if cfg.pos_mode == "learned":
+        h = h + params["pos_embed"][pos][:, None].to(cfg.cdtype)
     for i in range(cfg.n_layers):
         ridx, j, btype, p = _layer(cfg, params, i)
         if btype in _DECODE:
@@ -501,11 +511,15 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
 def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
             key=None, znorms=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy (labels = batch["labels"], negative =
-    masked), computed in f32; an MoE arch adds ``0.01 * lb_loss /
+    masked; a VLM's labels cover the text after its vision prefix),
+    computed in f32; an MoE arch adds ``0.01 * lb_loss /
     n_layers``.  As in the reference, ``aux["ce_loss"]`` is the returned
     loss, that term included."""
     logits, aux = forward(cfg, params, batch, policy, key, znorms)
     labels = batch["labels"].to(torch.int64)
+    if cfg.family == "vlm":
+        # only text positions carry labels; the vision prefix has none
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,

@@ -1,63 +1,138 @@
-"""Model API dispatch: config lookup, parameter init, the loss and the
-serving entry points for every ported architecture (decoder-only LMs:
-dense, MoE, SSM and hybrid)."""
+"""Model API dispatch: config lookup, parameter init, the loss, the
+serving entry points and one training batch's specs for every
+architecture: the decoder-only LMs (``models/lm.py``: dense, MoE, SSM,
+hybrid, VLM) and the encoder-decoder (``models/encdec.py``)."""
 from __future__ import annotations
 
-from typing import Tuple
+import zlib
+from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.configs import get_config  # noqa: F401  (re-export)
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.device import resolve_device
+from repro_torch.models import encdec, lm
 
 
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
+    if cfg.is_encdec:
+        return encdec.init_params(cfg, seed, device=device)
     return lm.init_params(cfg, seed, device=device)
 
 
-def forward(cfg, params, batch, policy, key=None, znorms=None):
-    return lm.forward(cfg, params, batch, policy, key, znorms)
+def forward(cfg, params, batch, policy, key=None, znorms=None,
+            recorder=None):
+    if cfg.is_encdec:
+        return encdec.forward(cfg, params, batch, policy, key, znorms,
+                              recorder=recorder)
+    return lm.forward(cfg, params, batch, policy, key, znorms,
+                      recorder=recorder)
 
 
 def loss_fn(cfg, params, batch, policy, key=None, znorms=None):
+    if cfg.is_encdec:
+        return encdec.loss(cfg, params, batch, policy, key, znorms)
     return lm.lm_loss(cfg, params, batch, policy, key, znorms)
 
 
 def prefill(cfg, params, batch, policy):
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "enc-dec prefill == prime_cross_cache + decode loop")
     return lm.prefill(cfg, params, batch, policy)
 
 
 def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
+    """An enc-dec arch's cross caches get ``max_len // 2`` rows, as in
+    the reference."""
+    if cfg.is_encdec:
+        return encdec.decode_state_init(cfg, batch_size, max_len,
+                                        enc_len=max_len // 2, device=device)
     return lm.decode_state_init(cfg, batch_size, max_len, device=device)
 
 
 def decode_step(cfg, params, token, pos, states, policy):
     """``pos``: scalar (aligned batch) or (B,) per-slot positions
-    (continuous batching)."""
+    (continuous batching; decoder-only LMs only)."""
+    if cfg.is_encdec:
+        return encdec.decode_step(cfg, params, token, pos, states, policy)
     return lm.decode_step(cfg, params, token, pos, states, policy)
 
 
 def block_decode_init(cfg, btype: str, batch_size: int, max_len: int,
                       device="cuda"):
     """Un-stacked decode state of one block type (serve-pool builder)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "enc-dec decode state is monolithic (decode_state_init); "
+            "the per-block slot pool serves decoder-only LMs")
     return lm.block_decode_init(cfg, btype, batch_size, max_len,
                                 device=device)
 
 
 def serve_compatible(cfg: ArchConfig) -> Tuple[bool, str]:
-    """Whether the port's continuous-batching serve path supports this
-    arch, with the reason when it does not (surfaced by ``ServeSpec`` at
+    """Whether the continuous-batching serve path supports this arch,
+    with the reason when it does not (surfaced by ``ServeSpec`` at
     construction instead of erroring mid-serve)."""
     if cfg.is_encdec:
         return False, (
             "encoder-decoder arch: decode requires a primed per-batch "
             "cross-attention cache and a shared scalar position, which "
-            "the ragged slot pool cannot provide")
-    if cfg.family == "vlm" or cfg.pos_mode not in ("rope", "none"):
-        return False, (f"{cfg.family} arch with pos_mode {cfg.pos_mode!r}: "
-                       f"VLM / learned positions are not ported yet (the "
-                       f"next slice, ROADMAP.md Queue A.7)")
-    other = sorted(set(cfg.pattern) - set(lm.BLOCK_TYPES))
-    if other:
-        return False, (f"block types {other} are not ported yet (the "
-                       f"next slice, ROADMAP.md Queue A.7)")
+            "the ragged slot pool cannot provide; serve decoder-only "
+            "LMs (dense/MoE/SSM/hybrid/VLM)")
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# One training batch
+# ---------------------------------------------------------------------------
+
+def train_batch_specs(cfg: ArchConfig, batch: int, seq: int
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of one training / prefill batch of ``seq``
+    positions: a VLM's are ``s_vis = max(8, ⌊seq·vis_tokens_frac⌋ // 8 ·
+    8)`` patch embeddings and ``seq - s_vis`` text tokens (labels on the
+    text), with (3, batch, seq) M-RoPE positions; an enc-dec's ``seq //
+    2`` frame embeddings and ``seq // 2`` tokens."""
+    i32 = torch.int32
+    if cfg.family == "vlm":
+        s_vis = int(seq * cfg.vis_tokens_frac)
+        s_vis = max(8, (s_vis // 8) * 8)     # aligned, never zero
+        s_txt = seq - s_vis
+        return {"tokens": ((batch, s_txt), i32),
+                "labels": ((batch, s_txt), i32),
+                "patches": ((batch, s_vis, cfg.d_model), cfg.cdtype),
+                "positions3": ((3, batch, seq), i32)}
+    if cfg.is_encdec:
+        s_half = seq // 2
+        return {"frames": ((batch, s_half, cfg.d_model), cfg.cdtype),
+                "tokens": ((batch, s_half), i32),
+                "labels": ((batch, s_half), i32)}
+    return {"tokens": ((batch, seq), i32), "labels": ((batch, seq), i32)}
+
+
+def make_synthetic_batch(cfg: ArchConfig, batch: int, seq: int, seed: int,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """A random batch of ``train_batch_specs``'s shapes on ``device``:
+    tokens and labels uniform over the vocabulary, embeddings standard
+    normal (drawn in f32, then cast), ``positions3`` ``arange(seq)`` on
+    each stream.  Each entry is drawn from its own ``torch.Generator``,
+    seeded from ``seed`` and the entry's name (crc32)."""
+    device = resolve_device(device)
+    out = {}
+    for name, (shape, dtype) in train_batch_specs(cfg, batch, seq).items():
+        gen = torch.Generator(device=device)
+        gen.manual_seed((int(seed) * 1_000_003
+                         + zlib.crc32(name.encode())) % (2 ** 63))
+        if name in ("tokens", "labels"):
+            out[name] = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                      dtype=dtype, device=device)
+        elif name == "positions3":
+            out[name] = torch.arange(shape[-1], dtype=dtype,
+                                     device=device).expand(shape).clone()
+        else:
+            out[name] = torch.randn(shape, generator=gen,
+                                    dtype=torch.float32,
+                                    device=device).to(dtype)
+    return out

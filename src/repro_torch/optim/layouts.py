@@ -12,10 +12,12 @@ The reference stacks the layers of each position of the pattern unit into
 one leaf (``unit/<j>/mlp/wi`` of shape (n_repeats, n, m)); the port holds
 one parameter tensor a layer (``layers/<i>/mlp/wi``, layer i being repeat
 i // P of position i % P of a P-block pattern), and zamba2's shared block
-(``shared/...``) is one unstacked leaf in both.  Its state keeps the
-reference's stacked slots, so one ``OptimSpec`` resolves, sizes and
-counts (``memory_report``) exactly as there: every port leaf belongs to
-the stacked leaf ``reference_path`` names, and
+(``shared/...``) is one unstacked leaf in both.  An encoder-decoder's
+``encoder/<i>/...`` and ``decoder/<i>/...`` belong to the reference's
+stacked ``encoder/...`` and ``decoder/...`` leaves the same way.  Its
+state keeps the reference's stacked slots, so one ``OptimSpec`` resolves,
+sizes and counts (``memory_report``) exactly as there: every port leaf
+belongs to the stacked leaf ``reference_path`` names, and
 
   * a layer of a stacked MATRIX leaf is updated on its own, through views
     into the stacked slots (the reference's updates act on the last two
@@ -70,16 +72,31 @@ from repro_torch.train.znorm import N_STATS, STATS_DECAY
 _TINY = 1e-30
 
 
+# the port's per-layer lists that the reference stacks into one leaf
+# without a pattern position: an encoder-decoder's two stacks
+_LAYER_STACKS = ("encoder", "decoder")
+
+
 def reference_path(path: str, n_pattern: int = 1) -> str:
     """The reference's path of the stacked leaf a port leaf belongs to:
     ``layers/<i>/...`` -> ``unit/<i % n_pattern>/...`` (layer i is a
-    repeat of block i % n_pattern); other paths (``shared/...``,
-    ``embed``, ...) are the same in both packages."""
+    repeat of block i % n_pattern), ``encoder/<i>/...`` ->
+    ``encoder/...`` and ``decoder/<i>/...`` -> ``decoder/...``; other
+    paths (``shared/...``, ``embed``, ...) are the same in both
+    packages."""
     parts = path.split("/")
     if parts[0] == "layers":
         return "/".join(["unit", str(int(parts[1]) % n_pattern)]
                         + parts[2:])
+    if parts[0] in _LAYER_STACKS:
+        return "/".join(parts[:1] + parts[2:])
     return path
+
+
+def _is_stacked(ref: str) -> bool:
+    """Whether the reference's leaf ``ref`` stacks layers on a leading
+    axis (a pattern unit's, or an encoder-decoder stack's)."""
+    return ref.split("/")[0] in ("unit",) + _LAYER_STACKS
 
 
 def pattern_len(params) -> int:
@@ -114,7 +131,7 @@ def _stacked_shape(ref: str, members) -> tuple:
     """The shape of the reference's leaf: (n_repeats,) + the layer's shape
     for a unit leaf, the parameter's own shape otherwise."""
     shape = tuple(members[0][0].shape)
-    return (len(members),) + shape if ref.startswith("unit/") else shape
+    return (len(members),) + shape if _is_stacked(ref) else shape
 
 
 def _effective_rank(rank: int, shape) -> int:
@@ -188,7 +205,7 @@ def from_legacy_adamw(adamw_state, params) -> Dict:
     flat_v = adamw_lib.tree_leaves(adamw_state.v)
     leaves = {}
     for ref, members in _groups(params, list(zip(flat_m, flat_v))).items():
-        if ref.startswith("unit/"):
+        if _is_stacked(ref):
             leaves[ref] = {"m": torch.stack([m for _, (m, _) in members]),
                            "v": torch.stack([v for _, (_, v) in members])}
         else:
@@ -228,12 +245,12 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec):
     for ref, members in _groups(params, flat_g).items():
         idx, rule = spec.resolve_with_index(ref)
         slots = state["leaves"][ref]
-        stack = ref.startswith("unit/") and members[0][0].dim() == 1
+        stack = _is_stacked(ref) and members[0][0].dim() == 1
         if stack:
             # a stacked vector leaf is one matrix to the layouts
             layers = [(slots, torch.stack([p for p, _ in members]),
                        torch.stack([g for _, g in members]))]
-        elif ref.startswith("unit/"):
+        elif _is_stacked(ref):
             layers = [({name: t[i] for name, t in slots.items()}, p, g)
                       for i, (p, g) in enumerate(members)]
         else:

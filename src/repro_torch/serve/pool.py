@@ -32,10 +32,11 @@ from repro_torch.models import lm, ssm
 
 
 def _recurrent(btype: str) -> bool:
+    """Whether a pattern entry keeps slot-indexed recurrent state (an
+    attention entry keeps KV pages); another block type raises
+    ``ValueError``, as ``lm.block_decode_init`` does in both packages."""
     if btype not in lm.BLOCK_TYPES:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported yet (the next slice, "
-            f"ROADMAP.md Queue A.7)")
+        raise ValueError(btype)
     return btype in ssm.RECURRENT
 
 

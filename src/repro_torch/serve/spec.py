@@ -6,9 +6,9 @@ many sequences can be resident (``max_slots``), the KV page quantum
 (``page_size``), the per-request length ceiling (``max_len``), the
 prefill interleaving granularity (``prefill_chunk``) and the admission
 queue depth (``max_queue``) — and validates at CONSTRUCTION time: an
-arch the port cannot serve yet, a bad geometry or a device that is not
-there raises here with the reason, not hundreds of steps into a live
-service.
+arch the serve path cannot run (encoder-decoder), a bad geometry or a
+device that is not there raises here with the reason, not hundreds of
+steps into a live service.
 
 ``repro_torch.serve.ServeSession`` consumes a ServeSpec.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import registry
@@ -76,12 +76,6 @@ class ServeSpec:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.arch not in ARCH_NAMES:
-            raise ValueError(
-                f"arch {self.arch!r} cannot be served through the slot "
-                f"pool: the port serves the decoder-only archs "
-                f"{ARCH_NAMES}; encoder-decoder and VLM archs are not "
-                f"ported yet (the next slice, ROADMAP.md Queue A.7)")
         ok, reason = registry.serve_compatible(self.config)
         if not ok:
             raise ValueError(

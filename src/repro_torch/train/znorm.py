@@ -35,7 +35,7 @@ from repro_torch.core import plans
 from repro_torch.core.config import EstimatorKind, NormSource, WTACRSConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models import lm
+from repro_torch.models import registry
 
 _EPS = 1e-20
 
@@ -81,17 +81,23 @@ def trace_linears(cfg) -> cm.tag_recorder:
 
     The recorder notes every ``Ctx.linear`` tag before its config is
     consulted, so the trace runs the forward with exact linears on
-    ``meta`` tensors (a (2, 8) token batch, parameters without storage):
-    no full-width parameter set is allocated and no plan is built."""
-    params = lm.init_params(cfg, 0, device="meta")
+    ``meta`` tensors (the reference's batch of ``registry.train_batch_specs``
+    at batch 2 and ``8 * len(pattern)`` positions — a VLM's all patches
+    and no text, an encoder-decoder's half frames and half tokens —
+    parameters without storage): no full-width parameter set is allocated
+    and no plan is built.  An encoder-decoder's encoder and decoder
+    record the same tags, each call in ``.calls``."""
+    params = registry.init_params(cfg, 0, device="meta")
     seq = 2 * len(cfg.pattern) * 4
-    batch = {"tokens": torch.zeros((2, seq), dtype=torch.int32,
-                                   device="meta")}
+    batch = {name: torch.empty(shape, dtype=dtype, device="meta")
+             for name, (shape, dtype)
+             in registry.train_batch_specs(cfg, 2, seq).items()}
     rec = cm.tag_recorder()
     with torch.no_grad():
-        lm.forward(cfg, params, batch,
-                   cm.Policy(wtacrs=WTACRSConfig(kind=EstimatorKind.EXACT)),
-                   recorder=rec)
+        registry.forward(
+            cfg, params, batch,
+            cm.Policy(wtacrs=WTACRSConfig(kind=EstimatorKind.EXACT)),
+            recorder=rec)
     return rec
 
 

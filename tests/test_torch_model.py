@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
 from repro.core.config import WTACRSConfig as JaxWTACRSConfig
 from repro.models import attention as jax_attn
 from repro.models import common as jax_cm
+from repro.models import lm as jax_lm
 from repro.models import registry as jax_registry
 from repro_torch import convert
+from repro_torch.configs import ARCH_NAMES
 from repro_torch.core import WTACRSConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -25,7 +28,8 @@ from repro_torch.models.registry import get_config
 torch.set_num_threads(1)
 
 ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b",
-         "granite-moe-1b-a400m", "dbrx-132b", "zamba2-2.7b", "xlstm-125m"]
+         "granite-moe-1b-a400m", "dbrx-132b", "zamba2-2.7b", "xlstm-125m",
+         "qwen2-vl-2b", "whisper-base"]
 
 
 def _both(arch, compute_dtype):
@@ -40,11 +44,23 @@ def _both(arch, compute_dtype):
 
 
 def _batch(cfg, b=2, s=32, seed=0):
+    """Tokens and next-token labels of ``registry.train_batch_specs``'s
+    text length; a VLM's patch embeddings and M-RoPE positions, an
+    encoder-decoder's frame embeddings (N(0, 1) stubs)."""
+    specs = registry.train_batch_specs(cfg, b, s)
     rng = np.random.RandomState(seed)
-    toks = rng.randint(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    s_txt = specs["tokens"][0][1]
+    toks = rng.randint(0, cfg.vocab_size, (b, s_txt + 1)).astype(np.int32)
     labels = toks[:, 1:].copy()
     labels[:, :3] = -100                       # masked positions
-    return {"tokens": toks[:, :-1], "labels": labels}
+    out = {"tokens": toks[:, :-1], "labels": labels}
+    for name in ("patches", "frames"):
+        if name in specs:
+            out[name] = rng.randn(*specs[name][0]).astype(np.float32)
+    if "positions3" in specs:
+        out["positions3"] = np.broadcast_to(
+            np.arange(s, dtype=np.int32), specs["positions3"][0]).copy()
+    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -55,8 +71,10 @@ def test_reduced_configs_are_the_reference_field_for_field(arch):
         assert j == t
     assert get_config(arch).cdtype is torch.bfloat16
     assert get_config(arch).pdtype is torch.float32
+    # every arch of the reference is ported, in the reference's order
+    assert ARCH_NAMES == JAX_ARCH_NAMES
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-base")
+        get_config("gpt-5")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -78,7 +96,10 @@ def test_logits_and_loss_match_in_f32(arch):
         policy = cm.Policy(wtacrs=WTACRSConfig(**wta))
         logits, _ = registry.forward(tcfg, params, tb, policy, key=99)
         loss, aux = registry.loss_fn(tcfg, params, tb, policy, key=99)
-    assert logits.shape == (2, 32, tcfg.vocab_size)
+    # a VLM's logits cover its patch prefix too
+    s_out = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                        if "patches" in batch else 0)
+    assert logits.shape == (2, s_out, tcfg.vocab_size)
     # f32 on both sides; summation orders differ
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                rtol=1e-4, atol=1e-5)
@@ -114,13 +135,15 @@ def test_params_round_trip_through_numpy(arch):
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
     for (_, a), (_, b) in zip(flat_a, flat_b):
         np.testing.assert_array_equal(a, b)
-    assert len(params["layers"]) == tcfg.n_layers
+    layers = params["decoder"] if tcfg.is_encdec else params["layers"]
+    assert len(layers) == tcfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_own_init_has_the_reference_shapes_and_scales(arch):
     _, tcfg, _, tree, _ = _both(arch, "float32")
-    own = convert.params_to_numpy(tcfg, lm.init_params(tcfg, 0, device="cpu"))
+    own = convert.params_to_numpy(tcfg, registry.init_params(tcfg, 0,
+                                                             device="cpu"))
     flat_a = jax.tree_util.tree_leaves_with_path(own)
     flat_b = jax.tree_util.tree_leaves_with_path(tree)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
@@ -129,9 +152,9 @@ def test_own_init_has_the_reference_shapes_and_scales(arch):
         # same distribution, another random stream: compare the spread
         np.testing.assert_allclose(a.std(), b.std(), rtol=0.1, atol=1e-6,
                                    err_msg=jax.tree_util.keystr(path))
-    a = lm.init_params(tcfg, 0, device="cpu")["embed"]
-    b = lm.init_params(tcfg, 0, device="cpu")["embed"]
-    c = lm.init_params(tcfg, 1, device="cpu")["embed"]
+    a = registry.init_params(tcfg, 0, device="cpu")["embed"]
+    b = registry.init_params(tcfg, 0, device="cpu")["embed"]
+    c = registry.init_params(tcfg, 1, device="cpu")["embed"]
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
@@ -303,16 +326,26 @@ def test_shared_plan_keys_fold_the_prefixed_tags():
 
 
 def test_unported_blocks_and_options_raise():
-    """A recurrent pattern initialises; cross-attention, enc-dec and VLM
-    still raise, naming the next slice."""
+    """A recurrent pattern initialises; an ``"xattn"`` block type raises
+    ``ValueError`` in ``lm`` as in the reference (cross-attention lives in
+    the encoder-decoder model, ``models/encdec.py``; only
+    ``ArchConfig.n_params`` counts an ``"xattn"``); the enc-dec and VLM
+    archs initialise."""
     tcfg = get_config("qwen2.5-3b", reduced=True)
     ssm = dataclasses.replace(tcfg, pattern=("mamba",))
     layer = lm.init_params(ssm, 0, device="cpu")["layers"][0]
     assert sorted(layer) == ["mamba", "norm1"]
     xattn = dataclasses.replace(tcfg, pattern=("xattn",))
-    with pytest.raises(NotImplementedError, match="not ported yet.*A.7"):
+    with pytest.raises(ValueError, match="xattn"):
         lm.init_params(xattn, 0, device="cpu")
-    for change in (dict(encoder_layers=2), dict(family="vlm")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            lm.init_params(dataclasses.replace(tcfg, **change), 0,
-                           device="cpu")
+    with pytest.raises(ValueError, match="xattn"):
+        jax_lm.init_block(xattn, "xattn", jax.random.PRNGKey(0), jnp.float32)
+    with pytest.raises(ValueError, match="xattn"):
+        lm.block_decode_init(xattn, "xattn", 1, 4, device="cpu")
+    enc = registry.init_params(get_config("whisper-base", reduced=True), 0,
+                               device="cpu")
+    assert sorted(enc) == ["decoder", "embed", "enc_norm", "encoder",
+                           "final_norm", "pos_dec", "pos_enc"]
+    vlm = registry.init_params(get_config("qwen2-vl-2b", reduced=True), 0,
+                               device="cpu")
+    assert "vis_proj" in vlm and len(vlm["layers"]) == 2

@@ -36,6 +36,8 @@ from repro.configs import get_config as jax_get_config
 from repro.models import attention as jax_attn
 from repro.models import common as jax_cm
 from repro.models import registry as jax_registry
+from repro.serve import ServeSpec as JaxServeSpec
+from repro.serve import pool as jax_pool
 from repro_torch import convert
 from repro_torch.api import Run as PortRun
 from repro_torch.api import RunSpec as PortRunSpec
@@ -386,12 +388,15 @@ def test_greedy_solo_route_equals_jax_run_generate(jax_run, port_run, prompt,
 @pytest.mark.parametrize("arch", ["whisper-base", "xlstm-125m", "zamba2-2.7b",
                                   "qwen2-vl-2b"])
 def test_servespec_rejects_archs_not_ported_at_construction(arch):
-    """The recurrent archs are served; enc-dec and VLM are refused at
-    construction, naming the slice that ports them."""
-    if arch in ("xlstm-125m", "zamba2-2.7b"):
+    """The recurrent archs and the VLM are served; the encoder-decoder is
+    refused at construction with the reference's reason (its decode needs
+    a primed per-batch cross-attention cache and a shared scalar
+    position)."""
+    if arch != "whisper-base":
         assert ServeSpec(arch=arch, device="cpu").config.name == arch
         return
-    with pytest.raises(ValueError, match="not ported yet.*A.7"):
+    with pytest.raises(ValueError, match="encoder-decoder arch: decode "
+                       "requires a primed per-batch cross-attention cache"):
         ServeSpec(arch=arch, device="cpu")
 
 
@@ -399,11 +404,11 @@ def test_servespec_rejects_archs_not_ported_at_construction(arch):
     (dict(encoder_layers=2), "encoder-decoder"),
     (dict(pattern=("slstm",)), None),
     (dict(pattern=("attn", "mamba")), None),
-    (dict(family="vlm", pos_mode="mrope"), "VLM"),
+    (dict(family="vlm", pos_mode="mrope"), None),
 ])
 def test_serve_compatible_names_the_reason(change, reason):
-    """Recurrent and mixed patterns are served (``reason`` None); enc-dec
-    and VLM are refused with their reason."""
+    """Recurrent and mixed patterns and the VLM are served (``reason``
+    None); enc-dec is refused with the reference's reason."""
     cfg = dataclasses.replace(get_config("qwen2.5-3b", reduced=True),
                               **change)
     ok, why = registry.serve_compatible(cfg)
@@ -412,6 +417,9 @@ def test_serve_compatible_names_the_reason(change, reason):
     else:
         assert not ok and reason in why
     assert registry.serve_compatible(get_config("minicpm-2b")) == (True, "")
+    assert registry.serve_compatible(cfg) == jax_registry.serve_compatible(
+        dataclasses.replace(jax_get_config("qwen2.5-3b", reduced=True),
+                            **change))
 
 
 def test_servespec_rejects_bad_geometry():
@@ -472,8 +480,9 @@ def test_pool_bytes_counts_what_init_pool_allocates():
 
 def test_recurrent_blocks_raise_in_the_pool():
     """A recurrent pattern's pool is slot-indexed state, and ``pool_bytes``
-    counts what ``init_pool`` allocates; a block type not ported yet
-    raises in both."""
+    counts what ``init_pool`` allocates; a block type that no decoder has
+    (``"xattn"``) raises ``ValueError`` in both, as the reference's pool
+    does through ``block_decode_init``."""
     spec = _spec()
     cfg = dataclasses.replace(spec.config, pattern=("mamba",))
     states = pool.init_pool(cfg, spec, **CPU)
@@ -482,10 +491,15 @@ def test_recurrent_blocks_raise_in_the_pool():
     assert pool.pool_bytes(cfg, spec) == real
     assert states[0]["ssm"].shape[:2] == (cfg.n_repeats, spec.max_slots)
     xattn = dataclasses.replace(spec.config, pattern=("xattn",))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="xattn"):
         pool.init_pool(xattn, spec, **CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="xattn"):
         pool.pool_bytes(xattn, spec)
+    with pytest.raises(ValueError, match="xattn"):
+        jax_pool.pool_bytes(dataclasses.replace(
+            jax_get_config("qwen2.5-3b", reduced=True), pattern=("xattn",)),
+            JaxServeSpec(arch="qwen2.5-3b", reduced=True, max_slots=2,
+                         page_size=4, max_len=16))
 
 
 def test_gather_and_scatter_round_trip_through_pages():

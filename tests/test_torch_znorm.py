@@ -25,8 +25,9 @@ from repro_torch.train import znorm
 torch.set_num_threads(1)
 
 ARCHS = ["qwen2.5-3b", "minicpm-2b", "nemotron-4-15b", "command-r-35b"]
-# zamba2's shared block carries the attention/MLP tags every policy names
-TAG_ARCHS = ARCHS + ["zamba2-2.7b"]
+# zamba2's shared block carries the attention/MLP tags every policy names;
+# the VLM adds vis_proj, the encoder-decoder's two stacks share their tags
+TAG_ARCHS = ARCHS + ["zamba2-2.7b", "qwen2-vl-2b", "whisper-base"]
 
 
 def _policies(pkg):
