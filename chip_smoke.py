@@ -95,9 +95,10 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
   decode   64 greedy serve_steps from the prefill's (padded) caches, the
            first 8 positions against a teacher-forced forward
   pool     ServeSession (8 slots, paged KV, chunked prefill) on its
-           background loop serving 12 ragged greedy and 2 sampled
-           requests; each greedy request bit-equal to itself served
-           alone, the sampled ones repeatable, the solo route counted
+           background loop, qwen2.5-3b at published width cut to 12 layers,
+           serving 12 ragged greedy and 2 sampled requests; each greedy
+           request bit-equal to itself served alone, the sampled ones
+           repeatable, the solo route counted
   wide_serve  command-r-35b at published width (64/8 heads), depth cut
            40 -> 4: prefill of 2 x 2048 tokens through make_prefill_step
            (the flash kernel at 64/8 heads, wgmma) and 16 decode steps,
@@ -138,11 +139,11 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            54 layers far past the forward's own floor), the same in f32
            held against the f32 forward at 5e-2; 4 pool requests each
            bit-equal to itself alone and to the solo route
-  xlstm    xlstm-125m at full size (12 layers): 3 WTA-CRS steps (the last
-           one traced) and 1 exact step at B=4, S=1024, the device's idle
-           share of a step (the host's per-time-step loop); prefill 2 x
-           1024 and 16 decode steps held against the forward in bf16 and
-           in f32, 4 pool requests as in ssm
+  xlstm    xlstm-125m at published width, depth 12 -> 6: 3 WTA-CRS
+           steps (the last one traced) and 1 exact step at B=4, S=1024,
+           the device's idle share of a step (the host's per-time-step
+           loop); prefill 2 x 1024 and 16 decode steps held against the
+           forward in bf16 and in f32, 4 pool requests as in ssm
   vlm      qwen2-vl-2b at full size (28 layers, 12/2 heads of 128, M-RoPE;
            the vision frontend a stub: patch embeddings come in the batch):
            4 WTA-CRS steps (every linear sampled, vis_proj over the patch
@@ -162,6 +163,22 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            at a shared scalar position against the teacher-forced forward,
            in f32 and in bf16; ServeSpec, prefill and per-row positions
            refused as in the reference
+  dp       data parallelism, in child processes: (a) one rank over NCCL,
+           qwen2.5-3b at published width, depth 12, B=4, S=1024, WTA-CRS
+           0.3 on every linear: 3 make_shardmap_dp_step steps under each
+           gradient compression (none, bf16, int8), launches as the
+           structure implies, the reduction of a gradient-sized tree timed
+           with its payload, peaks; under det_topk and deterministic
+           algorithms, `none` bit-equal to make_train_step; (b) two ranks
+           sharing the card over gloo (CUDA tensors reduced through host
+           memory), depth 4, B=4 (2 a rank): 2 WTA-CRS steps a mode, the
+           ranks' parameters bit-identical (sha256), each compressed mean
+           of the ranks' own gradients within its quantization bound,
+           `none` against one rank on the global batch (exact linears in
+           f32; det_topk on every linear with the batch in the ranks'
+           shapes), and Run(mesh="host") at the same size (f32) under a
+           CACHED_GRAD controller policy: cache and statistics equal the
+           one-rank Run's (microbatches 2), ms a step
 
 then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -172,11 +189,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -185,6 +204,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -201,7 +221,8 @@ from repro_torch.kernels import gather_scale as gather_scale_mod  # noqa: E402
 from repro_torch.kernels import row_norms as row_norms_mod  # noqa: E402
 from repro_torch.kernels import \
     sampled_matmul as sampled_matmul_mod  # noqa: E402
-from repro_torch.launch import train_steps  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import sharding, train_steps  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import encdec, lm  # noqa: E402
@@ -210,7 +231,7 @@ from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.serve import ServeSession, ServeSpec  # noqa: E402
 from repro_torch.serve import pool as pool_lib  # noqa: E402
-from repro_torch.train import data, optim, znorm  # noqa: E402
+from repro_torch.train import compression, data, optim, znorm  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), the yardstick
 # every bound below is computed against.
@@ -221,7 +242,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
               "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
-              "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper")
+              "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -341,6 +362,9 @@ SSM_DW = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
           (10240, 2560)]
 FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 80, True)
 XLSTM_ARCH, XLSTM_STEPS, XLSTM_B, XLSTM_S = "xlstm-125m", 3, 4, 1024
+# the phase's depth: its steps, prefill and decode are a host loop over
+# time steps, ≈ 27 s a layer in all
+XLSTM_DEPTH = 6
 XLSTM_K = MOE_WTA.budget_rows(XLSTM_S)
 XLSTM_ROW_D = (768, 1536)
 XLSTM_DW = [(768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 768)]
@@ -2471,12 +2495,29 @@ def first_difference(a, b):
 POOL_GREEDY = [(1, 8), (5, 64), (17, 16), (32, 40), (33, 8), (64, 24),
                (100, 64), (128, 12), (9, 33), (48, 50), (77, 20), (120, 8)]
 POOL_SAMPLED = [(20, 32), (90, 24)]
+# the pool phase's depth: its three-way comparison (the load, each request
+# alone, the solo route) is decode-bound on the host, ≈ 6 s a layer
+POOL_DEPTH = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class CutServeSpec(ServeSpec):
+    """A ServeSpec of the published arch cut to ``n_layers`` layers
+    (ServeSpec itself serves whole configs)."""
+    n_layers: int = 0
+
+    @property
+    def config(self):
+        return dataclasses.replace(super().config, n_layers=self.n_layers)
 
 
 def phase_pool(cfg, params):
-    spec = ServeSpec(arch="qwen2.5-3b", reduced=False, max_slots=8,
-                     page_size=16, max_len=256, prefill_chunk=32, top_k=50,
-                     device="cuda")
+    """The slot-pool server on ``cfg`` (qwen2.5-3b at published width,
+    its depth cut to POOL_DEPTH) and the first layers of ``params``."""
+    params = dict(params, layers=params["layers"][:cfg.n_layers])
+    spec = CutServeSpec(arch="qwen2.5-3b", reduced=False, max_slots=8,
+                        page_size=16, max_len=256, prefill_chunk=32,
+                        top_k=50, device="cuda", n_layers=cfg.n_layers)
     corpus = data.SyntheticLM(cfg.vocab_size, 128,
                               len(POOL_GREEDY) + len(POOL_SAMPLED),
                               seed=3).batch(np.arange(14))["tokens"]
@@ -2657,12 +2698,12 @@ def decode_f32(cfg, params, prompt, n_check, name):
 
 
 def pool_requests(cfg, params, what):
-    """``MOE_SERVE``'s greedy requests through a 4-slot pool: each bit-equal
-    to itself served alone through a pool of the same spec and to the
-    solo route at the pool's shapes."""
-    spec = ServeSpec(arch=cfg.name, reduced=False, max_slots=4,
-                     page_size=16, max_len=128, prefill_chunk=16,
-                     device="cuda")
+    """``MOE_SERVE``'s greedy requests through a 4-slot pool of ``cfg``'s
+    arch at ``cfg``'s depth: each bit-equal to itself served alone through
+    a pool of the same spec and to the solo route at the pool's shapes."""
+    spec = CutServeSpec(arch=cfg.name, reduced=False, max_slots=4,
+                        page_size=16, max_len=128, prefill_chunk=16,
+                        device="cuda", n_layers=cfg.n_layers)
     corpus = data.SyntheticLM(cfg.vocab_size, 64, len(MOE_SERVE),
                               seed=4).batch(np.arange(len(MOE_SERVE)))[
                                   "tokens"]
@@ -3022,16 +3063,17 @@ def phase_ssm():
 
 
 def phase_xlstm():
-    """xlstm-125m at full size (12 layers, nothing cut): 3 WTA-CRS and 1
-    exact step at B=4, S=1024, the share of the step that is the host's
-    time loop (wall against device-busy), then prefill, decode and the
-    pool.  Returns the train steps' launches."""
+    """xlstm-125m at published width, depth 12 cut to XLSTM_DEPTH: 3
+    WTA-CRS and 1 exact step at B=4, S=1024, the share of the step that
+    is the host's time loop (wall against device-busy), then prefill,
+    decode and the pool.  Returns the train steps' launches."""
     t0 = time.perf_counter()
     cfg = get_config(XLSTM_ARCH)
     published_ssm("xlstm", cfg, (768, 4, 4, 192, 0, 50304, False, 0, 64, 2,
                                  4, ("mlstm", "slstm")))
     if cfg.n_layers != 12:
         fail(f"xlstm: {cfg.n_layers} layers, the published model has 12")
+    cfg = dataclasses.replace(cfg, n_layers=XLSTM_DEPTH)
     rec, launches = full_size_train("xlstm", cfg, XLSTM_B, XLSTM_S,
                                     XLSTM_STEPS, 1)
     emit({"phase": "xlstm_train", **rec})
@@ -3260,6 +3302,558 @@ def phase_whisper():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3            # (a): steps under each compression mode
+DP_GLOO_DEPTH = 4       # (b): qwen2.5-3b at published width, depth 36 -> 4
+DP_GLOO_STEPS = 2
+DP_LR = 1e-4
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_payload(params, mode):
+    """Bytes a rank hands to all_reduce for one gradient reduction: under
+    int8 the reference's stacked leaves (one maximum each)."""
+    leaves = optim.tree_leaves(params)
+    if mode == "int8":
+        leaves = [torch.empty((len(idx),) + tuple(leaves[idx[0]].shape),
+                              device="meta")
+                  for idx in optim_lib.reference_groups(params)]
+    return compression.payload_bytes(leaves, mode)
+
+
+def time_reduction(params, mesh, mode, grads, reps=3):
+    """CUDA-event ms of ``reduce_gradients`` (the all-reduce and the
+    compression) on a copy of ``grads``, median of ``reps`` after one
+    warm-up; returns (ms, the last result)."""
+    times = []
+    for _ in range(reps + 1):
+        copy = [g.clone() for g in grads]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_steps.reduce_gradients(copy, params, mesh, mode)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        del copy
+    return statistics.median(times[1:]), out
+
+
+def params_digest(params) -> str:
+    """sha256 of every parameter's bytes, in ``named_leaves`` order."""
+    h = hashlib.sha256()
+    for p in optim.tree_leaves(params):
+        h.update(bits(p).cpu().numpy())
+    return h.hexdigest()
+
+
+def dp_steps(cfg, policy, mesh, mode, ds, n_steps, what, keep_m1=False,
+             microbatches=1):
+    """A fresh state from seed 0 and ``n_steps`` of
+    ``make_shardmap_dp_step`` on this rank's slice of each batch of B (or,
+    with ``microbatches`` > 1, of ``make_train_step`` with that many
+    microbatches, the whole batch on one rank): losses, step ms (host
+    clock to a synchronize), peak, launches (checked against the
+    structure's count; dW on wgmma in bf16, on fma in f32), the state, and
+    (``keep_m1``: a copy the size of the parameters, in the peak) the first
+    moments after the first step."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_steps.init_train_state(cfg, 0)
+    sched = optim.linear_warmup_constant(DP_LR, 2)
+    step = (train_steps.make_train_step(cfg, policy, optim.AdamWConfig(),
+                                        sched, microbatches=microbatches)
+            if microbatches > 1 else train_steps.make_shardmap_dp_step(
+                cfg, policy, optim.AdamWConfig(), sched, mesh,
+                compress=mode))
+    reset_launches()
+    losses, times, m1 = [], [], None
+    for i in range(n_steps):
+        if mesh.group is not None:
+            dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, sharding.shard_batch(ds.batch_at(i, B), mesh))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        if i == 0 and keep_m1:
+            m1 = [x.clone() for x in optim.tree_leaves(state["opt"].m)]
+    per_step = launches_per_step(cfg, policy, S, microbatches=microbatches)
+    launches = expect_launches(what, {name: n * n_steps
+                                      for name, n in per_step.items()})
+    if per_step["fused_sampled_dw"]:       # an exact policy launches none
+        expect_route(what, "fused_sampled_dw",
+                     "fma" if cfg.cdtype == torch.float32 else "wgmma")
+        expect_route(what, "gather_scale", "bulk")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    return {"losses": losses, "step_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "launches_per_step": per_step}, state, m1
+
+
+def dp_nccl_child(port):
+    """(a) One rank over NCCL (a tcp://127.0.0.1 rendezvous), qwen2.5-3b
+    at published width, depth 12, B=4, S=1024, WTA-CRS 0.3 on every
+    linear: 3 make_shardmap_dp_step steps under each compression mode
+    (losses falling, launches as the structure implies, dW on wgmma, H' on
+    bulk, peak), the reduction of a gradient-sized tree timed (CUDA
+    events) with its payload; then, under deterministic algorithms and
+    det_topk, 2 steps of ``none`` bit-equal to make_train_step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+        ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+        wta = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                            min_rows=4),
+                        remat="none", flash_block=512)
+        modes = {}
+        for mode in compression.MODES:
+            rec, state, _ = dp_steps(cfg, wta, mesh, mode, ds, DP_STEPS,
+                                     f"dp nccl {mode}")
+            if not rec["losses"][-1] < rec["losses"][0]:
+                fail(f"dp nccl {mode}: loss did not fall: {rec['losses']}")
+            params = state["params"]
+            del state
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1)
+            grads = [1e-3 * torch.randn(p.shape, generator=gen,
+                                        device="cuda")
+                     for p in optim.tree_leaves(params)]
+            rec["reduce_ms"], out = time_reduction(params, mesh, mode, grads)
+            rec["payload_bytes"] = dp_payload(params, mode)
+            modes[mode] = rec
+            del params, grads, out
+        # world 1: the all-reduce is the identity and the mean divides by
+        # 1, so `none` is make_train_step's step bit for bit (det_topk
+        # draws nothing, so the folded seed does not matter)
+        torch.use_deterministic_algorithms(True)
+        det = cm.Policy(wtacrs=WTACRSConfig(kind="det_topk", budget=0.3,
+                                            min_rows=4),
+                        remat="none", flash_block=512)
+        sched = optim.linear_warmup_constant(DP_LR, 2)
+        legs = {}
+        for name in ("make_train_step", "make_shardmap_dp_step"):
+            torch.cuda.empty_cache()
+            state = train_steps.init_train_state(cfg, 0)
+            step = (train_steps.make_train_step(cfg, det, optim.AdamWConfig(),
+                                                sched)
+                    if name == "make_train_step" else
+                    train_steps.make_shardmap_dp_step(
+                        cfg, det, optim.AdamWConfig(), sched, mesh))
+            losses = []
+            for i in range(2):
+                state, m = step(state, sharding.shard_batch(
+                    ds.batch_at(i, B), mesh))
+                losses.append(float(m["loss"]))
+            legs[name] = (losses, state["params"])
+            del state, step
+        (la, pa), (lb, pb) = legs.values()
+        if la != lb or not all(torch.equal(bits(x), bits(y)) for x, y in zip(
+                optim.tree_leaves(pa), optim.tree_leaves(pb))):
+            fail(f"dp nccl: world-1 none is not make_train_step's step bit "
+                 f"for bit: losses {lb} vs {la}")
+        torch.use_deterministic_algorithms(False)
+        emit({"backend": dist.get_backend(), "world": mesh.shape["data"],
+              "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+              "seq": S, "budget": 0.3, "modes": modes,
+              "det_topk_none_equals_make_train_step": {
+                  "losses": la, "bit_equal": True}})
+    finally:
+        dist.destroy_process_group()
+
+
+def local_grads(cfg, policy, params, batch):
+    """This rank's gradients of ``loss_fn`` over its slice (list, in
+    ``tree_leaves`` order)."""
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = registry.loss_fn(cfg, params, {
+            k: torch.as_tensor(v).cuda() for k, v in batch.items()
+            if k != "sample_ids"}, policy, key=0)
+        return list(torch.autograd.grad(loss, leaves))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def quantization_bounds(grads, params, mesh, exact):
+    """Per-element bounds of the compressed mean's distance to the exact
+    one.  bf16 (8 significant bits: a rounding moves a value by at most
+    2^-8 of it): each rank's cast and the bf16 sum each round once, so
+    |mean_bf16 - mean| <= 2^-7 (1 + 2^-8) mean_r |g_r|.  int8: no value is
+    clipped (|g_r| / scale <= 127) and each rank rounds to half a scale,
+    so |mean_int8 - mean| <= scale / 2, with scale = sum_r max|g_r| / 127
+    over the reference leaf.  Both with 1e-6 of mean_r |g_r| + |mean| for
+    the f32 roundings around them."""
+    mean_abs = train_steps.reduce_gradients([g.abs() for g in grads],
+                                            params, mesh, "none")
+    groups = optim_lib.reference_groups(params)
+    amax = torch.stack([torch.stack([grads[i].abs().max() for i in idx]).max()
+                        for idx in groups])
+    dist.all_reduce(amax, group=mesh.group)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    slack = [1e-6 * (m + e.abs()) for m, e in zip(mean_abs, exact)]
+    out = {"bf16": [2.0 ** -7 * (1 + 2.0 ** -8) * m + sl
+                    for m, sl in zip(mean_abs, slack)],
+           "int8": [None] * len(grads)}
+    for j, idx in enumerate(groups):
+        for i in idx:
+            out["int8"][i] = scale[j] / 2 + slack[i]
+    return out
+
+
+def redrawn_gains(params):
+    """``params`` with every norm gain redrawn from [0.5, 1.5] (seed 1)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for path, p in optim.named_leaves(params):
+        if path.endswith("gamma"):
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda") + 0.5)
+    return params
+
+
+def dp_run_record(run, clock):
+    st = run.state
+    return {"losses": [h["loss"] for h in run.history],
+            "step_ms": clock.step_ms(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "znorm": {t: x.cpu() for t, x in st["znorm"].items()},
+            "budget_stats": {t: x.cpu()
+                             for t, x in st["budget_stats"].items()},
+            "params_digest": params_digest(st["params"])}
+
+
+def dp_run(spec, cfg, start):
+    """A Run of ``cfg`` (the spec's arch, its depth cut) on the card from
+    the parameters ``start``: Run.fit, each step timed."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = Run(spec)
+    run.cfg = cfg
+    run.init()
+    with torch.no_grad():
+        for dst, src in zip(optim.tree_leaves(run.state["params"]),
+                            optim.tree_leaves(start)):
+            dst.copy_(src)
+    clock = StepClock(run.dataset)
+    run.fit(clock)
+    return dp_run_record(run, clock)
+
+
+def dp_hold_run(host, alone, world):
+    """``Run(mesh="host")`` against the one-rank Run on the global batch in
+    the ranks' shapes (``world`` microbatches): the same plans on the same
+    rows, so losses, znorm cache and statistics at rtol 1e-5 / atol 1e-6.
+    A microbatch's taps come from its own slice's mean loss and a rank's
+    are divided by W² (``make_train_step``), so the one-rank cache (the
+    taps' square roots) is W times the ranks' (a power of two: exact).
+    Returns the largest
+    |difference| / |one rank's value| of each, and whether all were
+    equal bit for bit."""
+    if not np.allclose(host["losses"], alone["losses"], rtol=1e-5,
+                       atol=1e-6):
+        fail(f"dp gloo Run: losses {host['losses']} vs one rank "
+             f"{alone['losses']}")
+    same = host["losses"] == alone["losses"]
+    worst = {}
+    for name, scale in (("znorm", world), ("budget_stats", 1)):
+        if set(host[name]) != set(alone[name]) or not alone[name]:
+            fail(f"dp gloo Run: {name} tags {sorted(host[name])} vs one "
+                 f"rank {sorted(alone[name])}")
+        worst[name] = 0.0
+        for t, x in alone[name].items():
+            got = host[name][t] * scale
+            if not torch.allclose(got, x, rtol=1e-5, atol=1e-6):
+                fail(f"dp gloo Run: {name}/{t} differs from the "
+                     f"one-rank Run's")
+            same = same and torch.equal(got, x)
+            rel = (got - x).abs() / x.abs().clamp(min=1e-30)
+            worst[name] = max(worst[name], float(rel.max()))
+    return {"max_rel_diff_one_rank": worst,
+            "bit_equal_one_rank": bool(same)}
+
+
+def dp_gloo_child(rank, port):
+    """(b) One of two ranks sharing the card over gloo (CUDA tensors,
+    reduced through host memory): qwen2.5-3b at published width, depth 4,
+    global B=4 (2 a rank), S=1024.  2 make_shardmap_dp_step steps under
+    each mode with WTA-CRS 0.3 on every linear (launches, losses, ms a
+    step, the parameters' sha256 for the ranks' bit-identity); the
+    reduction of the ranks' own first gradients timed and held to each
+    mode's quantization bound; `none` against one rank on the global batch
+    (rank 0), 2 steps each: with exact linears in f32 on the whole batch,
+    and with det_topk on every linear in bf16 on the batch in the ranks'
+    shapes (make_train_step, 2 microbatches), under deterministic
+    algorithms (between batch shapes the GEMMs round activations
+    differently and top-k flips where rows' norms tie to that rounding at
+    the k-th place: layer 2's attn/wk in bf16, and in f32 a step-2 loss
+    1.4e-5 off, on an H100); and Run(mesh="host") at the same size
+    under a CACHED_GRAD controller policy against the one-rank Run in the
+    ranks' shapes (rank 0), ms a step."""
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  n_layers=DP_GLOO_DEPTH)
+        ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+        wta = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                            min_rows=4),
+                        remat="none", flash_block=512)
+        modes = {}
+        for mode in compression.MODES:
+            rec, state, _ = dp_steps(cfg, wta, mesh, mode, ds,
+                                     DP_GLOO_STEPS, f"dp gloo {mode}")
+            rec["params_digest"] = params_digest(state["params"])
+            modes[mode] = rec
+            del state
+        # the reduction of this rank's own gradients, timed, each mode
+        # held to its quantization bound of the exact mean
+        params = registry.init_params(cfg, 0)
+        grads = local_grads(cfg, wta, params, sharding.shard_batch(
+            ds.batch_at(0, B), mesh))
+        # a host round trip of seconds: one timed call after the warm-up
+        exact_ms, exact = time_reduction(params, mesh, "none", grads,
+                                         reps=1)
+        bounds = quantization_bounds(grads, params, mesh, exact)
+        reduce = {"none": {"reduce_ms": exact_ms}}
+        for mode in ("bf16", "int8"):
+            ms, got = time_reduction(params, mesh, mode, grads, reps=1)
+            # a zero bound (no rank has a gradient there) allows no error
+            worst = 0.0
+            for g, e, b in zip(got, exact, bounds[mode]):
+                d = (g - e).abs()
+                if bool((d[b == 0] > 0).any()):
+                    worst = math.inf
+                worst = max(worst, float((d / b.clamp(min=1e-30)).max()))
+            if not worst <= 1.0:
+                fail(f"dp gloo {mode}: the compressed mean is "
+                     f"{worst:.3f}x its quantization bound from the exact")
+            reduce[mode] = {"reduce_ms": ms, "worst_over_bound": worst}
+            del got
+        for mode in compression.MODES:
+            reduce[mode]["payload_bytes"] = dp_payload(params, mode)
+        del params, grads, exact, bounds
+        # `none` against one rank on the global batch: exact linears in
+        # f32, the batch whole; then det_topk on every linear in bf16, the
+        # batch in the ranks' shapes (microbatches of B/2), where the plans
+        # are the same by construction and halving is exact
+        one = mesh_lib.Mesh({"data": 1, "model": 1}, ("data", "model"),
+                            device=torch.device("cuda"))
+        det = WTACRSConfig(kind="det_topk", budget=0.3, min_rows=4)
+        for name, leg_cfg, wtacrs, mb in (
+                ("none_exact_f32",
+                 dataclasses.replace(cfg, compute_dtype="float32"),
+                 EXACT_CONFIG, 1),
+                ("none_det_topk", cfg, det, 2)):
+            policy = cm.Policy(wtacrs=wtacrs, remat="none", flash_block=512)
+            # (and on through the Run legs below)
+            torch.use_deterministic_algorithms(mb > 1, warn_only=True)
+            world1 = None
+            if rank == 0:
+                world1 = dp_steps(leg_cfg, policy, one, "none", ds,
+                                  DP_GLOO_STEPS, f"dp world 1 {name}",
+                                  keep_m1=True, microbatches=mb)
+            dist.barrier()
+            rec, state, m1 = dp_steps(leg_cfg, policy, mesh, "none", ds,
+                                      DP_GLOO_STEPS, f"dp gloo {name}",
+                                      keep_m1=True)
+            rec["params_digest"] = params_digest(state["params"])
+            if world1 is not None:
+                ref, ref_state, ref_m1 = world1
+                rec["losses_world1"] = ref["losses"]
+                rec["world1_microbatches"] = mb
+                dp_hold_to_world1(name, rec, m1, state["params"],
+                                  (ref["losses"], ref_m1,
+                                   ref_state["params"]))
+                del ref_state, ref_m1
+            modes[name] = rec
+            del state, m1, world1
+        # Run(mesh="host") against the one-rank Run on the global batch in
+        # the ranks' shapes (microbatches 2): published width, depth 4,
+        # f32 compute, B=4 of S=1024
+        run_cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                      n_layers=DP_GLOO_DEPTH,
+                                      compute_dtype="float32")
+        spec = dict(arch="qwen2.5-3b", reduced=False, steps=DP_GLOO_STEPS,
+                    batch_size=B, lr=DP_LR, warmup=2,
+                    data=DataSpec(seq_len=S, n_samples=DP_GLOO_STEPS * B),
+                    policy=cm.Policy(rules=PolicyRules.of(Rule.of(
+                        "*mlp*", WTACRSConfig(kind="det_topk", budget=0.3,
+                                              min_rows=4,
+                                              norm_source="cached_grad"),
+                        ESSProportional(b_min=0.1, b_max=0.6, levels=6,
+                                        warmup=1)))))
+        start = redrawn_gains(registry.init_params(run_cfg, 0))
+        alone = (dp_run(RunSpec(**spec, microbatches=2), run_cfg, start)
+                 if rank == 0 else None)
+        dist.barrier()
+        host = dp_run(RunSpec(**spec, mesh="host"), run_cfg, start)
+        torch.use_deterministic_algorithms(False)
+        del start
+        run_rec = {"n_layers": run_cfg.n_layers, "batch": B, "seq": S,
+                   "losses": host["losses"], "step_ms": host["step_ms"],
+                   "peak_bytes": host["peak_bytes"],
+                   "params_digest": host["params_digest"]}
+        if alone is not None:
+            run_rec.update(
+                losses_one_rank=alone["losses"],
+                step_ms_one_rank=alone["step_ms"],
+                peak_bytes_one_rank=alone["peak_bytes"],
+                one_rank_microbatches=2,
+                **dp_hold_run(host, alone, mesh.shape["data"]),
+                cache_and_stats_equal_one_rank=True)
+        emit({"rank": rank, "backend": dist.get_backend(),
+              "world": mesh.shape["data"], "arch": cfg.name,
+              "n_layers": cfg.n_layers, "global_batch": B,
+              "rank_batch": B // 2, "seq": S, "modes": modes,
+              "reduce": reduce, "run": run_rec})
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_hold_to_world1(what, rec, m1, params, ref):
+    """`none` at two ranks against one rank on the global batch (f32): the
+    sums run in another order.  Losses at rtol 1e-5; the first moments
+    (linear in the mean gradient) at rtol 1e-5 with 1e-5 of the leaf's
+    largest for atol: they carry the check.  The parameters after 2 steps
+    at rtol 1e-5 / atol 1e-6 except where a gradient is as small as its
+    rounding noise (Adam then moves by that noise over eps, by up to lr
+    a step): at most 1e-4 of the elements."""
+    losses, ref_m1, ref_params = ref
+    if not np.allclose(rec["losses"], losses, rtol=1e-5, atol=0):
+        fail(f"dp gloo {what}: losses {rec['losses']} vs world 1 {losses}")
+    for i, (x, y) in enumerate(zip(m1, ref_m1)):
+        if not torch.allclose(x, y, rtol=1e-5,
+                              atol=1e-5 * float(y.abs().max())):
+            d = (x - y).abs()
+            fail(f"dp gloo {what}: first moments of leaf {i} "
+                 f"{tuple(y.shape)} differ from world 1: max diff "
+                 f"{float(d.max())}, leaf max {float(y.abs().max())}, "
+                 f"elements off "
+                 f"{int((d > 1e-5 * y.abs() + 1e-5 * y.abs().max()).sum())}")
+    off = total = 0
+    worst = 0.0
+    for x, y in zip(optim.tree_leaves(params), optim.tree_leaves(ref_params)):
+        d = (x - y).abs()
+        off += int((d > 1e-6 + 1e-5 * y.abs()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    if off > total * 1e-4:
+        fail(f"dp gloo {what}: {off} of {total} parameters off world 1 "
+             f"(largest {worst})")
+    rec["params_off_world1"] = off
+    rec["params_max_diff_world1"] = worst
+    rec["bit_equal_world1"] = bool(
+        rec["losses"] == losses
+        and all(torch.equal(x, y) for x, y in zip(m1, ref_m1))
+        and all(torch.equal(x, y) for x, y in zip(
+            optim.tree_leaves(params), optim.tree_leaves(ref_params))))
+
+
+def run_children(fn, n, *args, timeout):
+    """``chip_smoke.<fn>(rank, *args)`` in ``n`` processes at once (output
+    to files under build/, so no pipe fills); returns the JSON object of
+    each one's last line, by rank.  The first to fail ends them all: its
+    peers would otherwise wait in a collective until the timeout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix=f"{fn}-", dir=os.path.join(here, "build"))
+    logs = [(open(os.path.join(work, f"{r}.out"), "w+"),
+             open(os.path.join(work, f"{r}.err"), "w+")) for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CHILD, here, fn, str(r), *args],
+        stdout=out, stderr=err, text=True, env=env)
+        for r, (out, err) in enumerate(logs)]
+    try:
+        deadline = time.perf_counter() + timeout
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() > deadline:
+                r = bad[0] if bad else None
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                if r is None:
+                    fail(f"{fn}: the children did not end in {timeout} s")
+                logs[r][1].seek(0)
+                fail(f"{fn} rank {r}: the child exited "
+                     f"{procs[r].returncode}: "
+                     f"{logs[r][1].read().strip()[-3000:]}")
+            time.sleep(0.5)
+        outs = []
+        for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                err.seek(0)
+                fail(f"{fn} rank {r}: the child exited {p.returncode}: "
+                     f"{err.read().strip()[-3000:]}")
+            out.seek(0)
+            outs.append(json.loads(out.read().strip().splitlines()[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in logs:
+            out.close()
+            err.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_dp():
+    """Data parallelism (``launch/mesh.py``, ``train/compression.py``,
+    ``make_shardmap_dp_step``, ``Run(mesh="host")``), each leg in child
+    processes (a process group and deterministic cuBLAS are process-wide):
+    (a) one rank over NCCL at full width, (b) two ranks sharing the card
+    over gloo.  Returns (a)'s launches, all modes."""
+    t0 = time.perf_counter()
+    nccl = run_child("dp_nccl_child", str(free_port()), timeout=600)
+    t1 = time.perf_counter()
+    gloo = run_children("dp_gloo_child", 2, str(free_port()), timeout=600)
+    t2 = time.perf_counter()
+    for mode in gloo[0]["modes"]:
+        digests = {r["modes"][mode]["params_digest"] for r in gloo}
+        if len(digests) != 1:
+            fail(f"dp gloo {mode}: the ranks' parameters differ")
+    if len({r["run"]["params_digest"] for r in gloo}) != 1:
+        fail("dp gloo Run: the ranks' parameters differ")
+    launches = {name: sum(m["launches"][name]
+                          for m in nccl["modes"].values())
+                for name in ("row_norms", "gather_scale",
+                             "fused_sampled_dw")}
+    emit({"phase": "dp", "nccl_world1": nccl, "gloo_world2": gloo,
+          "ranks_bit_identical": True, "nccl_s": t1 - t0,
+          "gloo_s": t2 - t1, "launches": launches,
+          "note": "the gloo ranks share one card and reduce through host "
+                  "memory: their all-reduce ms are a host round trip, "
+                  "not an interconnect's"})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3285,7 +3879,7 @@ def main() -> int:
     if set(phases) & {"build", "kernels", "parity", "train", "memory",
                       "adaptive", "accumulate", "optim", "run", "resume",
                       "serve_parity", "prefill", "wide_serve", "moe",
-                      "moe_wide", "ssm", "xlstm", "vlm", "whisper"}:
+                      "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -3362,7 +3956,7 @@ def main() -> int:
                 phase_decode(cfg, params, *prefilled)
             del prefilled
         if "pool" in phases:
-            phase_pool(cfg, params)
+            phase_pool(dataclasses.replace(cfg, n_layers=POOL_DEPTH), params)
         del params
         torch.cuda.empty_cache()
     if "wide_serve" in phases:
@@ -3379,6 +3973,9 @@ def main() -> int:
         phase_launches["vlm"] = phase_vlm()
     if "whisper" in phases:
         phase_launches["whisper"] = phase_whisper()
+    dp_launches = {}
+    if "dp" in phases:
+        dp_launches = phase_dp()
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
@@ -3387,7 +3984,8 @@ def main() -> int:
         # (sampled_matmul) and the prefill phase (flash_attention_fwd)
         # counted — for the optim, wide_serve, moe, moe_wide, ssm, xlstm,
         # vlm and whisper shapes those phases' —
-        # and beside them the launches of the Run phase's fit
+        # and beside them the launches of the Run phase's fit and of the
+        # dp phase's one-rank NCCL leg (the train phase's shapes)
         summary = []
         for c in cases:
             if ("ms" in c and c["dtype"] == "bfloat16"
@@ -3395,7 +3993,8 @@ def main() -> int:
                 counted = (phase_launches[c["phase"]] if "phase" in c
                            else launches)
                 entry = dict(c, launches=counted[c["name"]],
-                             launches_run=run_launches[c["name"]])
+                             launches_run=run_launches[c["name"]],
+                             launches_dp=dp_launches.get(c["name"], 0))
                 if "phase" not in c and c["name"] in by_route:
                     entry["launches_by_route"] = by_route[c["name"]]
                 summary.append(entry)

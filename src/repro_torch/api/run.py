@@ -19,20 +19,31 @@ checkpoint manifest as a versioned record).
 Every step maker runs on ``device`` (``"cuda"`` unless the caller asks for
 the CPU); on the card the sampled linears go through the hand-written
 kernels.
+
+``RunSpec(mesh="host")`` runs data parallel: every rank of the
+initialised process group builds the same Run, draws the same parameters
+from the seed (checked with each leaf's all-gathered sha256), trains on
+its slice of each global batch through the data-parallel scheduled step,
+restores from the same checkpoints; rank 0 alone writes checkpoints
+(after a barrier) and prints ``fit``'s log lines.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim as optim_lib
 from repro_torch.api.spec import RunSpec, ServeSpec
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import report as report_lib
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch import train_steps
 from repro_torch.models import registry
 from repro_torch.serve import ServeSession, sampling
@@ -64,6 +75,16 @@ class Run:
         self.tags: List[str] = (
             znorm.collect_linear_tags(self.cfg, policy=self.policy)
             if self.use_znorm_cache else [])
+        self.mesh = (mesh_lib.make_host_mesh(spec.model_parallel,
+                                             device=self.device)
+                     if spec.mesh == "host" else None)
+        self._world = 1 if self.mesh is None else self.mesh.shape["data"]
+        self._rank = 0 if self.mesh is None else mesh_lib.data_index(
+            self.mesh)
+        if spec.batch_size % (self._world * spec.microbatches):
+            raise ValueError(
+                f"batch_size {spec.batch_size} does not split into "
+                f"{self._world} ranks of {spec.microbatches} microbatches")
         self.state: Optional[Dict[str, Any]] = None
         # parameters drawn for serving before any train state exists
         self._params: Optional[Dict[str, Any]] = None
@@ -85,6 +106,26 @@ class Run:
             self.state = self._new_state(self.spec.optimizer)
         return self
 
+    def _check_replicated(self, params) -> None:
+        """Fail unless every rank holds the same parameter bits: each
+        leaf's sha256, all-gathered and compared with this rank's."""
+        paths, digests = [], []
+        for path, p in adamw_lib.named_leaves(params):
+            raw = p.detach().contiguous().reshape(-1).view(torch.uint8)
+            paths.append(path)
+            digests.append(np.frombuffer(
+                hashlib.sha256(raw.cpu().numpy()).digest(), dtype=np.int64))
+        mine = torch.from_numpy(np.stack(digests)).to(self.device)
+        every = [torch.empty_like(mine) for _ in range(self._world)]
+        dist.all_gather(every, mine, group=self.mesh.group)
+        for other in every:
+            if not torch.equal(other, mine):
+                leaf = int((other != mine).any(dim=1).nonzero()[0])
+                raise RuntimeError(
+                    f"rank {self._rank}: the ranks drew different "
+                    f"parameters from seed {self.spec.seed} (first at "
+                    f"{paths[leaf]})")
+
     def _new_state(self, opt):
         """A fresh train state whose optimizer state has ``opt``'s layout
         (``restore`` of a legacy checkpoint asks for ``AdamWConfig``)."""
@@ -96,6 +137,8 @@ class Run:
             params=self._params, opt=opt,
             opt_ranks=self.schedule_state.ranks or None)
         self._params = None
+        if self._world > 1:
+            self._check_replicated(state["params"])
         return state
 
     @property
@@ -122,7 +165,9 @@ class Run:
                 self.spec.make_lr_schedule(),
                 schedule_state=self.schedule_state,
                 use_znorm_cache=self.use_znorm_cache,
-                microbatches=self.spec.microbatches, device=self.device)
+                microbatches=self.spec.microbatches, device=self.device,
+                mesh=self.mesh,
+                data_axes=self.spec.data_axes if self.mesh else None)
         return self._step_fn
 
     # ------------------------------------------------------------------
@@ -132,9 +177,12 @@ class Run:
     def step(self, batch) -> Dict[str, float]:
         """One optimizer step on one batch (dict of arrays; a
         ``sample_ids`` entry is consumed by the znorm cache and dropped
-        automatically when the policy needs none)."""
+        automatically when the policy needs none).  On a host mesh
+        ``batch`` is the global batch; each rank trains on its slice."""
         self.init()
         b = dict(batch)
+        if self.mesh is not None:
+            b = shard_lib.shard_batch(b, self.mesh)
         if not self.use_znorm_cache:
             b.pop("sample_ids", None)
         elif "sample_ids" not in b:
@@ -171,7 +219,8 @@ class Run:
         t0 = time.perf_counter()
         for s in range(start, total):
             m = self.step(ds.batch_at(s, self.spec.batch_size))
-            if log_every and (s % log_every == 0 or s == total - 1):
+            if (log_every and self._rank == 0
+                    and (s % log_every == 0 or s == total - 1)):
                 dt = (time.perf_counter() - t0) / max(s - start + 1, 1)
                 print(f"step {s:5d}  loss {m['loss']:.4f}  "
                       f"lr {m['lr']:.2e}  {dt * 1e3:.0f} ms/step")
@@ -180,7 +229,12 @@ class Run:
                 self.save(block=False)
         if self._async_ckpt is not None:
             self._async_ckpt.wait()
+        self._barrier()
         return self.history
+
+    def _barrier(self) -> None:
+        if self._world > 1:
+            dist.barrier(group=self.mesh.group)
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -202,17 +256,25 @@ class Run:
         """Checkpoint state + the versioned run-state record (controller
         band positions, trajectory, metrics history).  ``block=False``
         copies the state to host memory now and overlaps the disk write
-        with the following steps."""
+        with the following steps.  On a host mesh every rank calls it and
+        rank 0 writes, after a barrier (a blocking save passes a second
+        one once the checkpoint is on disk)."""
         if not self.spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
         self.init()
         step = int(self.state["step"])
+        self._barrier()
+        if self._rank != 0:
+            if block:
+                self._barrier()
+            return
         if block:
             if self._async_ckpt is not None:
                 self._async_ckpt.wait()
             checkpoint.save(self.spec.checkpoint_dir, step, self.state,
                             metadata=self._run_state_metadata(),
                             keep=self.spec.checkpoint_keep)
+            self._barrier()
         else:
             if self._async_ckpt is None:
                 self._async_ckpt = checkpoint.AsyncCheckpointer(
@@ -399,11 +461,11 @@ class Run:
     # ------------------------------------------------------------------
 
     def dryrun(self, shape: str = "train_4k", mesh: str = "single") -> dict:
-        """Lowering a production mesh cell waits for the port's scale-out
-        surface."""
+        """Lowering a production mesh cell waits for the port's dry
+        run."""
         raise NotImplementedError(
-            "Run.dryrun needs the mesh and dry-run surface, which is not "
-            "ported yet (ROADMAP Queue A.9)")
+            "Run.dryrun needs the dry-run surface, which is not ported yet "
+            "(ROADMAP Queue A.9)")
 
     def report(self) -> str:
         """Markdown report: §Run metrics summary, §Budgets controller

@@ -80,8 +80,12 @@ class RunSpec:
     ``optimizer``: a legacy ``AdamWConfig`` or an ``OptimSpec``
     (per-leaf factored / low-rank state layouts with rank control).
 
-    Not ported yet, and refused here: ``mesh="host"`` /
-    ``model_parallel`` / ``data_axes`` (ROADMAP Queue A.9).  The
+    ``mesh``: ``None`` runs on one device; ``"host"`` runs data parallel
+    over the ranks of the initialised ``torch.distributed`` process group
+    (``launch.mesh.make_host_mesh``; one rank without one), each rank on
+    its slice of every ``batch_size`` batch, with ``data_axes`` (default:
+    the mesh's) carrying the batch.  ``model_parallel`` above 1 (tensor /
+    expert parallelism) is refused: it waits for ROADMAP Queue A.9.  The
     reference's ``jit`` has no counterpart: the port's steps run eagerly.
     """
 
@@ -112,7 +116,7 @@ class RunSpec:
     checkpoint_every: int = 0          # 0 = only explicit Run.save()
     checkpoint_keep: int = 3
 
-    mesh: Optional[str] = None         # None ("host" waits for A.9)
+    mesh: Optional[str] = None         # None | "host"
     model_parallel: int = 1
     data_axes: Optional[Tuple[str, ...]] = None
 
@@ -140,11 +144,11 @@ class RunSpec:
             raise ValueError(
                 f"batch_size {self.batch_size} exceeds data.n_samples "
                 f"{self.data.n_samples}")
-        if (self.mesh is not None or self.model_parallel != 1
-                or self.data_axes is not None):
+        if self.model_parallel != 1:
             raise NotImplementedError(
-                "mesh / model_parallel / data_axes: the port runs on one "
-                "device; sharded runs wait for ROADMAP Queue A.9")
+                f"model_parallel={self.model_parallel}: tensor and expert "
+                f"parallelism wait for ROADMAP Queue A.9; mesh='host' runs "
+                f"data parallel")
 
         if self.budget_stats is True and self.znorm_cache is False:
             raise ValueError(

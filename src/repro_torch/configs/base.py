@@ -10,7 +10,7 @@ dtypes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -138,3 +138,22 @@ class ArchConfig:
         dense_experts = self.n_layers * self.n_experts * 3 * d * dff
         active_experts = self.n_layers * self.moe_top_k * 3 * d * dff
         return self.n_params() - dense_experts + active_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One input cell of the reference's grid: ``global_batch`` sequences
+    of ``seq_len`` positions, for a ``train`` | ``prefill`` | ``decode``
+    step."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.optim.layouts import reference_path
 
 
 # a decoder arch's optional leaves outside the stacked units; the
@@ -157,3 +158,18 @@ def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
                 device="cpu", dtype=torch.float32).numpy()
                 for name, t in slots.items()}
                 for path, slots in state["leaves"].items()}}
+
+
+def reference_leaf(cfg: ArchConfig, path: str):
+    """The reference's leaf that holds the port's leaf ``path`` (a
+    ``named_leaves`` path), as a "/"-joined path (``unit/0/attn/wq``), and
+    the port leaf's index along that leaf's leading layer axis (None for a
+    leaf the reference does not stack) — the map ``params_from_jax`` and
+    ``params_to_numpy`` walk."""
+    parts = path.split("/")
+    index = None
+    if parts[0] == "layers":
+        index = int(parts[1]) // len(cfg.pattern)
+    elif parts[0] in _STACKED:
+        index = int(parts[1])
+    return reference_path(path, len(cfg.pattern)), index

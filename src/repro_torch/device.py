@@ -19,3 +19,11 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
     return dev
+
+
+def resolve_or_meta(device="cuda") -> torch.device:
+    """``resolve_device``, or the ``meta`` device (shapes without
+    storage) where the caller names it."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

@@ -2,7 +2,7 @@
 memory for ``repro_torch.api.Run.report``, §Serving for
 ``ServeSession.report``.  Pure string formatting, the reference's text
 character for character.  The dry-run tables and the §Roofline section
-wait for the port's scale-out surface (ROADMAP Queue A.9)."""
+wait for the port's dry run (ROADMAP Queue A.9)."""
 from __future__ import annotations
 
 from typing import List

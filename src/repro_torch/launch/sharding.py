@@ -1,0 +1,190 @@
+"""Logical-axis -> mesh-axis rules (t5x-style) + state/batch shardings.
+
+The models annotate every parameter with logical axis names
+(``models/registry.py``, ``abstract_params``).  This module maps them onto
+a mesh, with the reference's rules:
+
+    vocab / mlp / qheads / kvheads / experts / ssm_inner  -> "model"
+    embed / layers / scalars                              -> replicated
+    batch                                                 -> ("pod","data")
+
+A logical dim falls back to replication when its size does not divide
+the mesh axis.
+
+A spec is a tuple with one entry a dim: a mesh axis name, a tuple of
+names, or None (replicated); ``()`` replicates the whole tensor.  A tuple
+of one name is written as the name, as the reference's ``PartitionSpec``
+normalizes it, so the two compare equal.  The shardings of a tree are a
+flat ``{leaf path: spec}`` dict (``train.optim.named_leaves``'s paths)
+where the reference returns a twin tree.  Nothing here places a tensor:
+the port's sharded runs are data parallel (``shard_batch`` hands each
+rank its slice of the batch; parameters and optimizer state are
+replicated), and a ``model`` axis above 1 waits for ROADMAP Queue A.9.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.train.optim import named_leaves
+
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "vocab": "model",
+    "mlp": "model",
+    "qheads": "model",
+    "kvheads": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    "embed": None,
+    "layers": None,
+}
+
+REPLICATED: Tuple = ()
+
+
+def _part(names: Tuple[str, ...]):
+    """The spec entry of a dim sharded over ``names``."""
+    return names[0] if len(names) == 1 else tuple(names)
+
+
+def _names(part) -> Tuple[str, ...]:
+    """The mesh axes of a spec entry."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def _spec_for_axes(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
+                   mesh, rules: Dict[str, Optional[str]]) -> Tuple:
+    parts = []
+    used = set()
+    for name, dim in zip(axes, shape):
+        phys = rules.get(name) if name else None
+        if phys is not None and dim % mesh.shape[phys] != 0:
+            phys = None                       # non-divisible -> replicate
+        if phys is not None and phys in used:
+            phys = None                       # a mesh axis shards one dim
+        if phys is not None:
+            used.add(phys)
+        parts.append(phys)
+    return tuple(parts)
+
+
+def arch_rules(cfg, mesh) -> Dict[str, Optional[str]]:
+    """Head-aware overrides: shard the kv head dims over "model" only when
+    the kv head count divides the axis (a divisible (heads * dh) dim whose
+    head count does not divide is sliced through head boundaries, and
+    every score contraction then needs a reduction; replicating the small
+    kv projections is cheaper).  q heads stay sharded either way, as in
+    the reference."""
+    msize = mesh.shape["model"]
+    rules: Dict[str, Optional[str]] = {}
+    if cfg.n_kv_heads % msize != 0:
+        rules["kvheads"] = None
+    return rules
+
+
+def param_shardings(axes: Dict[str, Tuple], params, mesh,
+                    rules: Optional[Dict[str, Optional[str]]] = None):
+    """{leaf path: spec} of ``params``, from ``axes`` ({leaf path:
+    logical axes}, ``registry.abstract_params``)."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    return {path: _spec_for_axes(axes[path], tuple(p.shape), mesh, rules)
+            for path, p in named_leaves(params)}
+
+
+def replicated(mesh) -> Tuple:
+    return REPLICATED
+
+
+def _batch_dim(name: str) -> int:
+    return 1 if name == "positions3" else 0
+
+
+def batch_shardings(batch, mesh) -> Dict[str, Tuple]:
+    """Shard each entry's batch dim over (pod, data) (``positions3`` has
+    its batch dim second); a batch that does not divide the data axes
+    (e.g. global_batch=1 long-context decode) replicates."""
+    dnames = mesh_lib.data_axes(mesh)
+    dsize = mesh_lib.mesh_size(mesh, dnames)
+    out = {}
+    for name, x in batch.items():
+        bdim = _batch_dim(name)
+        if x.shape[bdim] % dsize != 0:
+            out[name] = REPLICATED
+            continue
+        parts = [None] * len(x.shape)
+        parts[bdim] = _part(dnames)
+        out[name] = tuple(parts)
+    return out
+
+
+def decode_state_shardings(states, mesh, batch_size: int):
+    """Heuristic shardings for decode states (KV caches, SSM states).
+
+    Rule per leaf: shard the dim whose size == batch_size over the data
+    axes (if divisible); then shard the largest remaining dim (except
+    dim 0, the stacked-layer axis) over "model" if divisible.
+    """
+    dnames = mesh_lib.data_axes(mesh)
+    dsize = mesh_lib.mesh_size(mesh, dnames)
+    msize = mesh.shape["model"]
+
+    def one(x):
+        shape = tuple(x.shape)
+        parts = [None] * len(shape)
+        bdim = None
+        for i, d in enumerate(shape):
+            if i >= 1 and d == batch_size and d % dsize == 0:
+                parts[i] = _part(dnames)
+                bdim = i
+                break
+        best, best_size = None, 0
+        for i, d in enumerate(shape):
+            if i == 0 or i == bdim:
+                continue
+            if d % msize == 0 and d > best_size:
+                best, best_size = i, d
+        if best is not None:
+            if bdim is None and best_size % (msize * dsize) == 0:
+                # batch can't use the data axes (e.g. B=1 long-context
+                # decode): fold them into the cache's sequence dim
+                parts[best] = _part(dnames + ("model",))
+            else:
+                parts[best] = "model"
+        return tuple(parts)
+
+    return {path: one(x) for path, x in named_leaves(states)}
+
+
+def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape one rank holds of a tensor of ``shape`` under ``spec``."""
+    out = list(shape)
+    for i, part in enumerate(spec):
+        n = mesh_lib.mesh_size(mesh, _names(part))
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"over {part!r} ({n} ranks)")
+        out[i] //= n
+    return tuple(out)
+
+
+def shard_batch(batch, mesh):
+    """This rank's part of a batch (numpy arrays or tensors): its
+    contiguous slice along each entry's batch dim where
+    ``batch_shardings`` shards it over the data axes, the whole entry
+    where it replicates.  The port's ``apply_shardings`` for data
+    parallelism."""
+    index = mesh_lib.data_index(mesh)
+    specs = batch_shardings(batch, mesh)
+    out = {}
+    for name, x in batch.items():
+        spec = specs[name]
+        if spec == REPLICATED:
+            out[name] = x
+            continue
+        bdim = _batch_dim(name)
+        b = shard_shape(x.shape, spec, mesh)[bdim]
+        rows = slice(index * b, (index + 1) * b)
+        out[name] = x[:, rows] if bdim == 1 else x[rows]
+    return out

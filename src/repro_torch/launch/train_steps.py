@@ -9,6 +9,17 @@ new tensors in the same state dict, which is the caller's own object.
 budget controllers on top of it (Algorithm 1's whole loop), and the rank
 schedules and controllers of an ``OptimSpec``'s low-rank layouts.
 
+Data parallelism: given a live host mesh (``launch/mesh.py``) whose data
+axes span several ranks, each rank runs the step on its own slice of the
+batch (``launch.sharding.shard_batch``) with the same replicated
+parameters and optimizer state, and the gradients are all-reduced
+(``train/compression.py``) before the identical update on every rank.
+``make_shardmap_dp_step`` is the reference's explicit data-parallel step
+(gradient compression, no znorm cache); ``make_train_step(mesh=...)``
+computes what the reference's sharded step computes over the global
+batch, the znorm cache and budget statistics included.  The backend is
+the caller's: whatever ``torch.distributed`` group the mesh carries.
+
 The serve and prefill step makers below return eager functions with the
 reference's signatures.  Each step enters ``torch.no_grad()`` itself
 (grad mode is thread-local and the serving loop runs in its own thread),
@@ -22,13 +33,17 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import optim as optim_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import controller as controller_lib
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import common as cm
 from repro_torch.models import registry
-from repro_torch.train import optim, znorm
+from repro_torch.train import compression, optim, znorm
 
 
 def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
@@ -75,6 +90,56 @@ def init_train_state(cfg: ArchConfig, seed: int, znorm_tags=None,
     return state
 
 
+def abstract_train_state(cfg: ArchConfig, znorm_tags=None,
+                         n_dataset: int = 0, budget_stats: bool = False,
+                         opt=None, opt_ranks=None):
+    """(``init_train_state``'s tree on the ``meta`` device, the
+    parameters' logical axes) without allocation; ``step`` and
+    ``base_seed`` are the host integers they are in a live state."""
+    params, axes = registry.abstract_params(cfg)
+    # parameters on meta put the optimizer state there too; the rank
+    # statistics (a few floats) are re-made there below
+    state = init_train_state(cfg, 0, device="cpu", params=params, opt=opt,
+                             opt_ranks=opt_ranks)
+    meta = lambda shape: torch.empty(shape, dtype=torch.float32,
+                                     device="meta")
+    stats = {}
+    if znorm_tags:
+        state["znorm"] = {t: meta((cfg.n_repeats, n_dataset))
+                          for t in znorm_tags}
+        if budget_stats:
+            stats = {t: meta((znorm.N_STATS,)) for t in znorm_tags}
+    stats.update({k: meta(tuple(v.shape))
+                  for k, v in state.get("budget_stats", {}).items()})
+    if stats:
+        state["budget_stats"] = stats
+    return state, axes
+
+
+def train_state_shardings(cfg, state, axes, mesh):
+    """Specs for the whole train state (``launch/sharding.py``): the
+    parameters by the arch's rules, the optimizer state mirroring them,
+    everything else replicated."""
+    rules = shard_lib.arch_rules(cfg, mesh)
+    p_sh = shard_lib.param_shardings(axes, state["params"], mesh,
+                                     rules=rules)
+    rep = shard_lib.replicated(mesh)
+    sh = {
+        "params": p_sh,
+        "opt": (optim.AdamWState(rep, p_sh, p_sh)
+                if isinstance(state["opt"], optim.AdamWState)
+                else optim_lib.state_shardings(
+                    state["opt"], state["params"], p_sh, rep)),
+        "step": rep,
+        "base_seed": rep,
+    }
+    if "znorm" in state:
+        sh["znorm"] = {t: rep for t in state["znorm"]}
+    if "budget_stats" in state:
+        sh["budget_stats"] = {t: rep for t in state["budget_stats"]}
+    return sh
+
+
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     out = {}
     for name, x in batch.items():
@@ -92,11 +157,78 @@ def _no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _data_parallel(mesh, data_axes):
+    """(ranks, this rank's index) over the data axes of ``mesh``: (1, 0)
+    without a mesh.  The data axes must span the mesh's process group."""
+    if mesh is None:
+        return 1, 0
+    axes = mesh_lib.data_axes(mesh) if data_axes is None else tuple(data_axes)
+    unknown = [a for a in axes if a not in mesh.axis_names]
+    if unknown:
+        raise ValueError(f"data_axes {axes} name axes {unknown} that the "
+                         f"mesh {mesh.axis_names} does not have")
+    world = mesh_lib.mesh_size(mesh, axes)
+    if world != compression.world_size(mesh):
+        raise ValueError(
+            f"the data axes {axes} of mesh {dict(mesh.shape)} hold {world} "
+            f"ranks but its process group has "
+            f"{compression.world_size(mesh)}: give a live mesh "
+            f"(launch.mesh.make_host_mesh)")
+    return world, mesh_lib.data_index(mesh)
+
+
+def _gather_rows(mesh, world: int, index: int, x: torch.Tensor, dim: int):
+    """Every rank's ``x`` side by side along ``dim``, in rank order: one
+    all_reduce of a zero-padded buffer (exact: each entry is one rank's
+    value plus zeros)."""
+    b = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = b * world
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out.narrow(dim, index * b, b).copy_(x)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    return out
+
+
+def _grads_of(cfg, policy, params, leaves, zn, batch, key):
+    """Loss, parameter gradients and (with a cache) the tap of every cache
+    tag — zeros for a tag whose linear took no znorm."""
+    zn_leaves = []
+    if zn is not None:
+        zn = {t: z.detach().requires_grad_(True) for t, z in zn.items()}
+        zn_leaves = list(zn.values())
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
+                                   znorms=zn)
+        grads = torch.autograd.grad(loss, leaves + zn_leaves,
+                                    allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves + zn_leaves)]
+    taps = (None if zn is None else
+            dict(zip(zn, grads[len(leaves):])))
+    return loss.detach(), grads[:len(leaves)], taps
+
+
+def _check_opt(opt_cfg) -> bool:
+    """Whether ``opt_cfg`` is an ``OptimSpec`` (else an ``AdamWConfig``)."""
+    layouts = isinstance(opt_cfg, optim_lib.OptimSpec)
+    if not layouts and not isinstance(opt_cfg, optim.AdamWConfig):
+        raise TypeError(f"expected OptimSpec or AdamWConfig, got "
+                        f"{type(opt_cfg).__name__}")
+    return layouts
+
+
 def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                     schedule: Callable[[int], float],
                     use_znorm_cache: bool = False,
                     microbatches: int = 1,
-                    device="cuda"):
+                    device="cuda", mesh=None, data_axes=None,
+                    compress: Optional[compression.Mode] = None):
     """(state, batch) -> (state, metrics).  Paper-faithful WTA-CRS step.
 
     ``batch`` holds ``tokens`` / ``labels`` (and ``sample_ids``; a VLM's
@@ -128,46 +260,52 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     This builder runs ONE policy resolution (``policy.step`` as given);
     ``make_scheduled_train_step`` re-resolves schedules and controllers
     per step.
+
+    ``mesh``: a live host mesh (``launch.mesh.make_host_mesh``) whose
+    ``data_axes`` (default: the mesh's) carry the batch.  Each rank calls
+    the step with its own slice of the global batch
+    (``launch.sharding.shard_batch``; with microbatches, each rank splits
+    its slice) and the same state; one step then computes what one rank
+    computes on the global batch, up to the order of the sums: the
+    gradients and the loss are all-reduced to their global means before
+    the update, and with the cache every rank's ``(sample_ids, taps)`` are
+    gathered, so every rank scatters the whole batch's columns and the
+    statistics take ONE update over the whole batch's taps (they are not
+    linear in the taps, so they are gathered, not averaged).  A rank's
+    taps come from its own slice's mean loss, W times the global loss's
+    share at W ranks, so they are divided by W² (a tap is a squared
+    norm).  Each rank draws its own plans, from the step seed folded with
+    its data index, so under a random estimator the step is the global
+    batch's in distribution; where plans draw nothing (exact, ``det_topk``)
+    it is the global batch's step.  The batch must split evenly: the loss
+    is the mean of the ranks' means (an MoE's load-balancing loss is each
+    rank's own).  With one rank, or no mesh, nothing is reduced.
+
+    ``compress`` (``make_shardmap_dp_step``'s): reduce the gradients
+    through ``reduce_gradients`` in that mode and fold the data index into
+    the seed at every world size, one rank included.
     """
     device = resolve_device(device)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    layouts = isinstance(opt_cfg, optim_lib.OptimSpec)
-    if not layouts and not isinstance(opt_cfg, optim.AdamWConfig):
-        raise TypeError(f"expected OptimSpec or AdamWConfig, got "
-                        f"{type(opt_cfg).__name__}")
+    if compress is not None and compress not in compression.MODES:
+        raise ValueError(f"unknown compress {compress!r}; one of "
+                         f"{compression.MODES}")
+    layouts = _check_opt(opt_cfg)
+    world, index = _data_parallel(mesh, data_axes)
+    # the explicit data-parallel step reduces (and rounds) even at world 1
+    reduce = world > 1 or compress is not None
     # the update only reports captured-energy statistics when the spec
     # carries rank-controller rules
     track_rank_energy = layouts and bool(opt_cfg.controller_rule_indices())
     _no_tf32()
 
-    def grads_of(params, leaves, zn, batch, key):
-        """Loss, parameter gradients and (with a cache) the tap of every
-        cache tag — zeros for a tag whose linear took no znorm."""
-        zn_leaves = []
-        if zn is not None:
-            zn = {t: z.detach().requires_grad_(True) for t, z in zn.items()}
-            zn_leaves = list(zn.values())
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
-                                       znorms=zn)
-            grads = torch.autograd.grad(loss, leaves + zn_leaves,
-                                        allow_unused=True)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves + zn_leaves)]
-        taps = (None if zn is None else
-                dict(zip(zn, grads[len(leaves):])))
-        return loss.detach(), grads[:len(leaves)], taps
-
     def train_step(state, batch):
         params = state["params"]
         step = int(state["step"])
         key = cm.fold_seed(state["base_seed"], step)
+        if reduce:
+            key = cm.fold_seed(key, index)
         model_batch = _to_device(batch, device)
         leaves = optim.tree_leaves(params)
         cache = state.get("znorm") if use_znorm_cache else None
@@ -183,9 +321,9 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
 
         if microbatches == 1:
             zn = znorm.gather(cache, ids) if use_znorm_cache else None
-            loss, grads, taps = grads_of(params, leaves, zn, model_batch,
-                                         key)
-            if use_znorm_cache:
+            loss, grads, taps = _grads_of(cfg, policy, params, leaves, zn,
+                                          model_batch, key)
+            if use_znorm_cache and world == 1:
                 cache = znorm.scatter(cache, ids, taps, active_tags=active)
         else:
             b = model_batch["tokens"].shape[0]
@@ -204,8 +342,9 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                             for n, x in model_batch.items()}
                 zn = (znorm.gather(cache, ids[rows]) if use_znorm_cache
                       else None)
-                loss_i, g_i, taps_i = grads_of(
-                    params, leaves, zn, mb_batch, cm.fold_seed(key, i))
+                loss_i, g_i, taps_i = _grads_of(
+                    cfg, policy, params, leaves, zn, mb_batch,
+                    cm.fold_seed(key, i))
                 for acc, g in zip(grads, g_i):
                     acc.add_(g.to(torch.float32) / microbatches)
                 del g_i
@@ -214,12 +353,24 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                     # each microbatch gathers its own columns and scatters
                     # its own tap; sample ids within a batch are disjoint,
                     # so this equals gathering everything up front
-                    cache = znorm.scatter(cache, ids[rows], taps_i,
-                                          active_tags=active)
+                    if world == 1:
+                        cache = znorm.scatter(cache, ids[rows], taps_i,
+                                              active_tags=active)
                     tap_parts.append(taps_i)
             if use_znorm_cache:
                 taps = {t: torch.cat([p[t] for p in tap_parts], dim=1)
                         for t in tap_parts[0]}
+        if reduce:
+            grads = reduce_gradients(grads, params, mesh, compress or "none")
+            loss = compression.pmean_tree(loss, mesh)
+            if use_znorm_cache and taps:
+                names = list(taps)
+                local = torch.stack([taps[t] for t in names]) / (world * world)
+                taps = dict(zip(names, _gather_rows(
+                    mesh, world, index, local, dim=2)))
+                ids = _gather_rows(mesh, world, index, ids, dim=0)
+            if use_znorm_cache:
+                cache = znorm.scatter(cache, ids, taps, active_tags=active)
 
         lr = schedule(step)
         if layouts:
@@ -524,7 +675,9 @@ def make_scheduled_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     ``ScheduleState.from_json`` of the reference's record) to resume a
     controller-carrying run; ``None`` starts fresh at every controller's
     initial budget.  ``train_step_kwargs`` go to ``make_train_step``
-    (``use_znorm_cache``, ``microbatches``).
+    (``use_znorm_cache``, ``microbatches``, ``mesh``, ``data_axes``: under
+    data parallelism every rank updates the statistics from the same
+    gathered taps, so every rank's controllers take the same decisions).
     """
     return ScheduledStepFn(cfg, policy, opt_cfg, schedule,
                            schedule_state=schedule_state, device=device,
@@ -684,3 +837,54 @@ def make_slot_reset_step(cfg: ArchConfig, device="cuda"):
                                                 page_table_row, slot)
 
     return slot_reset_step
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel step with an explicit (compressed) gradient all-reduce
+# ---------------------------------------------------------------------------
+
+def reduce_gradients(grads, params, mesh, compress: compression.Mode
+                     = "none"):
+    """The mean over the ranks of ``grads`` (the list of ``params``'s
+    leaves' gradients, consumed), through ``compression.pmean_tree``.  The
+    reference reduces its stacked leaves, so under ``int8`` the layers of
+    one stacked leaf share one scale here too: they are stacked for the
+    reduction (a copy of the gradients, each layer freed once stacked)."""
+    if compress != "int8":
+        return compression.pmean_tree(grads, mesh, compress)
+    groups = optim_lib.reference_groups(params)
+    stacked = []
+    for idx in groups:
+        stacked.append(torch.stack([grads[i] for i in idx]))
+        for i in idx:
+            grads[i] = None
+    stacked = compression.pmean_tree(stacked, mesh, compress)
+    for idx, g in zip(groups, stacked):
+        for j, i in enumerate(idx):
+            grads[i] = g[j]
+    return grads
+
+
+def make_shardmap_dp_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
+                          schedule: Callable[[int], float], mesh,
+                          compress: compression.Mode = "none",
+                          device="cuda"):
+    """Pure data-parallel step with the gradient reduction written out
+    (``compression.pmean_tree`` under ``compress``: ``none``, ``bf16`` or
+    ``int8``; ``reduce_gradients``), the reference's
+    ``make_shardmap_dp_step``: ``make_train_step`` on ``mesh`` without the
+    znorm cache or microbatches.
+
+    ``mesh``: a live host mesh.  Parameters and optimizer state are
+    replicated: every rank calls ``(state, batch) -> (state, metrics)``
+    with the same state and its own slice of the batch
+    (``launch.sharding.shard_batch``; ``sample_ids`` are ignored).  A
+    rank's sampling seed is ``fold_seed(fold_seed(base_seed, step),
+    data_index)``, so the ranks' plans decorrelate; its loss is
+    ``loss_fn`` over its slice.  The gradients are averaged over the ranks
+    through the compression, the loss is all-reduced to its mean
+    uncompressed, and the update is AdamW or an ``OptimSpec``'s layouts.
+    At one rank the compression still rounds, as on the reference's
+    one-device mesh."""
+    return make_train_step(cfg, policy, opt_cfg, schedule, device=device,
+                           mesh=mesh, compress=compress)

@@ -158,8 +158,8 @@ class Policy:
     flash_block: int = 512
     flash_mode: str = "full"       # full | triangular
     # the reference's MoE dispatch sharding constraint (expert axis,
-    # capacity axes): a mesh constraint, which the one-device port has no
-    # mesh for
+    # capacity axes): expert parallelism, which the port's data-parallel
+    # meshes do not shard
     moe_pspec: Optional[Tuple] = None
     # WTA-CRS sampling groups over the expert capacity dim (and the token
     # groups of the dispatch): each expert draws moe_groups plans
@@ -168,8 +168,9 @@ class Policy:
     def __post_init__(self):
         if self.moe_pspec is not None:
             raise NotImplementedError(
-                "Policy.moe_pspec is a mesh sharding constraint; the port "
-                "runs on one device, and meshes wait for ROADMAP Queue A.9")
+                "Policy.moe_pspec is an expert-parallel sharding "
+                "constraint; the port's meshes are data parallel, and "
+                "expert parallelism waits for ROADMAP Queue A.9")
         if self.moe_groups < 1:
             raise ValueError(f"moe_groups must be >= 1, got "
                              f"{self.moe_groups}")

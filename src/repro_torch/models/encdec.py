@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_or_meta
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
@@ -181,7 +181,7 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
     """{"k", "v": (n_layers, B, max_len, KVH, Dh), "xk", "xv": (n_layers,
     B, enc_len, KVH, Dh)} zeros in the compute dtype; ``xk`` / ``xv`` take
     ``prime_cross_cache``'s output."""
-    device = resolve_device(device)
+    device = resolve_or_meta(device)
     kvh, dh = cfg.n_kv_heads, cfg.head_dim
 
     def zeros(length):

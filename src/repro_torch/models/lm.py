@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear as lin
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_or_meta
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
@@ -426,7 +426,7 @@ def block_decode_init(cfg, btype, batch_size: int, max_len: int,
     per-block pools from it."""
     if btype not in BLOCK_TYPES:
         raise ValueError(btype)
-    device = resolve_device(device)
+    device = resolve_or_meta(device)
     if btype in ssm_lib.RECURRENT:
         return ssm_lib.block_state_init(cfg, btype, batch_size, device)
     shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)

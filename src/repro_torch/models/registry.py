@@ -1,24 +1,86 @@
 """Model API dispatch: config lookup, parameter init, the loss, the
 serving entry points and one training batch's specs for every
 architecture: the decoder-only LMs (``models/lm.py``: dense, MoE, SSM,
-hybrid, VLM) and the encoder-decoder (``models/encdec.py``)."""
+hybrid, VLM) and the encoder-decoder (``models/encdec.py``).
+
+``abstract_params``, ``input_specs`` and ``decode_specs`` give the same
+trees on the ``meta`` device (shapes and dtypes, no storage), with the
+logical axis names of every parameter that the sharding rules
+(``launch/sharding.py``) read.
+"""
 from __future__ import annotations
 
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import get_config  # noqa: F401  (re-export)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, lm
+from repro_torch.train.optim import named_leaves
 
 
 def init_params(cfg: ArchConfig, seed: int, device="cuda"):
     if cfg.is_encdec:
         return encdec.init_params(cfg, seed, device=device)
     return lm.init_params(cfg, seed, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes of every parameter (the reference's ``Boxed`` annotations,
+# less the stacked ``layers`` dim: the port holds one tensor a layer)
+# ---------------------------------------------------------------------------
+
+_ATTN = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
+         "wv": ("embed", "kvheads"), "wo": ("qheads", "embed"),
+         "bq": ("qheads",), "bk": ("kvheads",), "bv": ("kvheads",)}
+_AXES = {
+    "attn": _ATTN, "xattn": _ATTN,
+    "mlp": {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")},
+    "moe": {"router": ("embed", None),
+            "wi": ("experts", "embed", "mlp"),
+            "wg": ("experts", "embed", "mlp"),
+            "wo": ("experts", "mlp", "embed")},
+    "mamba": {"in_proj": ("embed", "ssm_inner"),
+              "conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
+              "a_log": (None,), "d_skip": (None,), "dt_bias": (None,),
+              "norm_g": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")},
+    "mlstm": {"up": ("embed", "ssm_inner"),
+              "wq": ("ssm_inner", "ssm_inner"),
+              "wk": ("ssm_inner", "ssm_inner"),
+              "wv": ("ssm_inner", "ssm_inner"),
+              "w_if": ("ssm_inner", None), "if_bias": (None,),
+              "down": ("ssm_inner", "embed")},
+    "slstm": {"w_in": ("embed", "ssm_inner"), "r": (None, None, None),
+              "bias": (None,), "down": ("ssm_inner", "embed")},
+}
+_TOP = {"embed": ("vocab", "embed"), "head": ("embed", "vocab"),
+        "vis_proj": ("embed", "embed"), "pos_embed": (None, "embed"),
+        "pos_enc": (None, "embed"), "pos_dec": (None, "embed")}
+
+
+def _param_axes(path: str) -> Tuple[Optional[str], ...]:
+    """Logical axis names of the parameter at ``path`` (a
+    ``named_leaves`` path: ``layers/3/attn/wq``, ``shared/mlp/wo``,
+    ``final_norm/gamma``, ``embed``)."""
+    parts = path.split("/")
+    if len(parts) == 1:
+        return _TOP[path]
+    module, leaf = parts[-2], parts[-1]
+    if module.startswith("norm") or module.endswith("_norm"):
+        return ("embed",)                   # a norm's gain or bias
+    return _AXES[module][leaf]
+
+
+def abstract_params(cfg: ArchConfig):
+    """(params on the ``meta`` device, {leaf path: logical axes}) without
+    any allocation."""
+    params = init_params(cfg, 0, device="meta")
+    axes = {path: _param_axes(path) for path, _ in named_leaves(params)}
+    return params, axes
 
 
 def forward(cfg, params, batch, policy, key=None, znorms=None,
@@ -45,7 +107,7 @@ def prefill(cfg, params, batch, policy):
 
 def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
     """An enc-dec arch's cross caches get ``max_len // 2`` rows, as in
-    the reference."""
+    the reference; ``device="meta"`` gives the shapes without storage."""
     if cfg.is_encdec:
         return encdec.decode_state_init(cfg, batch_size, max_len,
                                         enc_len=max_len // 2, device=device)
@@ -136,3 +198,26 @@ def make_synthetic_batch(cfg: ArchConfig, batch: int, seq: int, seed: int,
                                     dtype=torch.float32,
                                     device=device).to(dtype)
     return out
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def decode_specs(cfg: ArchConfig, batch: int, kv_len: int):
+    """(token, pos, states) of one serve step on the ``meta`` device."""
+    token = _meta((batch,), torch.int32)
+    pos = _meta((), torch.int32)
+    states = decode_state_init(cfg, batch, kv_len, device="meta")
+    return token, pos, states
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape):
+    """Every model input of one (arch x shape) cell on the ``meta``
+    device: a training / prefill batch, or a decode step's (token, pos,
+    states)."""
+    if shape.kind in ("train", "prefill"):
+        return {name: _meta(s, dtype) for name, (s, dtype)
+                in train_batch_specs(cfg, shape.global_batch,
+                                     shape.seq_len).items()}
+    return decode_specs(cfg, shape.global_batch, shape.seq_len)

@@ -61,7 +61,7 @@ known.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -125,6 +125,17 @@ def _groups(params, leaves=None) -> Dict[str, list]:
     for (path, p), x in zip(named, others):
         out.setdefault(reference_path(path, n_pat), []).append((p, x))
     return out
+
+
+def reference_groups(params) -> List[List[int]]:
+    """Indices (in ``named_leaves`` order) of the port leaves that make up
+    each of the reference's leaves, in layer order: the layers of a
+    stacked leaf together, every other leaf alone."""
+    n_pat = pattern_len(params)
+    out: Dict[str, List[int]] = {}
+    for i, (path, _) in enumerate(adamw_lib.named_leaves(params)):
+        out.setdefault(reference_path(path, n_pat), []).append(i)
+    return list(out.values())
 
 
 def _stacked_shape(ref: str, members) -> tuple:
@@ -445,8 +456,30 @@ def update_rank_stats(stats: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# memory accounting
+# shardings + memory accounting
 # ---------------------------------------------------------------------------
+
+def state_shardings(state: Dict, params, param_shardings, replicated):
+    """Shardings for the path-keyed state: a slot inherits its stacked
+    parameter's sharding when shapes match (dense m/v, factored momentum)
+    and is replicated otherwise (factored vectors, low-rank subspace
+    moments — all tiny).  ``param_shardings``: {leaf path: spec} of
+    ``params`` (``launch.sharding.param_shardings``); the stacked leaf of
+    a layer group takes its layers' spec behind a replicated layer dim, as
+    the reference's ``layers`` axis maps to no mesh axis."""
+    specs = [param_shardings[path]
+             for path, _ in adamw_lib.named_leaves(params)]
+    leaves = {}
+    for ref, members in _groups(params, specs).items():
+        spec = members[0][1]
+        if _is_stacked(ref):
+            spec = (None,) + tuple(spec)
+        shape = _stacked_shape(ref, members)
+        leaves[ref] = {
+            slot: (spec if tuple(arr.shape) == shape else replicated)
+            for slot, arr in state["leaves"][ref].items()}
+    return {"count": replicated, "leaves": leaves}
+
 
 def tree_bytes(tree) -> int:
     """Total bytes of the tensors of a nested dict/list tree; an int leaf

@@ -119,8 +119,25 @@ def test_wiring_derived_from_policy_as_in_the_reference(kind, kw, cache,
     dict(mesh="host"), dict(model_parallel=2), dict(data_axes=("data",))],
     ids=["mesh_host", "model_parallel", "data_axes"])
 def test_unported_fields_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        _spec(PORT, _policy(PORT, "plain"), **kw)
+    """``model_parallel`` > 1 still waits for Queue A.9; ``mesh="host"``
+    and ``data_axes`` are accepted, and without a process group a host
+    mesh is one rank: its Run equals the plain Run bit for bit."""
+    if "model_parallel" in kw:
+        with pytest.raises(NotImplementedError, match="Queue A"):
+            _spec(PORT, _policy(PORT, "plain"), **kw)
+        return
+    runs = [Run(_spec(PORT, _policy(PORT, "cached"), steps=3, **extra),
+                **CPU) for extra in (kw, {})]
+    for run in runs:
+        run.fit()
+    (a, b) = runs
+    assert (a.mesh is not None) == ("mesh" in kw)
+    assert a.history == b.history
+    for x, y in zip(optim.tree_leaves(a.state["params"]),
+                    optim.tree_leaves(b.state["params"])):
+        assert torch.equal(x, y)
+    for t in b.state["znorm"]:
+        assert torch.equal(a.state["znorm"][t], b.state["znorm"][t])
 
 
 def test_spec_fields_are_the_reference_fields_but_jit():
