@@ -50,7 +50,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            gather_scale launch on bulk (so too in optim, moe, moe_wide)
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side;
            then, in a child process with deterministic algorithms on, 2
-           steps under the reference's `mixed` OptimSpec in four legs:
+           steps of the model at depth 6 (MEMORY_DEPTH) under the
+           reference's `mixed` OptimSpec in four legs:
            exact and WTA-CRS 0.3 without remat, WTA-CRS under
            remat="wtacrs_names", exact under remat="full" — each remat
            leg's losses bit-equal to its `none` leg's, launches as
@@ -71,8 +72,9 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            memory, ms a step; one subspace refresh (SVD) of the mixed
            leg's widest leaf timed; dense AdamW's state from
            memory_report only
-  run      the repro_torch.api façade at published width and full depth:
-           Run(RunSpec(qwen2.5-3b, reduced=False)) under the adaptive
+  run      the repro_torch.api façade at published width, depth cut 36 ->
+           12 (RUN_DEPTH): Run(RunSpec(qwen2.5-3b, reduced=False)) under
+           the adaptive
            policy, B=2, S=1024, 4 samples, 8 steps of Run.fit (losses
            falling, launch counts as the resolved policies imply, every
            fused_sampled_dw launch on wgmma, peak memory, ms a step),
@@ -179,8 +181,31 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            shapes), and Run(mesh="host") at the same size (f32) under a
            CACHED_GRAD controller policy: cache and statistics equal the
            one-rank Run's (microbatches 2), ms a step
+  tp       tensor and expert parallelism, two ranks sharing the card over
+           gloo at model = 2 (one model group): qwen2.5-3b at published
+           width, depth 4, B=2, S=1024: 2 WTA-CRS bf16 steps (loss falls,
+           launches as the structure implies, the replicated leaves
+           bit-identical across the ranks), 2 exact f32 steps held
+           against one rank on the gathered parameters, a 2 x 2048
+           prefill and 16 decode steps (the KV cache split on its
+           sequence) held against one rank at the prefill phase's bf16
+           floor; granite-moe-1b-a400m at published width, depth 6, 2
+           WTA-CRS steps with 16 experts a rank; dbrx-132b at published
+           width, depth 2, prefill and decode with 8 experts a rank (the
+           distance to one rank measured); each collective's count,
+           bytes and ms (a host round trip through gloo)
+  dryrun   the train phase's cell (12 layers, B=4, S=1024, its WTA-CRS
+           policy, one rank) traced on the meta device by
+           launch/cost.py and held against the same step on the card:
+           the predicted peak within 10 % of the measured one, each
+           kernel's predicted launches equal to its real counter, the
+           step's bound beside its device-busy ms; then the records of
+           qwen2.5-3b and dbrx-132b x train_4k x single
+           (repro_torch.launch.dryrun, run in background processes on the
+           host from the script's start)
 
-then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
+then the ``{"kernels": [...]}`` summary line, each phase's seconds, the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -214,14 +239,19 @@ from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
                               ESSProportional, PolicyRules, Rule,
                               WTACRSConfig, plans)
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, costs  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_sampling, ops  # noqa: E402
 from repro_torch.kernels import gather_scale as gather_scale_mod  # noqa: E402
 from repro_torch.kernels import row_norms as row_norms_mod  # noqa: E402
 from repro_torch.kernels import \
     sampled_matmul as sampled_matmul_mod  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch import collectives  # noqa: E402
+from repro_torch.launch import cost as cost_lib  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_lib  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import roofline as roofline_lib  # noqa: E402
 from repro_torch.launch import sharding, train_steps  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
@@ -242,7 +272,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
               "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
-              "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp")
+              "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp",
+              "tp", "dryrun")
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16"}
 
@@ -251,7 +282,7 @@ B, S, K = 4, 1024, 307
 ROW_NORM_MAIN = [(B * S, 2048), (B * S, 11008)]
 FUSED_MAIN = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 ROW_NORM_RAGGED = [(33, 130), (7, 5)]
-# The run phase: Run.fit on 36-layer qwen2.5-3b at B=2, S=1024, its k set by
+# The run phase: Run.fit on RUN_DEPTH-layer qwen2.5-3b at B=2, S=1024, its k set by
 # the controller's budget level (run_budget_ks); Run.generate on GEN_ROWS
 # prompts; Run.serve's ragged greedy requests as (prompt length, max_new)
 RUN_STEPS, RUN_BATCH, RUN_SEQ, RUN_SAMPLES = 8, 2, 1024, 4
@@ -537,9 +568,9 @@ def row_norms_case(n, d, dtype, gen, timed):
         "tol": {"rtol": rtol, "atol": atol},
     }
     if timed:
-        nbytes = n * d * x.element_size() + 4 * n
+        flops, nbytes = costs.row_norms(n, d, x.element_size())
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 2 * n * d / PEAK_FLOPS[torch.float32]
+        t_ops = flops / PEAK_FLOPS[torch.float32]
         case.update({
             "ms": time_ms(lambda: ops.row_norms(x)),
             "plain_ms": time_ms(lambda: row_norms_mod.row_norms_plain(x)),
@@ -639,10 +670,10 @@ def gather_scale_case(b, n, d, k, dtype, gen, timed, two_d=False,
         "duplicate_indices": "all" if same_row else k > 1,
     }
     if timed:
-        item = x.element_size()
-        nbytes = item * d * (unique_rows(idx) + b * k) + 8 * b * k
+        flops, nbytes = costs.gather_scale(b, k, d, x.element_size(),
+                                           distinct=unique_rows(idx))
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = b * k * d / PEAK_FLOPS[torch.float32]
+        t_ops = flops / PEAK_FLOPS[torch.float32]
 
         def pinned(route):
             return lambda: gather_scale_mod.launch(x, idx, scale, route)
@@ -693,12 +724,11 @@ def dw_bound(hsub, dz, idx):
     of all E experts' (E*B samples, E dWs)."""
     e = hsub.shape[0] if hsub.ndim == 4 else 1
     b, k, d_in = hsub.shape[-3:]
-    d_out = dz.shape[-1]
-    item = hsub.element_size()
-    nbytes = (item * (e * b * k * d_in + unique_rows(idx.reshape(-1, k))
-                      * d_out) + 8 * e * b * k + 4 * e * d_in * d_out)
+    flops, nbytes = costs.sampled_dw(
+        e, b, k, d_in, dz.shape[-1], hsub.element_size(),
+        distinct=unique_rows(idx.reshape(-1, k)))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * e * b * k * d_in * d_out / PEAK_FLOPS[hsub.dtype]
+    t_ops = flops / PEAK_FLOPS[hsub.dtype]
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1049,11 +1079,8 @@ def flash_bound(bh, bkvh, sq, skv, dh, causal, dtype):
     """(bound seconds, bound_by): the useful flops (the visible keys of every
     query, two products) against the dtype's peak, each input read once
     and the output written once against the memory rate."""
-    visible = (sum(min(i + 1, skv) for i in range(sq)) if causal
-               else sq * skv)
-    flops = 4 * bh * dh * visible
-    nbytes = (2 * bh * sq + 2 * bkvh * skv) * dh * (
-        torch.finfo(dtype).bits // 8)
+    flops, nbytes = costs.flash(bh, bkvh, sq, skv, dh, causal,
+                                torch.finfo(dtype).bits // 8)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1730,15 +1757,20 @@ REMAT_LEGS = [("exact", "none"), ("wta_crs", "none"),
               ("wta_crs", "wtacrs_names"), ("exact", "full")]
 
 
+MEMORY_DEPTH = 6      # the remat legs: qwen2.5-3b, depth 36 -> 6 (12 until
+                      # the model-axis slice)
+
+
 def memory_remat_child():
-    """The 12-layer qwen2.5-3b of the memory phase under the ``mixed``
+    """The MEMORY_DEPTH-layer qwen2.5-3b of the memory phase under the ``mixed``
     spec, 2 steps a leg from fresh parameters (run in a child process with
     CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms on): each
     remat leg's losses bit-equal to its ``none`` leg's, launches as
     ``launches_per_step`` implies, every peak."""
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=MEMORY_DEPTH)
     ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
     spec, legs = mixed_spec(), {}
     for est, remat in REMAT_LEGS:
@@ -1907,11 +1939,16 @@ class StepClock:
         return [1e3 * (b - a) for a, b in zip(self.marks, ends)]
 
 
+RUN_DEPTH = 12        # qwen2.5-3b, depth 36 -> 12 (36 until the model-axis
+                      # slice)
+
+
 def phase_run():
-    """The façade at published width and full depth: Run(RunSpec(qwen2.5-3b,
-    reduced=False)) with the adaptive phase's policy, Run.fit, Run.report,
-    Run.generate and Run.serve each against the solo route at their
-    shapes."""
+    """The façade at published width, depth cut to RUN_DEPTH:
+    Run(RunSpec(qwen2.5-3b, reduced=False)) with the adaptive phase's
+    policy and its config's depth cut before init, Run.fit, Run.report,
+    Run.generate and Run.serve (a ServeSpec cut alike) each against the
+    solo route at their shapes."""
     _, policy, ctrl = mlp_policies()
     spec = RunSpec(arch="qwen2.5-3b", reduced=False, policy=policy,
                    steps=RUN_STEPS, batch_size=RUN_BATCH, lr=1e-4, warmup=2,
@@ -1919,12 +1956,14 @@ def phase_run():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run = Run(spec).init()
+    run = Run(spec)
+    run.cfg = dataclasses.replace(run.cfg, n_layers=RUN_DEPTH)
+    run.init()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = run.cfg
     if (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != \
-            (36, 2048, 11008, 151936):
+            (RUN_DEPTH, 2048, 11008, 151936):
         fail(f"run: not the published qwen2.5-3b: {cfg}")
     n_params = sum(p.numel() for p in optim.tree_leaves(run.state["params"]))
     clock = StepClock(run.dataset)
@@ -1985,7 +2024,10 @@ def phase_run():
             for i, (n, g) in enumerate(RUN_SERVE)]
     reset_launches()
     t0 = time.perf_counter()
-    with run.serve(max_slots=4, page_size=16, max_len=128).start() as sess:
+    with run.serve(CutServeSpec(
+            arch=spec.arch, reduced=False, policy=run.policy,
+            prefill_chunk=spec.prefill_chunk, device="cuda", max_slots=4,
+            page_size=16, max_len=128, n_layers=RUN_DEPTH)).start() as sess:
         handles = [sess.submit(p, max_new=g) for p, g in reqs]
         served = [h.result(timeout=600) for h in handles]
         serve_s = time.perf_counter() - t0
@@ -3854,6 +3896,463 @@ def phase_dp():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor and expert parallelism, two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_DEPTH, TP_STEPS, TP_BATCH = 4, 2, 2      # qwen2.5-3b: depth 36 -> 4
+TP_PROMPT_B, TP_PROMPT, TP_GEN = 2, 2 * S, 16
+TP_GRANITE_DEPTH = 6                        # granite-moe-1b-a400m: 24 -> 6
+TP_DBRX_DEPTH = 2                           # dbrx-132b: 40 -> 2
+TP_LR = 1e-4
+
+
+def tp_specs(cfg, mesh):
+    params, axes = registry.abstract_params(cfg)
+    return sharding.param_shardings(axes, params, mesh,
+                                    rules=sharding.arch_rules(cfg, mesh))
+
+
+def tp_replicated_digest(params, specs) -> str:
+    """sha256 of every replicated (unsharded) parameter's bytes."""
+    h = hashlib.sha256()
+    for path, p in optim.named_leaves(params):
+        if not any(specs[path]):
+            h.update(bits(p).cpu().numpy())
+    return h.hexdigest()
+
+
+def tp_collectives(rec):
+    return {f"{op} over {axis}": v for (op, axis), v in rec.by_axis().items()}
+
+
+def tp_train(cfg, policy, mesh, ds, what, n_steps=TP_STEPS):
+    """``n_steps`` train steps of TP_BATCH sequences on this rank's shards
+    of fresh parameters from seed 0 (the same on both ranks; ``mesh`` may
+    be one rank's): losses, step ms, launches by route, each collective's
+    count, bytes and ms (host clock, the card synchronised around it), the
+    state."""
+    specs = tp_specs(cfg, mesh)
+    full = registry.init_params(cfg, 0)
+    local = sharding.shard_params(full, specs, mesh)
+    del full
+    state = {"params": local, "opt": optim.adamw_init(local), "step": 0,
+             "base_seed": cm.fold_seed(0, 7)}
+    step = train_steps.make_train_step(
+        cfg, policy, optim.AdamWConfig(), optim.linear_warmup_constant(TP_LR,
+                                                                       2),
+        mesh=mesh)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with collectives.recording(timed=True) as rec:
+        for i in range(n_steps):
+            if mesh.model_group is not None:
+                dist.barrier(group=mesh.model_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, TP_BATCH))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    return {"losses": losses, "step_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launch_counts(),
+            "launches_by_route": {n: dict(getattr(ops, n).launches_by_route)
+                                  for n in KERNEL_NAMES
+                                  if hasattr(getattr(ops, n),
+                                             "launches_by_route")},
+            "collectives": tp_collectives(rec)}, state, specs
+
+
+def tp_serve(cfg, local, mesh, prompt, feed):
+    """Prefill of ``prompt`` on this rank's shards (each rank keeps half
+    the caches' positions), the caches gathered, padded by TP_GEN and
+    split again, then TP_GEN decode steps fed ``feed``: the prefill's last
+    logits, each step's logits (whole on every rank), prefill and decode
+    ms, the collectives."""
+    prefill = train_steps.make_prefill_step(cfg, cm.Policy(), mesh=mesh)
+    serve = train_steps.make_serve_step(cfg, cm.Policy(), mesh=mesh)
+    with collectives.recording(timed=True) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, states = prefill(local, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        states = tuple({k: collectives.all_gather(v, mesh, "model", dim=2)
+                        for k, v in st.items()} for st in states)
+        states = pad_kv(states, TP_GEN)
+        specs = sharding.decode_state_shardings(states, mesh, TP_PROMPT_B)
+        states = sharding.shard_tree(states, specs, mesh)
+        logits, times = [], []
+        pos = prompt["tokens"].shape[1]
+        for t in range(TP_GEN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, lg, states = serve(local, feed[:, t], pos + t, states)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg.float())
+    return last.float(), torch.stack(logits), {
+        "prefill_ms": prefill_ms, "decode_ms": times,
+        "kv_spec": list(map(str, specs["0/k"])),
+        "collectives": tp_collectives(rec)}
+
+
+def tp_one_rank_serve(cfg, params, prompt, feed):
+    """The same prefill and decode on one rank (the whole parameters)."""
+    prefill = train_steps.make_prefill_step(cfg, cm.Policy())
+    serve = train_steps.make_serve_step(cfg, cm.Policy())
+    last, states = prefill(params, prompt)
+    states = pad_kv(states, TP_GEN)
+    logits = []
+    pos = prompt["tokens"].shape[1]
+    for t in range(TP_GEN):
+        _, lg, states = serve(params, feed[:, t], pos + t, states)
+        logits.append(lg.float())
+    return last.float(), torch.stack(logits)
+
+
+def tp_hold_to_one_rank(rec, m1, params, ref, ref_state):
+    """The exact f32 steps at model = 2 against one rank: the losses at
+    rtol 1e-5; each first-moment leaf (linear in the gradient) at a
+    relative L2 error of 1e-4 — the ranks' GEMMs run at half the width,
+    where cuBLAS picks other kernels and sums in another order, so an
+    element's error is relative to the terms it sums, not to itself; the
+    parameters after the steps: Adam moves an element by about lr a
+    step, and where a gradient is as small as its rounding noise the two
+    runs move it apart by up to 2·lr a step, so at most 1e-3 of the
+    elements stand beyond 1e-6 + 1e-5·|p| and none beyond 2·lr a step."""
+    if not np.allclose(rec["losses"], ref["losses"], rtol=1e-5, atol=0):
+        fail(f"tp exact f32: losses {rec['losses']} vs one rank "
+             f"{ref['losses']}")
+    worst_m = 0.0
+    for i, (x, y) in enumerate(zip(m1, optim.tree_leaves(
+            ref_state["opt"].m))):
+        rel = float((x - y).norm() / y.norm().clamp(min=1e-30))
+        worst_m = max(worst_m, rel)
+        if not rel <= 1e-4:
+            fail(f"tp exact f32: first moments of leaf {i} "
+                 f"{tuple(y.shape)} are {rel:.3g} (relative L2) off one "
+                 f"rank's")
+    off = total = 0
+    worst = 0.0
+    for x, y in zip(optim.tree_leaves(params),
+                    optim.tree_leaves(ref_state["params"])):
+        d = (x - y).abs()
+        off += int((d > 1e-6 + 1e-5 * y.abs()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    if off > total * 1e-3 or worst > 2 * TP_LR * TP_STEPS:
+        fail(f"tp exact f32: {off} of {total} parameters off one rank "
+             f"(largest {worst})")
+    rec.update(m1_rel_l2_worst=worst_m, params_off_one_rank=off,
+               params_max_diff_one_rank=worst)
+
+
+def tp_child(rank, port):
+    """One of two ranks sharing the card over gloo at model = 2
+    (``make_host_mesh(model_parallel=2)``: one model group).  qwen2.5-3b
+    at published width, depth 4: 2 WTA-CRS bf16 steps (loss falls, the
+    replicated leaves bit-identical across the ranks, launches as the
+    structure implies); 2 exact f32 steps held against one rank on the
+    gathered parameters (rank 0); a 2 x 2048 prefill and 16 decode steps
+    held against one rank at the bf16 floor of phase prefill.
+    granite-moe-1b-a400m at published width, depth 6, 2 WTA-CRS steps
+    with 16 experts a rank.  dbrx-132b at published width, depth 2,
+    prefill and decode with 8 experts a rank (bf16: the distance to one
+    rank measured; a router logit rounded in another order flips top-k).
+    Each collective's count, bytes and ms."""
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = mesh_lib.make_host_mesh(model_parallel=2)
+        out = {"rank": rank, "mesh": dict(mesh.shape),
+               "model_index": mesh_lib.model_index(mesh)}
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  n_layers=TP_DEPTH)
+        ds = data.SyntheticLM(cfg.vocab_size, S, TP_BATCH, seed=0)
+        wta = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                            min_rows=4),
+                        remat="none", flash_block=512)
+        rec, state, specs = tp_train(cfg, wta, mesh, ds, "tp qwen wta_crs")
+        if not rec["losses"][-1] < rec["losses"][0]:
+            fail(f"tp qwen wta_crs: loss did not fall: {rec['losses']}")
+        per_step = launches_per_step(cfg, wta, S)
+        if rec["launches"] != {n: TP_STEPS * per_step.get(n, 0)
+                               for n in KERNEL_NAMES}:
+            fail(f"tp qwen wta_crs: launches {rec['launches']}, expected "
+                 f"{TP_STEPS} x {per_step}")
+        rec["replicated_digest"] = tp_replicated_digest(state["params"],
+                                                        specs)
+        out["qwen_wta_crs"] = rec
+        del state
+        # exact f32: the ranks' gathered parameters against one rank's
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        exact = cm.Policy(wtacrs=EXACT_CONFIG, remat="none", flash_block=512)
+        rec, state, specs = tp_train(cfg32, exact, mesh, ds, "tp qwen exact")
+        params = sharding.gather_params(state["params"], specs, mesh)
+        m1 = optim.tree_leaves(sharding.gather_tree(state["opt"].m, specs,
+                                                    mesh))
+        del state
+        if rank == 0:
+            one = mesh_lib.Mesh({"data": 1, "model": 1}, ("data", "model"),
+                                device=torch.device("cuda"))
+            ref, ref_state, _ = tp_train(cfg32, exact, one, ds,
+                                         "tp one rank exact")
+            rec["losses_one_rank"] = ref["losses"]
+            rec["step_ms_one_rank"] = ref["step_ms"]
+            tp_hold_to_one_rank(rec, m1, params, ref, ref_state)
+            del ref_state
+        out["qwen_exact_f32"] = rec
+        del params, m1
+        torch.cuda.empty_cache()
+        # prefill 2 x 2048 and 16 decode steps against one rank (bf16)
+        full = registry.init_params(cfg, 0)
+        local = sharding.shard_params(full, tp_specs(cfg, mesh), mesh)
+        corpus = data.SyntheticLM(cfg.vocab_size, TP_PROMPT + TP_GEN,
+                                  TP_PROMPT_B, seed=0).batch_at(
+                                      0, TP_PROMPT_B)["tokens"]
+        toks = torch.from_numpy(corpus).cuda().to(torch.int64)
+        prompt = {"tokens": toks[:, :TP_PROMPT]}
+        last, steps, serve_rec = tp_serve(cfg, local, mesh, prompt,
+                                          toks[:, TP_PROMPT:])
+        serve_rec["logits_digest"] = hashlib.sha256(
+            torch.cat([last[None], steps]).cpu().numpy()).hexdigest()
+        if not bool(torch.isfinite(steps).all() & torch.isfinite(last).all()):
+            fail("tp qwen serve: non-finite logits")
+        if rank == 0:
+            want_last, want_steps = tp_one_rank_serve(cfg, full, prompt,
+                                                      toks[:, TP_PROMPT:])
+            tt = on_card(prompt)
+            err, floor, atol = close_to_forward(
+                "tp prefill last logits vs one rank", last, want_last,
+                forward_logits(cfg, full, tt, -1, 512).float(), 3e-2,
+                forward_logits(cfg, full, tt, -1, 256).float())
+            derr = check_close("tp decode logits vs one rank", steps,
+                               want_steps, 0.0, atol)
+            serve_rec.update(prefill_max_abs_err_one_rank=err,
+                             one_rank_vs_forward_floor=floor, atol_used=atol,
+                             decode_max_abs_err_one_rank=derr)
+        out["qwen_serve"] = serve_rec
+        del full, local, last, steps
+        torch.cuda.empty_cache()
+        # granite: expert parallel training, 16 experts a rank
+        gcfg = dataclasses.replace(get_config(MOE_ARCH),
+                                   n_layers=TP_GRANITE_DEPTH)
+        gds = data.SyntheticLM(gcfg.vocab_size, S, TP_BATCH, seed=0)
+        rec, state, specs = tp_train(gcfg, wta, mesh, gds, "tp granite")
+        rec["experts_per_rank"] = int(
+            state["params"]["layers"][0]["moe"]["wi"].shape[0])
+        if rec["experts_per_rank"] != gcfg.n_experts // 2:
+            fail(f"tp granite: {rec['experts_per_rank']} experts a rank")
+        per_step = launches_per_step(gcfg, wta, S, batch=TP_BATCH)
+        if rec["launches"] != {n: TP_STEPS * per_step.get(n, 0)
+                               for n in KERNEL_NAMES}:
+            fail(f"tp granite: launches {rec['launches']}, expected "
+                 f"{TP_STEPS} x {per_step}")
+        rec["replicated_digest"] = tp_replicated_digest(state["params"],
+                                                        specs)
+        out["granite"] = rec
+        del state
+        torch.cuda.empty_cache()
+        # dbrx: expert parallel serving, 8 experts a rank, bf16 weights
+        dcfg = dataclasses.replace(get_config("dbrx-132b"),
+                                   n_layers=TP_DBRX_DEPTH,
+                                   param_dtype="bfloat16")
+        full = registry.init_params(dcfg, 0)
+        local = sharding.shard_params(full, tp_specs(dcfg, mesh), mesh)
+        if rank != 0:
+            del full
+        dtoks = torch.from_numpy(data.SyntheticLM(
+            dcfg.vocab_size, TP_PROMPT + TP_GEN, TP_PROMPT_B,
+            seed=0).batch_at(0, TP_PROMPT_B)["tokens"]).cuda().to(
+                torch.int64)
+        dprompt = {"tokens": dtoks[:, :TP_PROMPT]}
+        last, steps, drec = tp_serve(dcfg, local, mesh, dprompt,
+                                     dtoks[:, TP_PROMPT:])
+        drec["experts_per_rank"] = int(
+            local["layers"][0]["moe"]["wi"].shape[0])
+        drec["logits_digest"] = hashlib.sha256(
+            torch.cat([last[None], steps]).cpu().numpy()).hexdigest()
+        if not bool(torch.isfinite(steps).all() & torch.isfinite(last).all()):
+            fail("tp dbrx serve: non-finite logits")
+        del local
+        if rank == 0:
+            want_last, want_steps = tp_one_rank_serve(
+                dcfg, full, dprompt, dtoks[:, TP_PROMPT:])
+            drec["prefill_max_abs_err_one_rank"] = float(
+                (last - want_last).abs().max())
+            drec["decode_max_abs_err_one_rank"] = float(
+                (steps - want_steps).abs().max())
+            del full
+        out["dbrx_serve"] = drec
+        emit(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp():
+    """Tensor and expert parallelism (``tp_child``, two gloo ranks on the
+    card): the ranks' replicated leaves and whole logits compared."""
+    t0 = time.perf_counter()
+    ranks = run_children("tp_child", 2, str(free_port()), timeout=900)
+    for key in ("qwen_wta_crs", "granite"):
+        if len({r[key]["replicated_digest"] for r in ranks}) != 1:
+            fail(f"tp {key}: the ranks' replicated parameters differ")
+        if ranks[0][key]["losses"] != ranks[1][key]["losses"]:
+            fail(f"tp {key}: the ranks' losses differ")
+    for key in ("qwen_serve", "dbrx_serve"):
+        if len({r[key]["logits_digest"] for r in ranks}) != 1:
+            fail(f"tp {key}: the ranks' logits differ")
+    emit({"phase": "tp", "ranks": ranks, "seconds": time.perf_counter() - t0,
+          "depths": {"qwen2.5-3b": TP_DEPTH,
+                     "granite-moe-1b-a400m": TP_GRANITE_DEPTH,
+                     "dbrx-132b": TP_DBRX_DEPTH},
+          "note": "two gloo ranks share one card: each collective's ms is "
+                  "a host round trip, not an interconnect's"})
+    return {n: sum(r[k]["launches"][n] for r in ranks
+                   for k in ("qwen_wta_crs", "granite"))
+            for n in KERNEL_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the train cell traced on meta against the real step; two
+# production cells
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = ("qwen2.5-3b", "dbrx-132b")
+DRYRUN_PROCS = []
+
+
+def start_dryrun_cells():
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS x
+    train_4k x single, in the background from the start (host CPU only, no
+    card): their trace takes minutes of host time the card's phases can
+    hide.  Returns the output directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dryrun-", dir=os.path.join(here,
+                                                               "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    for arch in DRYRUN_CELLS:
+        log = open(os.path.join(out, f"{arch}.log"), "w")
+        DRYRUN_PROCS.append((arch, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k", "--mesh", "single", "--out", out],
+            stdout=log, stderr=subprocess.STDOUT, env=env)))
+    return out
+
+
+def stop_dryrun_cells():
+    for _, log, proc in DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase_dryrun(out_dir):
+    """(1) The train phase's cell (12-layer qwen2.5-3b, B=4, S=1024, its
+    WTA-CRS policy, AdamW) traced on ``meta`` on a 1 x 1 mesh and held
+    against the same step on the card: the predicted peak within 10 % of
+    the measured one (the step's arguments, state and batch, plus
+    ``max_memory_allocated``'s rise over the bytes allocated before the
+    step), each kernel's predicted launches equal to its real counter, the
+    step's bound beside its device-busy ms.  (2) ``lower_cell`` of
+    DRYRUN_CELLS x train_4k x single (started in the background), their
+    records."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+    ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+    policy = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                           min_rows=4),
+                       remat="none", flash_block=512)
+    shape = InputShape("train_phase", S, B, "train")
+    metas = {n: getattr(ops, n).meta_launches for n in KERNEL_NAMES}
+    counter, _, _ = dryrun_lib.trace_step(
+        cfg, shape, mesh_lib.make_mesh((1, 1), ("data", "model")), policy)
+    predicted = {n: getattr(ops, n).meta_launches - metas[n]
+                 for n in KERNEL_NAMES}
+    trace_s = time.perf_counter() - t0
+    # the same step on the card: one warm-up step, then the measured one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state = train_steps.init_train_state(cfg, 0)
+    step = train_steps.make_train_step(
+        cfg, policy, optim.AdamWConfig(), optim.linear_warmup_constant(1e-4,
+                                                                       2))
+    state, _ = step(state, ds.batch_at(0, B))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             ds.batch_at(1, B).items() if k != "sample_ids"}
+    args_bytes = cost_lib.tree_bytes([state["params"], state["opt"].m,
+                                      state["opt"].v]) + cost_lib.tree_bytes(
+                                          batch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    max_alloc = torch.cuda.max_memory_allocated()
+    measured = args_bytes + (max_alloc - before)
+    real = launch_counts()
+    busy = device_busy(lambda: step(state, batch), 1)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    if real != predicted:
+        fail(f"dryrun: predicted launches {predicted}, the card's {real}")
+    if counter.argument_bytes != args_bytes:
+        fail(f"dryrun: predicted argument bytes {counter.argument_bytes}, "
+             f"the card's {args_bytes}")
+    ratio = counter.peak / measured
+    if not 0.9 <= ratio <= 1.1:
+        fail(f"dryrun: predicted peak {counter.peak} is {ratio:.3f}x the "
+             f"measured {measured}")
+    bound_s = max(counter.flops / roofline_lib.PEAK_FLOPS,
+                  counter.bytes_accessed / roofline_lib.HBM_BW)
+    cell = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+            "seq": S, "trace_s": trace_s,
+            "predicted_peak_bytes": counter.peak,
+            "measured_peak_bytes": measured,
+            "max_memory_allocated": max_alloc,
+            "allocated_before_step": before,
+            "argument_bytes": args_bytes, "peak_ratio": ratio,
+            "predicted_launches": predicted, "real_launches": real,
+            "flops": counter.flops, "bytes_accessed": counter.bytes_accessed,
+            "bound_ms": 1e3 * bound_s,
+            "device_busy_ms": busy["device_busy_ms_per_call"],
+            "loss": float(m["loss"])}
+    records = {}
+    for arch, log, proc in DRYRUN_PROCS:
+        try:
+            proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"dryrun: the {arch} cell did not end")
+        path = os.path.join(out_dir, f"{arch}__train_4k__single.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            log.flush()
+            with open(log.name) as f:
+                fail(f"dryrun: the {arch} cell exited {proc.returncode}: "
+                     f"{f.read()[-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok" or not {"memory", "cost",
+                                          "collectives"} <= set(rec):
+            fail(f"dryrun: the {arch} cell: {rec}")
+        rec["roofline"] = roofline_lib.roofline_terms(rec)
+        records[arch] = rec
+    stop_dryrun_cells()
+    emit({"phase": "dryrun", "train_cell": cell, "cells": records,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3870,7 +4369,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
+    dryrun_dir = start_dryrun_cells() if "dryrun" in phases else None
+    try:
+        return run_phases(phases, smi, dryrun_dir)
+    finally:
+        stop_dryrun_cells()
 
+
+PHASE_SECONDS = {}
+
+
+def clocked(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + (
+            time.perf_counter() - t0)
+
+
+def run_phases(phases, smi, dryrun_dir) -> int:
     if "env" in phases:
         emit({"phase": "env", "gpu": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
@@ -3879,7 +4398,8 @@ def main() -> int:
     if set(phases) & {"build", "kernels", "parity", "train", "memory",
                       "adaptive", "accumulate", "optim", "run", "resume",
                       "serve_parity", "prefill", "wide_serve", "moe",
-                      "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp"}:
+                      "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp",
+                      "tp", "dryrun"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -3903,10 +4423,11 @@ def main() -> int:
 
     cases, launches, by_route = [], {}, {}
     if "kernels" in phases:
-        cases, comp_launches, by_route["sampled_matmul"] = phase_kernels()
+        cases, comp_launches, by_route["sampled_matmul"] = clocked(
+            "kernels", phase_kernels)
         launches["sampled_matmul"] = comp_launches["sampled_matmul"]
     if "parity" in phases:
-        phase_parity()
+        clocked("parity", phase_parity)
 
     if set(phases) & {"train", "memory", "adaptive", "accumulate"}:
         cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
@@ -3916,66 +4437,74 @@ def main() -> int:
         ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
         wta_peak = peak_m1 = None
         if "train" in phases:
-            train_launches, wta_peak = phase_train(cfg, ds, n_steps=6)
+            train_launches, wta_peak = clocked("train", phase_train, cfg,
+                                               ds, n_steps=6)
             for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
                 launches[name] = train_launches[name]
             for name in ("gather_scale", "fused_sampled_dw"):
                 by_route[name] = dict(getattr(ops, name).launches_by_route)
         if "memory" in phases:
-            phase_memory(cfg, ds, wta_peak)
+            clocked("memory", phase_memory, cfg, ds, wta_peak)
         if "adaptive" in phases:
-            peak_m1 = phase_adaptive(cfg)
+            peak_m1 = clocked("adaptive", phase_adaptive, cfg)
         if "accumulate" in phases:
-            phase_accumulate(cfg, peak_m1)
+            clocked("accumulate", phase_accumulate, cfg, peak_m1)
         del ds
         torch.cuda.empty_cache()
     phase_launches = {}
     if "optim" in phases:
-        phase_launches["optim"] = phase_optim()
+        phase_launches["optim"] = clocked("optim", phase_optim)
 
     run_launches = {}
     if "run" in phases:
-        run_launches, _ = phase_run()
+        run_launches, _ = clocked("run", phase_run)
     if "resume" in phases:
-        phase_resume()
+        clocked("resume", phase_resume)
 
     if "serve_parity" in phases:
-        phase_serve_parity()
+        clocked("serve_parity", phase_serve_parity)
     if set(phases) & {"prefill", "decode", "pool"}:
         # the serving slice: published widths and full depth, f32
         # parameters, bf16 compute, exact linears
         cfg = get_config("qwen2.5-3b")
         params = registry.init_params(cfg, 0)
         if "prefill" in phases or "decode" in phases:
-            (serve_launches, flash_routes), *prefilled = phase_prefill(
-                cfg, params, B, 2 * S)
+            (serve_launches, flash_routes), *prefilled = clocked(
+                "prefill", phase_prefill, cfg, params, B, 2 * S)
             launches["flash_attention_fwd"] = \
                 serve_launches["flash_attention_fwd"]
             by_route["flash_attention_fwd"] = flash_routes
             if "decode" in phases:
-                phase_decode(cfg, params, *prefilled)
+                clocked("decode", phase_decode, cfg, params, *prefilled)
             del prefilled
         if "pool" in phases:
-            phase_pool(dataclasses.replace(cfg, n_layers=POOL_DEPTH), params)
+            clocked("pool", phase_pool,
+                    dataclasses.replace(cfg, n_layers=POOL_DEPTH), params)
         del params
         torch.cuda.empty_cache()
     if "wide_serve" in phases:
-        phase_launches["wide_serve"] = phase_wide_serve()
+        phase_launches["wide_serve"] = clocked("wide_serve",
+                                               phase_wide_serve)
     if "moe" in phases:
-        phase_launches["moe"] = phase_moe()
+        phase_launches["moe"] = clocked("moe", phase_moe)
     if "moe_wide" in phases:
-        phase_launches["moe_wide"] = phase_moe_wide()
+        phase_launches["moe_wide"] = clocked("moe_wide", phase_moe_wide)
     if "ssm" in phases:
-        phase_launches["ssm"] = phase_ssm()
+        phase_launches["ssm"] = clocked("ssm", phase_ssm)
     if "xlstm" in phases:
-        phase_launches["xlstm"] = phase_xlstm()
+        phase_launches["xlstm"] = clocked("xlstm", phase_xlstm)
     if "vlm" in phases:
-        phase_launches["vlm"] = phase_vlm()
+        phase_launches["vlm"] = clocked("vlm", phase_vlm)
     if "whisper" in phases:
-        phase_launches["whisper"] = phase_whisper()
+        phase_launches["whisper"] = clocked("whisper", phase_whisper)
     dp_launches = {}
     if "dp" in phases:
-        dp_launches = phase_dp()
+        dp_launches = clocked("dp", phase_dp)
+    tp_launches = {}
+    if "tp" in phases:
+        tp_launches = clocked("tp", phase_tp)
+    if "dryrun" in phases:
+        clocked("dryrun", phase_dryrun, dryrun_dir)
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the
@@ -3994,11 +4523,14 @@ def main() -> int:
                            else launches)
                 entry = dict(c, launches=counted[c["name"]],
                              launches_run=run_launches[c["name"]],
-                             launches_dp=dp_launches.get(c["name"], 0))
+                             launches_dp=dp_launches.get(c["name"], 0),
+                             launches_tp=tp_launches.get(c["name"], 0))
                 if "phase" not in c and c["name"] in by_route:
                     entry["launches_by_route"] = by_route[c["name"]]
                 summary.append(entry)
         emit({"kernels": summary})
+    emit({"phase_seconds": PHASE_SECONDS,
+          "total_s": time.perf_counter() - STARTED})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

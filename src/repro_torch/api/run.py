@@ -25,7 +25,17 @@ initialised process group builds the same Run, draws the same parameters
 from the seed (checked with each leaf's all-gathered sha256), trains on
 its slice of each global batch through the data-parallel scheduled step,
 restores from the same checkpoints; rank 0 alone writes checkpoints
-(after a barrier) and prints ``fit``'s log lines.
+(after a barrier) and prints ``fit``'s log lines.  With
+``model_parallel`` M above 1 the ranks form a (W / M, M) mesh: each
+draws the whole parameters from the seed and keeps its shards
+(``launch.sharding.shard_params``), the ranks of a model group train on
+the same batch slice, and the replication check runs over the data
+group.  Checkpoints and the serving methods over the model axis are not
+ported (ROADMAP Queue A.15).
+
+``Run.dryrun`` traces one rank of this run's (arch, policy) on a
+production mesh cell (``launch/dryrun.py``) and keeps the record for
+``report``'s §Roofline.
 """
 from __future__ import annotations
 
@@ -78,6 +88,14 @@ class Run:
         self.mesh = (mesh_lib.make_host_mesh(spec.model_parallel,
                                              device=self.device)
                      if spec.mesh == "host" else None)
+        if self.mesh is None and spec.model_parallel != 1:
+            raise ValueError(f"model_parallel={spec.model_parallel} needs "
+                             f"mesh='host'")
+        self._model_parallel = (self.mesh is not None
+                                and self.mesh.shape["model"] > 1)
+        if self._model_parallel:
+            registry.model_parallel_mesh(self.cfg, self.mesh)
+        self._dryrun_rec: Optional[dict] = None
         self._world = 1 if self.mesh is None else self.mesh.shape["data"]
         self._rank = 0 if self.mesh is None else mesh_lib.data_index(
             self.mesh)
@@ -129,17 +147,45 @@ class Run:
     def _new_state(self, opt):
         """A fresh train state whose optimizer state has ``opt``'s layout
         (``restore`` of a legacy checkpoint asks for ``AdamWConfig``)."""
+        params = self._params
+        if self._model_parallel:
+            if params is None:
+                params = registry.init_params(self.cfg, self.spec.seed,
+                                              device=self.device)
+            params = shard_lib.shard_params(params, self._param_specs(),
+                                            self.mesh)
         state = train_steps.init_train_state(
             self.cfg, self.spec.seed,
             znorm_tags=self.tags if self.use_znorm_cache else None,
             n_dataset=self.spec.data.n_samples,
             budget_stats=self.track_budget_stats, device=self.device,
-            params=self._params, opt=opt,
+            params=params, opt=opt,
             opt_ranks=self.schedule_state.ranks or None)
         self._params = None
         if self._world > 1:
             self._check_replicated(state["params"])
         return state
+
+    def _param_specs(self):
+        """{leaf path: spec} of the parameters on this run's mesh."""
+        params, axes = registry.abstract_params(self.cfg)
+        return shard_lib.param_shardings(
+            axes, params, self.mesh,
+            rules=shard_lib.arch_rules(self.cfg, self.mesh))
+
+    def _no_model_axis(self, what: str) -> None:
+        if self._model_parallel:
+            raise NotImplementedError(
+                f"Run.{what} over a model-parallel mesh is not ported "
+                f"(ROADMAP Queue A.15)")
+
+    def gathered_params(self) -> Dict[str, Any]:
+        """The whole parameters: on a model-parallel mesh, every rank's
+        shards all-gathered (``launch.sharding.gather_params``)."""
+        if not self._model_parallel:
+            return self.params
+        return shard_lib.gather_params(self.params, self._param_specs(),
+                                       self.mesh)
 
     @property
     def params(self) -> Dict[str, Any]:
@@ -261,6 +307,7 @@ class Run:
         one once the checkpoint is on disk)."""
         if not self.spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
+        self._no_model_axis("save")
         self.init()
         step = int(self.state["step"])
         self._barrier()
@@ -302,6 +349,7 @@ class Run:
         if not spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
         run = cls(spec, device=device)
+        run._no_model_axis("restore")
         if step is None:
             step = checkpoint.latest_step(spec.checkpoint_dir)
             if step is None:
@@ -392,6 +440,7 @@ class Run:
         ``make_prefill_chunk_step`` call (decode steps, token by token:
         the numerics of decode itself, not the flash kernel).  Returns
         ``(last_token, pos, states)`` ready for :meth:`decode`."""
+        self._no_model_axis("prefill")
         params = self.params
         prompts = np.asarray(prompts, np.int64)
         b, s = prompts.shape
@@ -407,6 +456,7 @@ class Run:
 
     def decode(self, token, pos, states):
         """One greedy decode step: ``(next_token, logits, states)``."""
+        self._no_model_axis("decode")
         return self._serve()(self.params, token, pos, states)
 
     def generate(self, prompts, gen: int, temperature: float = 0.0,
@@ -444,6 +494,7 @@ class Run:
             with run.serve(max_slots=4).start() as sess:
                 tokens = sess.submit(prompt, max_new=16).result(60)
         """
+        self._no_model_axis("serve")
         if spec is None:
             overrides.setdefault("arch", self.spec.arch)
             overrides.setdefault("reduced", self.spec.reduced)
@@ -461,16 +512,24 @@ class Run:
     # ------------------------------------------------------------------
 
     def dryrun(self, shape: str = "train_4k", mesh: str = "single") -> dict:
-        """Lowering a production mesh cell waits for the port's dry
-        run."""
-        raise NotImplementedError(
-            "Run.dryrun needs the dry-run surface, which is not ported yet "
-            "(ROADMAP Queue A.9)")
+        """Trace one rank of this run's (arch, policy) on a production
+        mesh cell (``launch.dryrun.lower_cell`` on the ``meta`` device) and
+        keep the record for :meth:`report`.  The run's own config is
+        traced: a ``reduced`` run's cell is the reduced arch's."""
+        from repro_torch.launch.dryrun import lower_cell
+        rec, _, _ = lower_cell(self.spec.arch, shape, mesh == "multi",
+                               policy=self.policy,
+                               microbatches=(self.spec.microbatches
+                                             if self.spec.microbatches > 1
+                                             else None),
+                               cfg=self.cfg)
+        self._dryrun_rec = rec
+        return rec
 
     def report(self) -> str:
         """Markdown report: §Run metrics summary, §Budgets controller
         trajectory + re-plan economy, §Optimizer memory (OptimSpec
-        runs)."""
+        runs), §Roofline (when ``dryrun`` ran)."""
         n_steps = int(self.state["step"]) if self.state is not None else 0
         n_compiles = (len(self._step_fn.compiled)
                       if self._step_fn is not None else 0)
@@ -484,5 +543,5 @@ class Run:
             n_steps=n_steps,
             budget_records=self.schedule_state.trajectory,
             n_compiles=n_compiles, history=self.history,
-            optim_rec=optim_rec,
+            roofline_rec=self._dryrun_rec, optim_rec=optim_rec,
             rank_records=self.schedule_state.rank_trajectory)

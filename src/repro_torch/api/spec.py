@@ -144,11 +144,9 @@ class RunSpec:
             raise ValueError(
                 f"batch_size {self.batch_size} exceeds data.n_samples "
                 f"{self.data.n_samples}")
-        if self.model_parallel != 1:
-            raise NotImplementedError(
-                f"model_parallel={self.model_parallel}: tensor and expert "
-                f"parallelism wait for ROADMAP Queue A.9; mesh='host' runs "
-                f"data parallel")
+        if self.model_parallel < 1:
+            raise ValueError(f"model_parallel must be >= 1, got "
+                             f"{self.model_parallel}")
 
         if self.budget_stats is True and self.znorm_cache is False:
             raise ValueError(

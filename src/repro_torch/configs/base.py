@@ -157,3 +157,12 @@ SHAPES: Dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ArchConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, with the reason if skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention architecture: 500k-token decode "
+                       "needs sub-quadratic sequence mixing (DESIGN.md "
+                       "S Arch-applicability)")
+    return True, ""

@@ -64,14 +64,17 @@ from repro_torch.kernels import ops as kernel_ops
 Plan = Tuple[torch.Tensor, torch.Tensor]     # (idx (B,k) int32, scale (B,k))
 
 
-def _make_plans(h, znorm, gen, cfg: WTACRSConfig, k: int) -> Plan:
+def _make_plans(h, znorm, gen, cfg: WTACRSConfig, k: int,
+                norm_reduce=None) -> Plan:
     """Per-sample plans.  h: (B,S,D), znorm: (B,S) -> idx/scale (B,k).
 
     Dispatches to the registered plan function for ``cfg.kind``.  The
     znorm term enters the probabilities only under CACHED_GRAD.  All-zero
-    rows fall back to the uniform distribution.
+    rows fall back to the uniform distribution.  ``norm_reduce``: see
+    ``plans.batched_row_weights`` (a feature-sharded H).
     """
-    weights = plans.batched_row_weights(h, znorm, cfg)        # (B, S)
+    weights = plans.batched_row_weights(h, znorm, cfg,
+                                        norm_reduce)          # (B, S)
     p = plans.normalize_weights(weights)
     plan = plans.build_batched_plans(p, k, gen, cfg)
     return plan.idx, plan.scale
@@ -128,14 +131,14 @@ class RematStash:
         return [t for triple in self.kept for t in triple]
 
 
-def _kept(h, znorm, cfg, gen, plan, stash):
+def _kept(h, znorm, cfg, gen, plan, stash, norm_reduce=None):
     """(H', idx, scale) of a sampled linear: built from ``h`` (and kept in
     a recording ``stash``), or taken from a replaying one."""
     if stash is not None and stash.replay:
         return stash.take()
     k = cfg.budget_rows(h.shape[1])
     idx, scale = plan if plan is not None else _make_plans(
-        h, znorm, gen, cfg, k)
+        h, znorm, gen, cfg, k, norm_reduce)
     h_sub = _rowgather(h, idx)
     if stash is not None:
         stash.keep(h_sub, idx, scale)
@@ -152,9 +155,10 @@ class _SampledLinear(torch.autograd.Function):
     """(B, S, D) x (D, E) with a per-sample plan; saves (H', idx, scale, w)."""
 
     @staticmethod
-    def forward(ctx, h, w, znorm, cfg, gen, plan, stash):
+    def forward(ctx, h, w, znorm, cfg, gen, plan, stash, norm_reduce):
         z = torch.matmul(h, w)
-        ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash), w)
+        ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash,
+                                     norm_reduce), w)
         ctx.cfg = cfg
         return z
 
@@ -165,7 +169,7 @@ class _SampledLinear(torch.autograd.Function):
         dh = torch.matmul(dz, w.t()).to(h_sub.dtype)
         dw = _sampled_dw(h_sub, dz, idx, scale, ctx.cfg, w.dtype)
         tap = _sq_norm_tap(dz) if ctx.needs_input_grad[2] else None
-        return dh, dw, tap, None, None, None, None
+        return dh, dw, tap, None, None, None, None, None
 
 
 class _SampledLinearShared(torch.autograd.Function):
@@ -205,6 +209,14 @@ class _SampledLinearShared(torch.autograd.Function):
 # Unified internal dispatch + thin public wrappers
 # ---------------------------------------------------------------------------
 
+def generator(device: torch.device, key: int) -> torch.Generator:
+    """A generator seeded with ``key`` on ``device``; on ``meta`` (the dry
+    run, where no draw is ever read) a CPU one."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(int(key))
+    return gen
+
+
 def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
                             key: Optional[int],
                             znorm: Optional[torch.Tensor],
@@ -212,7 +224,8 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
                             biases: Optional[Sequence] = None,
                             shared: bool = False,
                             plan: Optional[Plan] = None,
-                            stash: Optional[RematStash] = None
+                            stash: Optional[RematStash] = None,
+                            norm_reduce=None
                             ) -> Tuple[torch.Tensor, ...]:
     """The single sampled-dense path every public wrapper routes through.
 
@@ -220,7 +233,8 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
     (EXACT kind or budget covering all rows), znorm normalization, key
     requirements from the registered estimator's signature, and the
     shared-plan vs per-weight choice.  Returns one output per weight.
-    ``stash``: see :class:`RematStash`.
+    ``stash``: see :class:`RematStash`; ``norm_reduce``: see
+    ``plans.batched_row_weights``.
     """
     lead = h.shape[:-1]
     squeeze = h.ndim == 2
@@ -236,8 +250,7 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
             if key is None:
                 raise ValueError(
                     f"estimator {cfg.kind_name!r} requires a key")
-            gen = torch.Generator(device=h.device)
-            gen.manual_seed(int(key))
+            gen = generator(h.device, key)
         if plan is not None:
             k = cfg.budget_rows(s)
             idx, scale = plan
@@ -254,11 +267,14 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
             if not spec.supports_shared:
                 raise ValueError(f"estimator {cfg.kind_name!r} does not "
                                  f"support shared plans")
+            if norm_reduce is not None:
+                raise ValueError("a shared plan is column-parallel: its "
+                                 "H is replicated")
             z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, stash,
                                              *ws)
         else:
             z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan,
-                                             stash) for w in ws)
+                                             stash, norm_reduce) for w in ws)
         zs = tuple(z[0] if squeeze else z.reshape(lead + (z.shape[-1],))
                    for z in z3s)
 
@@ -274,7 +290,8 @@ def wtacrs_linear(h: torch.Tensor, w: torch.Tensor,
                   cfg: WTACRSConfig = WTACRSConfig(),
                   bias: Optional[torch.Tensor] = None,
                   plan: Optional[Plan] = None,
-                  stash: Optional[RematStash] = None) -> torch.Tensor:
+                  stash: Optional[RematStash] = None,
+                  norm_reduce=None) -> torch.Tensor:
     """Linear layer with estimator-approximated weight gradient.
 
     Args:
@@ -294,10 +311,13 @@ def wtacrs_linear(h: torch.Tensor, w: torch.Tensor,
         building one.
       stash: a :class:`RematStash` recording or replaying the kept
         tensors (layer rematerialisation).
+      norm_reduce: for an H sharded on its features (a row-parallel
+        weight), the all-reduce of the rows' partial squared norms, so
+        every rank draws the plan of the whole rows.
     """
     return _dispatch_sampled_dense(h, (w,), key, znorm, cfg,
                                    biases=(bias,), plan=plan,
-                                   stash=stash)[0]
+                                   stash=stash, norm_reduce=norm_reduce)[0]
 
 
 def wtacrs_linear_shared(h: torch.Tensor, ws, key: Optional[int] = None,
@@ -380,8 +400,7 @@ def expert_linear(h: torch.Tensor, ws, key: Optional[int],
     if spec.needs_key:
         if key is None:
             raise ValueError(f"estimator {cfg.kind_name!r} requires a key")
-        gen = torch.Generator(device=h.device)
-        gen.manual_seed(int(key))
+        gen = generator(h.device, key)
     return _ExpertSampledLinear.apply(h, cfg, gen, groups, stash, *ws)
 
 

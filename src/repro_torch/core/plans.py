@@ -203,18 +203,27 @@ def _wtacrs_entry(p, k, gen, cfg=None) -> SamplePlan:
 
 
 def batched_row_weights(h: torch.Tensor, znorm: Optional[torch.Tensor],
-                        cfg) -> torch.Tensor:
+                        cfg, norm_reduce=None) -> torch.Tensor:
     """Unnormalized sampling weights over rows: h (B, S, D) -> (B, S).
 
     The ||H_b,s|| factor of Eq. 3 — through the ``row_norms`` kernel on
     the card — times the cached gradient-norm term when
     ``cfg.norm_source == CACHED_GRAD`` (the config is authoritative —
     under ACTIVATION_ONLY a supplied znorm is ignored).
+
+    ``norm_reduce``: where ``h`` holds one shard of each row's features
+    (the input of a row-parallel weight), the all-reduce of the partial
+    squares over the shards; a row's norm is the square root of the
+    reduced f32 sum of squares (the squares are reduced, never the
+    norms), the same on every shard.
     """
     flat = h.reshape(-1, h.shape[-1])
     if not flat.is_contiguous():
         flat = flat.contiguous()
-    h_norms = kernel_ops.row_norms(flat).reshape(h.shape[:-1])
+    h_norms = kernel_ops.row_norms(flat)
+    if norm_reduce is not None:
+        h_norms = torch.sqrt(norm_reduce(h_norms * h_norms))
+    h_norms = h_norms.reshape(h.shape[:-1])
     if znorm is not None and cfg.norm_source == NormSource.CACHED_GRAD:
         return h_norms * znorm.to(torch.float32)
     return h_norms

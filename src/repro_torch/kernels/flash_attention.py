@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -78,7 +78,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     BH = BKVH * group -> (BH, Sq, Dh) in ``q.dtype``.
 
     A CUDA tensor launches the kernel (or raises); only tensors that lie
-    on the CPU take the plain version.
+    on the CPU take the plain version; ``meta`` tensors charge the dry
+    run's counter (``kernels/costs.py``).
     """
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError(f"flash_attention_fwd wants q (BH, Sq, Dh) and k/v "
@@ -103,6 +104,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=dev)
     _build.check_operand("v", v, dtype=q.dtype, shape=(bkvh, skv, dh),
                          device=dev)
+    if dev.type == "meta":
+        costs.charge(flash_attention_fwd, *costs.flash(
+            bh, bkvh, sq, skv, dh, causal, q.element_size()))
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, group=group, causal=causal)
     if not q.is_cuda:
@@ -121,4 +126,5 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.meta_launches = 0
 flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)

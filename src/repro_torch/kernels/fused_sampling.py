@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 TILES = (64, 128)
 # the wmma and fma routes put the expert on blockIdx.z
@@ -88,7 +88,8 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
 
     ``tile`` pins the bf16/f16 output tile (64 or 128); ``None`` lets the
     kernel choose from the shape.  A CUDA tensor launches the kernel (or
-    raises); only tensors that lie on the CPU take the plain version.  An
+    raises); only tensors that lie on the CPU take the plain version;
+    ``meta`` tensors charge the dry run's counter (``kernels/costs.py``).  An
     index outside [0, n) raises: on the CPU at once, on the card as a
     device-side assert at the next synchronisation.
     """
@@ -118,6 +119,11 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
                          device=dev)
     _build.check_operand("scale", scale, dtype=torch.float32,
                          shape=lead + (b, k), device=dev)
+    if dev.type == "meta":
+        costs.charge(fused_sampled_dw, *costs.sampled_dw(
+            e, b, k, d_in, d_out, hsub.element_size()))
+        return torch.empty(lead + (d_in, d_out), dtype=torch.float32,
+                           device="meta")
     if dev.type == "cpu":
         return fused_sampled_dw_plain(hsub, dz, idx, scale)
     if not hsub.is_cuda:
@@ -137,4 +143,5 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
 
 
 fused_sampled_dw.launches = 0
+fused_sampled_dw.meta_launches = 0
 fused_sampled_dw.launches_by_route = dict.fromkeys(ROUTES, 0)

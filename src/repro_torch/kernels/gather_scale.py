@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 # C route codes are the positions (csrc/gather_scale.cu: enum Route)
 ROUTES = ("warp", "bulk")
@@ -85,8 +85,9 @@ def gather_scale(x: torch.Tensor, idx: torch.Tensor,
     has ``x``'s dtype.
 
     A CUDA tensor launches the kernel (or raises); only tensors that lie
-    on the CPU take the plain version.  An index outside [0, n) raises: on
-    the CPU at once, on the card as a device-side assert at the next
+    on the CPU take the plain version; ``meta`` tensors charge the dry
+    run's counter (``kernels/costs.py``).  An index outside [0, n) raises:
+    on the CPU at once, on the card as a device-side assert at the next
     synchronisation.
     """
     if x.ndim not in (2, 3) or idx.ndim != x.ndim - 1:
@@ -109,6 +110,11 @@ def gather_scale(x: torch.Tensor, idx: torch.Tensor,
                          device=dev)
     _build.check_operand("scale", scale2, dtype=torch.float32, shape=(b, k),
                          device=dev)
+    if dev.type == "meta":
+        costs.charge(gather_scale, *costs.gather_scale(b, k, d,
+                                                       x.element_size()))
+        out = torch.empty((b, k, d), dtype=x.dtype, device="meta")
+        return out[0] if single else out
     if dev.type == "cpu":
         out = gather_scale_plain(x3, idx2, scale2)
         return out[0] if single else out
@@ -123,4 +129,5 @@ def gather_scale(x: torch.Tensor, idx: torch.Tensor,
 
 
 gather_scale.launches = 0
+gather_scale.meta_launches = 0
 gather_scale.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 
 def row_norms_plain(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +29,8 @@ def row_norms(x: torch.Tensor) -> torch.Tensor:
     """(n, d) bf16/f16/f32 -> (n,) f32.
 
     A CUDA tensor launches the kernel (or raises); only a tensor that
-    lies on the CPU takes the plain version.
+    lies on the CPU takes the plain version; a ``meta`` tensor charges
+    the dry run's counter (``kernels/costs.py``).
     """
     if x.ndim != 2:
         raise ValueError(f"row_norms wants (n, d), got {tuple(x.shape)}")
@@ -40,6 +41,9 @@ def row_norms(x: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     if n < 1 or d < 1:
         raise ValueError(f"row_norms wants a non-empty matrix, got ({n}, {d})")
+    if x.device.type == "meta":
+        costs.charge(row_norms, *costs.row_norms(n, d, x.element_size()))
+        return torch.empty((n,), dtype=torch.float32, device="meta")
     if x.device.type == "cpu":
         return row_norms_plain(x)
     if not x.is_cuda:
@@ -55,3 +59,4 @@ def row_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 row_norms.launches = 0
+row_norms.meta_launches = 0

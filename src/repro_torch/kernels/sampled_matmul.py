@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, fused_sampling
+from repro_torch.kernels import _build, costs, fused_sampling
 
 # contraction slots per tile of the even-tiled routes: mma tiles of 32 for
 # bf16/f16, FMA tiles of 16 for f32 (csrc/sampled_matmul.cu)
@@ -154,7 +154,8 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
     ``smm_route`` picks the kernel configuration and ``plan_operands``
     prepares its operands on either device; then a CUDA tensor launches
     the kernel (or raises) and only tensors that lie on the CPU take the
-    plain version.  An index outside [0, n) raises: on the CPU at once, on
+    plain version; ``meta`` tensors charge the dry run's counter
+    (``kernels/costs.py``).  An index outside [0, n) raises: on the CPU at once, on
     the card as a device-side assert at the next synchronisation.
     """
     if hsub.ndim not in (2, 3) or dz.ndim != hsub.ndim:
@@ -178,6 +179,11 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
                          device=dev)
     _build.check_operand("scale", scale, dtype=torch.float32, shape=(b, k),
                          device=dev)
+    if dev.type == "meta":
+        costs.charge(sampled_matmul, *costs.sampled_dw(
+            1, b, k, d_in, d_out, hsub.element_size()))
+        return torch.empty((d_in, d_out), dtype=torch.float32,
+                           device="meta")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sampled_matmul runs on cuda or cpu, not {dev}")
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -190,4 +196,5 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
 
 
 sampled_matmul.launches = 0
+sampled_matmul.meta_launches = 0
 sampled_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,11 +1,39 @@
-"""Markdown report sections of the port: §Run, §Budgets and §Optimizer
-memory for ``repro_torch.api.Run.report``, §Serving for
-``ServeSession.report``.  Pure string formatting, the reference's text
-character for character.  The dry-run tables and the §Roofline section
-wait for the port's dry run (ROADMAP Queue A.9)."""
+"""Markdown report sections of the port: §Run, §Budgets, §Optimizer
+memory and §Roofline for ``repro_torch.api.Run.report``, §Serving for
+``ServeSession.report``, and the §Dry-run + §Roofline sections over the
+dry-run records (``generate``).  Pure string formatting, the reference's
+text character for character, but for the hardware (the H100's peak
+rates, ``launch/roofline.py``) and the dry run's ``trace s`` where the
+reference's has ``compile s``."""
 from __future__ import annotations
 
 from typing import List
+
+from repro_torch.launch import roofline
+
+
+def dryrun_table(rows: List[dict]) -> str:
+    hdr = ("| arch | shape | mesh | status | mem/dev GiB | FLOPs/dev | "
+           "coll bytes/dev | AG/AR/RS/A2A/CP | trace s |\n"
+           "|---|---|---|---|---|---|---|---|---|\n")
+    out = []
+    for r in rows:
+        if r["status"] != "ok":
+            reason = r.get("reason", r.get("error", ""))[:70]
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                       f"{r['status']}: {reason} | | | | | |")
+            continue
+        c = r["collectives"]["counts"]
+        cc = "/".join(str(c.get(k, 0)) for k in
+                      ("all-gather", "all-reduce", "reduce-scatter",
+                       "all-to-all", "collective-permute"))
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok "
+            f"| {r['memory']['peak_per_device_bytes'] / 2**30:.2f} "
+            f"| {r['cost']['flops']:.3g} "
+            f"| {r['collectives']['total_bytes']:.3g} "
+            f"| {cc} | {r.get('trace_s', r.get('compile_s'))} |")
+    return hdr + "\n".join(out) + "\n"
 
 
 def budget_trajectory_table(records: List[dict]) -> str:
@@ -88,13 +116,8 @@ def run_report(*, n_steps: int, budget_records: List[dict],
                rank_records: List[dict] = None) -> str:
     """One markdown report for a façade run (``repro_torch.api.Run.report``):
     a §Run summary over the metrics history, the §Budgets controller
-    trajectory, and §Optimizer memory when given an optimizer memory
-    record.  ``roofline_rec`` must be ``None``: the port has no dry-run
-    lowering yet (ROADMAP Queue A.9)."""
-    if roofline_rec is not None:
-        raise NotImplementedError(
-            "the §Roofline section needs the dry-run surface, which is not "
-            "ported yet (ROADMAP Queue A.9)")
+    trajectory, §Optimizer memory when given an optimizer memory record,
+    and — when the run did a dry run — the §Roofline terms of its cell."""
     parts = ["## §Run\n"]
     if history:
         losses = [h["loss"] for h in history if "loss" in h]
@@ -110,6 +133,16 @@ def run_report(*, n_steps: int, budget_records: List[dict],
         parts.append("")
         parts.append(optimizer_memory_report(optim_rec,
                                              rank_records=rank_records))
+    if roofline_rec is not None and roofline_rec.get("status") == "ok":
+        rt = roofline.roofline_terms(roofline_rec)
+        parts.append(
+            f"\n## §Roofline\n\n"
+            f"{roofline_rec['arch']} x {roofline_rec['shape']} x "
+            f"{roofline_rec['mesh']}: compute {rt['compute_s']:.4f}s | "
+            f"memory {rt['memory_s']:.4f}s | collective "
+            f"{rt['collective_s']:.4f}s; dominant {rt['dominant']}, "
+            f"useful-FLOPs {rt['useful_flops_ratio'] * 100:.1f}%, "
+            f"roofline fraction {rt['roofline_fraction'] * 100:.1f}%.\n")
     return "\n".join(parts)
 
 
@@ -135,4 +168,39 @@ def serve_report(spec, stats: dict, pool_bytes: int = None) -> str:
         f"{n_dec} decode steps + "
         f"{int(stats.get('prefill_chunks', 0))} prefill chunks; "
         f"mean slot occupancy {occ * 100:.0f}%.\n")
+    return "\n".join(parts)
+
+
+def generate(dryrun_dir: str = "experiments/dryrun") -> str:
+    recs = roofline.load_records(dryrun_dir)
+    rows = roofline.summarize(dryrun_dir)
+    picks = roofline.pick_hillclimb_cells(rows)
+    parts = []
+    parts.append("## §Dry-run\n")
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    n_skip = sum(r["status"] == "skipped" for r in recs)
+    n_err = sum(r["status"] == "error" for r in recs)
+    parts.append(
+        f"{len(recs)} cells traced, one rank each, on the production meshes "
+        f"(16x16 single-pod, 2x16x16 multi-pod): **{n_ok} ok, "
+        f"{n_skip} skipped** (long_500k on pure full-attention archs, "
+        f"per DESIGN.md §Arch-applicability), {n_err} errors.\n")
+    parts.append(dryrun_table(recs))
+    parts.append("\n## §Roofline\n")
+    parts.append(
+        f"Terms per cell (single-pod shown; see JSON for multi-pod): "
+        f"compute = FLOPs/dev / {roofline.PEAK_FLOPS:g}, memory = "
+        f"bytes/dev / {roofline.HBM_BW:g}, collective = payload-bytes/dev "
+        f"/ {roofline.LINK_BW:g}.  FLOPs/bytes are trip-count-aware "
+        f"(repro_torch.launch.cost); 'useful FLOPs' = 6·N_active·D / "
+        f"counted FLOPs; 'roofline frac' = ideal compute time / "
+        f"dominant-term time.\n")
+    parts.append(roofline.to_markdown(
+        [r for r in rows if r["mesh"] == "single"]))
+    parts.append("\nHillclimb cells (per assignment: worst fraction, "
+                 "most collective-bound, paper-representative):\n")
+    for c in picks:
+        parts.append(f"* **{c['arch']} x {c['shape']}** — {c['why']}; "
+                     f"dominant={c['dominant']}, "
+                     f"fraction={c['roofline_fraction'] * 100:.1f}%")
     return "\n".join(parts)

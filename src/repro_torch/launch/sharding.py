@@ -16,15 +16,20 @@ names, or None (replicated); ``()`` replicates the whole tensor.  A tuple
 of one name is written as the name, as the reference's ``PartitionSpec``
 normalizes it, so the two compare equal.  The shardings of a tree are a
 flat ``{leaf path: spec}`` dict (``train.optim.named_leaves``'s paths)
-where the reference returns a twin tree.  Nothing here places a tensor:
-the port's sharded runs are data parallel (``shard_batch`` hands each
-rank its slice of the batch; parameters and optimizer state are
-replicated), and a ``model`` axis above 1 waits for ROADMAP Queue A.9.
+where the reference returns a twin tree.  ``shard_batch`` hands each
+rank its slice of the batch; ``shard_tree`` (``shard_params``) slices each
+leaf of a tree to this rank's shard under its spec, and ``gather_tree``
+(``gather_params``) is its inverse.  Weights cross to a model-parallel
+rank as ``convert.params_from_jax`` followed by ``shard_params``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+
+import torch
+
+from repro_torch.launch import collectives
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.train.optim import named_leaves
 
@@ -188,3 +193,61 @@ def shard_batch(batch, mesh):
         rows = slice(index * b, (index + 1) * b)
         out[name] = x[:, rows] if bdim == 1 else x[rows]
     return out
+
+
+def _rank_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of ``x`` under ``spec``: a fresh tensor of
+    ``shard_shape`` (an empty one on ``meta``, a copy otherwise)."""
+    shape = shard_shape(tuple(x.shape), spec, mesh)
+    if x.device.type == "meta":
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+    out = x
+    for dim, part in enumerate(spec):
+        names = _names(part)
+        if names:
+            n = shape[dim]
+            out = out.narrow(dim, collectives.index(mesh, names) * n, n)
+    return out.clone() if out is x else out.contiguous().clone()
+
+
+def _rebuild(tree, fn, prefix=""):
+    """``tree`` (nested dicts / lists / tuples) with ``fn(path, leaf)`` at
+    each tensor leaf, paths as ``named_leaves`` spells them."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix[:-1], tree)
+    return tree
+
+
+def shard_tree(tree, specs: Dict[str, Tuple], mesh):
+    """Each tensor leaf of ``tree`` sliced to this rank's shard under
+    ``specs`` ({leaf path: spec}, the paths of ``named_leaves``); a leaf
+    without a spec is kept as it is."""
+    return _rebuild(tree, lambda path, x: (
+        _rank_slice(x, specs[path], mesh) if path in specs else x))
+
+
+def gather_tree(tree, specs: Dict[str, Tuple], mesh):
+    """The inverse of ``shard_tree``: each sharded leaf all-gathered over
+    its spec's axes (every rank gets the whole tensor)."""
+    def one(path, x):
+        for dim, part in enumerate(specs.get(path, ())):
+            names = _names(part)
+            if names:
+                x = collectives.all_gather(x, mesh, names, dim=dim)
+        return x
+    return _rebuild(tree, one)
+
+
+def shard_params(params, specs: Dict[str, Tuple], mesh):
+    """This rank's shard of every parameter (``param_shardings``' specs)."""
+    return shard_tree(params, specs, mesh)
+
+
+def gather_params(params, specs: Dict[str, Tuple], mesh):
+    """The whole parameters from every rank's shards."""
+    return gather_tree(params, specs, mesh)

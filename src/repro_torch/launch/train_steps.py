@@ -20,6 +20,14 @@ computes what the reference's sharded step computes over the global
 batch, the znorm cache and budget statistics included.  The backend is
 the caller's: whatever ``torch.distributed`` group the mesh carries.
 
+Tensor and expert parallelism: a live host mesh whose ``model`` axis
+holds M ranks runs Megatron's program (``models/lm.py``): each rank of a
+model group holds its shards of the parameters and of the optimizer
+state (``shard_train_state``), the same batch slice, and draws the same
+plans; the gradients are reduced over the data axes only, and the legacy
+AdamW updates each shard in place (it is elementwise; the gradient norm
+sums the sharded leaves' squares over ``model``).
+
 The serve and prefill step makers below return eager functions with the
 reference's signatures.  Each step enters ``torch.no_grad()`` itself
 (grad mode is thread-local and the serving loop runs in its own thread),
@@ -33,12 +41,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-import torch.distributed as dist
-
 from repro_torch import optim as optim_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import controller as controller_lib
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_or_meta
+from repro_torch.launch import collectives
+from repro_torch.launch import cost as cost_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import common as cm
@@ -140,6 +148,46 @@ def train_state_shardings(cfg, state, axes, mesh):
     return sh
 
 
+def shard_train_state(state, shardings, mesh):
+    """This rank's shard of a train state (``init_train_state``'s or
+    ``abstract_train_state``'s) under ``train_state_shardings``: the
+    parameters and the optimizer slots sliced by their specs, the rest as
+    it is.  On ``meta`` tensors, fresh ``meta`` tensors of the shard
+    shapes."""
+    out = dict(state)
+    out["params"] = shard_lib.shard_params(state["params"],
+                                           shardings["params"], mesh)
+    opt, opt_sh = state["opt"], shardings["opt"]
+    if isinstance(opt, optim.AdamWState):
+        out["opt"] = optim.AdamWState(
+            opt.count, shard_lib.shard_tree(opt.m, opt_sh.m, mesh),
+            shard_lib.shard_tree(opt.v, opt_sh.v, mesh))
+    else:
+        specs = {f"leaves/{ref}/{slot}": spec
+                 for ref, slots in opt_sh["leaves"].items()
+                 for slot, spec in slots.items()}
+        out["opt"] = shard_lib.shard_tree(opt, specs, mesh)
+    return out
+
+
+def _whole_shapes(cfg) -> List[tuple]:
+    """The whole parameters' shapes, ``tree_leaves`` order."""
+    whole, _ = registry.abstract_params(cfg)
+    return [tuple(w.shape) for w in optim.tree_leaves(whole)]
+
+
+def _model_parallel_norm(grads, sharded, mesh) -> torch.Tensor:
+    """The global gradient norm over a model group: the sharded leaves'
+    squares summed over ``model``, the replicated ones counted once."""
+    def part(flags):
+        sq = [torch.sum(torch.square(g.to(torch.float32)))
+              for g, f in zip(grads, sharded) if f == flags]
+        return (torch.stack(sq).sum() if sq else
+                torch.zeros((), dtype=torch.float32, device=grads[0].device))
+    return torch.sqrt(collectives.all_reduce(part(True), mesh, "model")
+                      + part(False))
+
+
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     out = {}
     for name, x in batch.items():
@@ -186,11 +234,10 @@ def _gather_rows(mesh, world: int, index: int, x: torch.Tensor, dim: int):
     shape[dim] = b * world
     out = torch.zeros(shape, dtype=x.dtype, device=x.device)
     out.narrow(dim, index * b, b).copy_(x)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
-    return out
+    return collectives.all_reduce_(out, mesh, mesh_lib.data_axes(mesh))
 
 
-def _grads_of(cfg, policy, params, leaves, zn, batch, key):
+def _grads_of(cfg, policy, params, leaves, zn, batch, key, mesh=None):
     """Loss, parameter gradients and (with a cache) the tap of every cache
     tag — zeros for a tag whose linear took no znorm."""
     zn_leaves = []
@@ -201,7 +248,7 @@ def _grads_of(cfg, policy, params, leaves, zn, batch, key):
         p.requires_grad_(True)
     try:
         loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
-                                   znorms=zn)
+                                   znorms=zn, mesh=mesh)
         grads = torch.autograd.grad(loss, leaves + zn_leaves,
                                     allow_unused=True)
     finally:
@@ -284,8 +331,22 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     ``compress`` (``make_shardmap_dp_step``'s): reduce the gradients
     through ``reduce_gradients`` in that mode and fold the data index into
     the seed at every world size, one rank included.
+
+    A ``model`` axis above 1 (tensor and expert parallelism, see the
+    module doc): every rank of a model group calls the step with its
+    shard of the state (``shard_train_state``) and the same batch slice;
+    the reduction runs over the data axes only.  A ``meta`` mesh
+    (``launch.mesh.meta_mesh``) with ``device="meta"`` runs one rank's
+    step without peers, for the dry run.
     """
-    device = resolve_device(device)
+    device = resolve_or_meta(device)
+    model_mesh = registry.model_parallel_mesh(cfg, mesh)
+    if model_mesh is not None and isinstance(opt_cfg, optim_lib.OptimSpec) \
+            and not opt_cfg.all_dense:
+        raise NotImplementedError(
+            f"the {opt_cfg.layouts_used()} optimizer layouts over a "
+            f"model-parallel mesh (row / column statistics and SVDs that "
+            f"span shards) are not ported (ROADMAP Queue A.14)")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if compress is not None and compress not in compression.MODES:
@@ -299,6 +360,10 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     # carries rank-controller rules
     track_rank_energy = layouts and bool(opt_cfg.controller_rule_indices())
     _no_tf32()
+
+    # the whole shapes, to tell a shard from a replicated leaf (taken here,
+    # outside any cost counter: the meta parameters are whole-size)
+    whole = _whole_shapes(cfg) if model_mesh is not None else None
 
     def train_step(state, batch):
         params = state["params"]
@@ -322,7 +387,7 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
         if microbatches == 1:
             zn = znorm.gather(cache, ids) if use_znorm_cache else None
             loss, grads, taps = _grads_of(cfg, policy, params, leaves, zn,
-                                          model_batch, key)
+                                          model_batch, key, model_mesh)
             if use_znorm_cache and world == 1:
                 cache = znorm.scatter(cache, ids, taps, active_tags=active)
         else:
@@ -335,7 +400,8 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                                  device=p.device) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=device)
             tap_parts = []
-            for i in range(microbatches):
+            # a cost counter may trace one microbatch for all of them
+            for i in cost_lib.loop(microbatches):
                 rows = slice(i * mb, (i + 1) * mb)
                 # M-RoPE's positions3 is (3, B, S): its batch is dim 1
                 mb_batch = {n: x[:, rows] if n == "positions3" else x[rows]
@@ -344,7 +410,7 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                       else None)
                 loss_i, g_i, taps_i = _grads_of(
                     cfg, policy, params, leaves, zn, mb_batch,
-                    cm.fold_seed(key, i))
+                    cm.fold_seed(key, i), model_mesh)
                 for acc, g in zip(grads, g_i):
                     acc.add_(g.to(torch.float32) / microbatches)
                 del g_i
@@ -373,12 +439,16 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                 cache = znorm.scatter(cache, ids, taps, active_tags=active)
 
         lr = schedule(step)
+        gnorm = None
+        if model_mesh is not None:
+            sharded = [tuple(p.shape) != w for p, w in zip(leaves, whole)]
+            gnorm = _model_parallel_norm(grads, sharded, model_mesh)
         if layouts:
             _, _, om, rank_energy = optim_lib.update(
-                grads, state["opt"], params, lr, opt_cfg)
+                grads, state["opt"], params, lr, opt_cfg, gnorm=gnorm)
         else:
             _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
-                                          opt_cfg)
+                                          opt_cfg, gnorm=gnorm)
         state["step"] = step + 1
         if use_znorm_cache:
             state["znorm"] = cache
@@ -694,33 +764,59 @@ def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=torch.int64)
 
 
-def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda"):
+def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
+                      mesh=None):
     """(params, batch) -> (last_logits (B, V), states): the whole prompt
     through the stack, attention on the ``flash_attention_fwd`` kernel (a
     VLM's batch also carries ``patches`` and ``positions3``).  An
     encoder-decoder arch raises, as in the reference: its prefill is
-    ``encdec.prime_cross_cache`` and the decode loop."""
-    device = resolve_device(device)
+    ``encdec.prime_cross_cache`` and the decode loop.  ``mesh``: a
+    model-parallel mesh (``params`` this rank's shards): the states are
+    this rank's slice of the caches' sequence dim, as
+    ``launch.sharding.decode_state_shardings`` shards them."""
+    device = resolve_or_meta(device)
+    mesh = registry.model_parallel_mesh(cfg, mesh)
     _no_tf32()
 
     def prefill_step(params, batch):
         with torch.no_grad():
-            return registry.prefill(cfg, params, _to_device(batch, device),
-                                    policy)
+            batch = _to_device(batch, device)
+            if mesh is not None:
+                _check_kv_sharding(cfg, mesh, batch["tokens"].shape)
+            return registry.prefill(cfg, params, batch, policy, mesh=mesh)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, policy: cm.Policy, device="cuda"):
+def _check_kv_sharding(cfg, mesh, tokens_shape) -> None:
+    """Refuse a cache that ``decode_state_shardings`` would shard on
+    another dim than its sequence (the one the model code splits)."""
+    b, s = tokens_shape[0], tokens_shape[-1]
+    meta = torch.empty((cfg.n_repeats, b, s, cfg.n_kv_heads,
+                        cfg.head_dim), device="meta")
+    spec = shard_lib.decode_state_shardings({"k": meta}, mesh, b)["k"]
+    if "model" not in shard_lib._names(spec[2]):
+        raise NotImplementedError(
+            f"decode_state_shardings shards a ({b}, {s}) KV cache as "
+            f"{spec}; the model code splits only its sequence dim over "
+            f"model (ROADMAP Queue A.15)")
+
+
+def make_serve_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
+                    mesh=None):
     """(params, token (B,), pos, states) -> (next_token (B,) int32 greedy,
-    logits (B, V), states); ``pos`` scalar or (B,)."""
-    device = resolve_device(device)
+    logits (B, V), states); ``pos`` scalar or (B,).  ``mesh``: a
+    model-parallel mesh, the states each rank's sequence slice (see
+    ``make_prefill_step``)."""
+    device = resolve_or_meta(device)
+    mesh = registry.model_parallel_mesh(cfg, mesh)
     _no_tf32()
 
     def serve_step(params, token, pos, states):
         with torch.no_grad():
             logits, states = registry.decode_step(
-                cfg, params, _tokens(token, device), pos, states, policy)
+                cfg, params, _tokens(token, device), pos, states, policy,
+                mesh=mesh)
             next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, states
 

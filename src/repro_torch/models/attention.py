@@ -22,6 +22,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import collectives
+
 NEG_INF = -1e30
 
 
@@ -132,6 +134,37 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     l = torch.sum(p, dim=-1)
     pv = torch.einsum("bhgk,bkhd->bhgd", p.to(q1.dtype),
                       v_cache).to(torch.float32)
+    o = pv / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, 1, h, dh).to(q1.dtype)
+
+
+def decode_attention_sharded(q1: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len, offset: int,
+                             mesh) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence dim is split across
+    the ``model`` ranks: this rank holds positions [offset, offset +
+    Smax_local).  The softmax max is all-reduced first, so every rank
+    exponentiates against the global max as the one-rank version does;
+    then the sums and the P·V products (each rounded to q1's dtype, as
+    there, then f32) are all-reduced."""
+    b, _, h, dh = q1.shape
+    span, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qr = q1.reshape(b, kvh, g, dh).to(torch.float32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr,
+                     k_cache.to(torch.float32)) * scale
+    cache_len = torch.as_tensor(cache_len, device=q1.device)
+    valid = (torch.arange(span, device=q1.device)[None] + offset
+             < cache_len.reshape(-1, 1))
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = collectives.all_reduce(torch.amax(s, dim=-1, keepdim=True), mesh,
+                               "model", op="max")
+    p = torch.exp(s - m)
+    l = collectives.all_reduce(torch.sum(p, dim=-1), mesh, "model")
+    pv = collectives.all_reduce(
+        torch.einsum("bhgk,bkhd->bhgd", p.to(q1.dtype),
+                     v_cache).to(torch.float32), mesh, "model")
     o = pv / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, 1, h, dh).to(q1.dtype)
 

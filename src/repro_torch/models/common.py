@@ -19,6 +19,7 @@ from repro_torch.core.linear import (RematStash, wtacrs_linear,
 from repro_torch.core.lora import LoRAConfig, lora_linear
 from repro_torch.core.policy import PolicyRules
 from repro_torch.core.seeds import fold_seed  # noqa: F401  (re-exported)
+from repro_torch.launch import collectives
 
 
 # ---------------------------------------------------------------------------
@@ -158,19 +159,16 @@ class Policy:
     flash_block: int = 512
     flash_mode: str = "full"       # full | triangular
     # the reference's MoE dispatch sharding constraint (expert axis,
-    # capacity axes): expert parallelism, which the port's data-parallel
-    # meshes do not shard
+    # capacity axes), as its optimized dry run sets it.  The port's
+    # program is explicit: a model-parallel mesh's ranks each hold E/M
+    # experts, and moe_groups (the data ranks there) splits the capacity
+    # into group-local dispatch; the spec itself is carried, not read.
     moe_pspec: Optional[Tuple] = None
     # WTA-CRS sampling groups over the expert capacity dim (and the token
     # groups of the dispatch): each expert draws moe_groups plans
     moe_groups: int = 1
 
     def __post_init__(self):
-        if self.moe_pspec is not None:
-            raise NotImplementedError(
-                "Policy.moe_pspec is an expert-parallel sharding "
-                "constraint; the port's meshes are data parallel, and "
-                "expert parallelism waits for ROADMAP Queue A.9")
         if self.moe_groups < 1:
             raise ValueError(f"moe_groups must be >= 1, got "
                              f"{self.moe_groups}")
@@ -272,6 +270,17 @@ class Ctx:
     activation (e.g. (B, S)).  Missing tag -> activation-only
     probabilities.  ``stash`` records or replays the sampled linears'
     kept tensors while a layer is rematerialised (``RematStash``).
+
+    ``mesh``: a mesh whose ``model`` axis holds several ranks (tensor and
+    expert parallelism; None runs the one-rank program).  The parameters
+    are then this rank's shards, and ``linear`` / ``linear_shared`` take
+    a ``parallel`` argument: ``"column"`` for a weight sharded on its
+    output features (its replicated input passes Megatron's *f*, and so
+    does the znorm whose tap then all-reduces, as squares, over
+    ``model``), ``"row"`` for one sharded on its input features (the
+    plan's row norms are the square roots of the all-reduced partial
+    squares, and the output passes *g* before the bias).  Every model
+    rank draws the same plan: the same seed from the same norms.
     """
     policy: Policy
     key: Optional[int] = None
@@ -280,6 +289,7 @@ class Ctx:
     compute_dtype: Optional[torch.dtype] = None   # weights cast at use
     tag_prefix: str = ""                          # disambiguates positions
     stash: Optional[RematStash] = None
+    mesh: Optional[object] = None
 
     def _key_for(self, tag: str) -> Optional[int]:
         if self.key is None:
@@ -308,24 +318,47 @@ class Ctx:
             return t
         return t.to(self.compute_dtype)
 
-    def linear(self, tag: str, h, w, bias=None, lora=None):
+    def linear(self, tag: str, h, w, bias=None, lora=None, parallel=None):
         """Estimator (+optionally LoRA) linear.  The estimator config is
         resolved per fully-prefixed tag through ``Policy.config_for``.
         ``lora``: ``{"lora_a", "lora_b"}`` adapter parameters, used when
-        ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled)."""
+        ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled).
+        ``parallel``: ``None``, ``"column"`` or ``"row"`` (see the class
+        doc; ignored without a model-parallel mesh)."""
         tag = self.tag_prefix + tag
         self._record_call((tag,), h)
         cfg = self.policy.config_for(tag)
         w, bias = self._cast(w), self._cast(bias)
         zn = self._znorm_for(tag, h)
+        if self.mesh is None:
+            parallel = None
         if lora is not None and self.policy.lora.enabled:
+            if parallel is not None:
+                raise NotImplementedError(
+                    "LoRA over a model-parallel weight is not ported "
+                    "(ROADMAP Queue A.16)")
             return lora_linear(h, w, lora["lora_a"], lora["lora_b"],
                                self.policy.lora, key=self._key_for(tag),
                                znorm=zn, cfg=cfg, bias=bias)
+        if parallel == "column":
+            h = collectives.copy_to_model(h, self.mesh)
+            zn = collectives.copy_to_model(zn, self.mesh)
+        elif parallel == "row":
+            z = wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
+                              cfg=cfg, stash=self.stash,
+                              norm_reduce=self._norm_reduce)
+            z = collectives.reduce_from_model(z, self.mesh)
+            return z if bias is None else z + bias
+        elif parallel is not None:
+            raise ValueError(f"parallel must be None, 'column' or 'row', "
+                             f"got {parallel!r}")
         return wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
                              cfg=cfg, bias=bias, stash=self.stash)
 
-    def linear_shared(self, tags, h, ws, biases=None):
+    def _norm_reduce(self, sq):
+        return collectives.all_reduce(sq, self.mesh, "model")
+
+    def linear_shared(self, tags, h, ws, biases=None, parallel=None):
         """Shared-plan multi-linear (one stored H' for all of ``ws``).
 
         Per-tag resolution: sharing a plan requires all tags to resolve
@@ -333,28 +366,53 @@ class Ctx:
         rules split the group (e.g. attn_q sampled, attn_k exact) each
         weight falls back to its own independent linear.  Fallback and
         shared keys fold the PREFIXED tags, so plans never correlate
-        across blocks."""
+        across blocks.
+
+        ``parallel``: one entry a weight, ``"column"`` or ``None`` (a
+        replicated weight; see the class doc).  On a model-parallel mesh
+        the column-parallel weights read *f* of ``h`` (and of the
+        znorms) and the replicated ones ``h`` itself, each set through
+        one call drawing the same plan from the same key; the shared tap
+        sums both."""
         full_tags = [self.tag_prefix + t for t in tags]
         self._record_call(full_tags, h)
+        if self.mesh is None or parallel is None:
+            parallel = (None,) * len(ws)
         cfgs = [self.policy.config_for(t) for t in full_tags]
-        ws = [self._cast(w) for w in ws]
-        if biases is not None:
-            biases = [self._cast(b) for b in biases]
-
-        if len(plan_groups(self.policy, full_tags,
-                           keyed=self.key is not None)) > 1:
-            outs = []
-            for i, w in enumerate(ws):
-                bias = None if biases is None else biases[i]
-                outs.append(wtacrs_linear(
-                    h, w, key=self._key_for(full_tags[i]),
-                    znorm=self._znorm_for(full_tags[i], h),
-                    cfg=cfgs[i], bias=bias, stash=self.stash))
-            return tuple(outs)
-        return wtacrs_linear_shared(
-            h, ws, key=self._key_for("+".join(full_tags)),
-            znorm=self._znorm_for(full_tags[0], h), cfg=cfgs[0],
-            biases=biases, stash=self.stash)
+        split = len(plan_groups(self.policy, full_tags,
+                                keyed=self.key is not None)) > 1
+        key = self._key_for("+".join(full_tags))
+        outs = [None] * len(ws)
+        for column in (True, False):
+            idx = [i for i, p in enumerate(parallel)
+                   if (p == "column") == column]
+            if not idx:
+                continue
+            f = ((lambda x: collectives.copy_to_model(x, self.mesh))
+                 if column else (lambda x: x))
+            hs = f(h)
+            wl = [self._cast(ws[i]) for i in idx]
+            bs = (None if biases is None
+                  else [self._cast(biases[i]) for i in idx])
+            if split:             # each weight its own linear and znorm
+                got = [wtacrs_linear(
+                    hs, w, key=self._key_for(full_tags[i]),
+                    znorm=f(self._znorm_for(full_tags[i], h)), cfg=cfgs[i],
+                    bias=None if bs is None else bs[j], stash=self.stash)
+                    for j, (i, w) in enumerate(zip(idx, wl))]
+            else:                 # the group's tap rides its first tag
+                zn = f(self._znorm_for(full_tags[0], h))
+                got = (wtacrs_linear_shared(hs, wl, key=key, znorm=zn,
+                                            cfg=cfgs[0], biases=bs,
+                                            stash=self.stash)
+                       if len(wl) > 1 else
+                       [wtacrs_linear(hs, wl[0], key=key, znorm=zn,
+                                      cfg=cfgs[0],
+                                      bias=None if bs is None else bs[0],
+                                      stash=self.stash)])
+            for i, z in zip(idx, got):
+                outs[i] = z
+        return tuple(outs)
 
     def fold(self, i: int) -> "Ctx":
         """Sub-context for layer/repeat i (derives the child seed)."""

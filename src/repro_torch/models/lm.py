@@ -32,6 +32,23 @@ tag prefix is the position inside the pattern unit (``b0/`` for the dense
 archs), as in the reference; layers are told apart by folding the layer
 index into the seed.  ``Policy.remat`` rematerialises each layer as the
 reference rematerialises each unit of its scan (``_RematLayer``).
+
+Tensor and expert parallelism (a mesh whose ``model`` axis holds M
+ranks, Megatron's layout): the parameters are this rank's shards
+(``launch.sharding.shard_params``) and the code reads what is sharded
+from their shapes.  q heads are column-parallel; k / v are too where the
+rules shard the kv heads, else every rank projects them whole (their
+gradient all-reduced through *f*) and takes the kv heads its q heads
+read.  Where the q features shard through head boundaries (minicpm-2b's
+36 heads on 16 ranks) q is all-gathered before the scores, every rank
+attends over every head and keeps its slice of the output.  The
+out-projection is row-parallel.  The embedding is vocab-parallel (a
+masked lookup, then an all-reduce), the head column-parallel, and the
+loss reduces the max and the sum-exp of the logits across ranks without
+gathering them.  Prefill and decode keep the KV cache sharded on its
+sequence dim, as ``launch.sharding.decode_state_shardings`` shards it:
+decode attends over the local positions and all-reduces the softmax max,
+its sum and the P·V product.
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear as lin
 from repro_torch.device import resolve_device, resolve_or_meta
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import collectives
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
@@ -96,25 +114,108 @@ def init_block(cfg, btype: str, gen, dtype, device):
     return p
 
 
-def _project_qkv(cfg, p, ctx, x, positions):
+def _rotate(cfg, x, positions):
+    if cfg.pos_mode == "rope":
+        return cm.apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos_mode == "mrope":
+        return cm.apply_mrope(x, positions, cfg.rope_theta)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class _AttnShards:
+    """How one rank holds an attention block on a model-parallel mesh,
+    read off its shards' shapes: ``q`` is ``"heads"`` (whole q heads a
+    rank), ``"features"`` (q's features cut through heads) or None
+    (replicated); ``kv`` whether the kv heads are sharded."""
+    q: Optional[str]
+    kv: bool
+
+    @staticmethod
+    def of(cfg, p, mesh) -> Optional["_AttnShards"]:
+        if mesh is None:
+            return None
+        q_cols, kv_cols = p["wq"].shape[1], p["wk"].shape[1]
+        q = None
+        if q_cols < cfg.n_heads * cfg.head_dim:
+            q = "heads" if q_cols % cfg.head_dim == 0 else "features"
+        kv = kv_cols < cfg.n_kv_heads * cfg.head_dim
+        # (wo's rows shard with wq's columns: one logical axis)
+        return None if q is None and not kv else _AttnShards(q, kv)
+
+
+def _kv_heads_of(q0: int, hq: int, group: int, kv: torch.Tensor):
+    """The kv heads (dim 2 of ``kv``) q heads [q0, q0 + hq) read, in the
+    order the attention's grouping pairs them with those q heads: a slice
+    where each is shared by an equal run of them, else one a q head."""
+    first, last = q0 // group, (q0 + hq - 1) // group
+    n = last - first + 1
+    if hq % n == 0 and all((q0 + i) // group == first + i // (hq // n)
+                           for i in range(hq)):
+        return kv[:, :, first:last + 1]
+    rows = torch.tensor([(q0 + i) // group for i in range(hq)],
+                        device=kv.device)
+    return kv.index_select(2, rows)
+
+
+def _project_qkv(cfg, p, ctx, x, positions, want_all: bool = False):
+    """(q, k, v) with q (B, S, Hq, Dh) and k / v (B, S, KVq, Dh) the heads
+    this rank attends with (Hq = KVq · group); all heads without a
+    model-parallel mesh.  ``want_all`` (prefill, decode) adds (k, v) of
+    every kv head, for the cache."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # shared sampling plan + single stored H' for q/k/v (they read the
-    # same normed activation) — 3x fewer attention-input residuals
-    q, k, v = ctx.linear_shared(
-        ("attn_q", "attn_k", "attn_v"), x,
-        [p["wq"], p["wk"], p["wv"]],
-        biases=[p.get("bq"), p.get("bk"), p.get("bv")])
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kvh, dh)
-    v = v.reshape(b, s, kvh, dh)
-    if cfg.pos_mode == "rope":
-        q = cm.apply_rope(q, positions, cfg.rope_theta)
-        k = cm.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_mode == "mrope":
-        q = cm.apply_mrope(q, positions, cfg.rope_theta)
-        k = cm.apply_mrope(k, positions, cfg.rope_theta)
-    return q, k, v
+    tags = ("attn_q", "attn_k", "attn_v")
+    ws = [p["wq"], p["wk"], p["wv"]]
+    biases = [p.get("bq"), p.get("bk"), p.get("bv")]
+    shards = _AttnShards.of(cfg, p, ctx.mesh)
+    if shards is None:
+        # shared sampling plan + single stored H' for q/k/v (they read the
+        # same normed activation) — 3x fewer attention-input residuals
+        q, k, v = ctx.linear_shared(tags, x, ws, biases=biases)
+        q = _rotate(cfg, q.reshape(b, s, h, dh), positions)
+        k = _rotate(cfg, k.reshape(b, s, kvh, dh), positions)
+        v = v.reshape(b, s, kvh, dh)
+        return (q, k, v, (k, v)) if want_all else (q, k, v)
+    mesh, m = ctx.mesh, collectives.index(ctx.mesh, "model")
+    par_q = "column" if shards.q else None
+    par_kv = "column" if shards.kv else None
+    q, k, v = ctx.linear_shared(tags, x, ws, biases=biases,
+                                parallel=(par_q, par_kv, par_kv))
+    if not shards.kv:
+        # every rank projects the kv heads whole; each attends with some
+        # of them, so their gradient sums over the ranks (f)
+        k = collectives.copy_to_model(k, mesh)
+        v = collectives.copy_to_model(v, mesh)
+    if shards.q == "features":
+        q = collectives.gather_from_model(q, mesh)
+    hq = q.shape[-1] // dh
+    q = _rotate(cfg, q.reshape(b, s, hq, dh), positions)
+    k = _rotate(cfg, k.reshape(b, s, -1, dh), positions)
+    v = v.reshape(b, s, -1, dh)
+    every = None
+    if want_all:
+        every = ((collectives.all_gather(k, mesh, "model", dim=2),
+                  collectives.all_gather(v, mesh, "model", dim=2))
+                 if shards.kv else (k, v))
+    if shards.q == "heads" and not shards.kv:
+        group = h // kvh
+        k = _kv_heads_of(m * hq, hq, group, k)
+        v = _kv_heads_of(m * hq, hq, group, v)
+    return (q, k, v, every) if want_all else (q, k, v)
+
+
+def _attn_out(cfg, p, ctx, o):
+    """The out-projection of the (B, S, Hq·Dh) attention output: row-
+    parallel on a model-parallel mesh (after keeping this rank's slice of
+    the features where q was all-gathered)."""
+    shards = _AttnShards.of(cfg, p, ctx.mesh)
+    if shards is None:
+        return ctx.linear("attn_o", o, p["wo"])
+    rows = p["wo"].shape[0]
+    if o.shape[-1] != rows:
+        o = o.narrow(-1, collectives.index(ctx.mesh, "model") * rows, rows)
+    return ctx.linear("attn_o", o, p["wo"], parallel="row")
 
 
 def _ffn(cfg, p, ctx: cm.Ctx, x) -> Tuple[torch.Tensor, Dict]:
@@ -136,14 +237,18 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions,
     if btype == "shared_attn":
         p = shared
     x = cm.apply_norm(cfg, p["norm1"], h)
+    if btype in _APPLY and ctx.mesh is not None:
+        raise NotImplementedError(
+            f"the {btype} block over a model-parallel mesh (ssm_inner "
+            f"sharded over model) is not ported (ROADMAP Queue A.12)")
     if btype in _APPLY:
         return h + rs * _APPLY[btype](cfg, p[btype], ctx, x), {}
     q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
     o = attn_lib.flash_attention(
         q, k, v, causal=True, q_block=ctx.policy.flash_block,
         kv_block=ctx.policy.flash_block, mode=ctx.policy.flash_mode)
-    o = ctx.linear("attn_o", o.reshape(h.shape[0], h.shape[1], -1),
-                   p["attn"]["wo"])
+    o = _attn_out(cfg, p["attn"], ctx,
+                  o.reshape(h.shape[0], h.shape[1], -1))
     h = h + rs * o
     x = cm.apply_norm(cfg, p["norm2"], h)
     m, aux = _ffn(cfg, p, ctx, x)
@@ -210,6 +315,33 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda"):
 # Forward (training)
 # ---------------------------------------------------------------------------
 
+def _vocab_slice(table: torch.Tensor, cfg, mesh):
+    """(first row, rows) of this rank's vocab shard of ``table`` (V, D) or
+    None where the table is whole."""
+    rows = table.shape[0]
+    if mesh is None or rows == cfg.vocab_size:
+        return None
+    return collectives.index(mesh, "model") * rows, rows
+
+
+def _lookup(cfg, params, tokens, mesh):
+    """Embedding rows of ``tokens``; vocab-parallel, a masked lookup of
+    this rank's rows and an all-reduce (each token's row comes from one
+    rank, zeros from the others)."""
+    table = params["embed"]
+    shard = _vocab_slice(table, cfg, mesh)
+    tokens = tokens.to(torch.int64)
+    if shard is None:
+        return table[tokens].to(cfg.cdtype)
+    lo, rows = shard
+    local = tokens - lo
+    inside = (local >= 0) & (local < rows)
+    h = table[torch.clamp(local, 0, rows - 1)]
+    h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                      device=h.device))
+    return collectives.reduce_from_model(h, mesh).to(cfg.cdtype)
+
+
 def embed_inputs(cfg, params, batch, ctx):
     """Token (+modality-stub) embedding.  Returns (h, positions).
 
@@ -218,7 +350,7 @@ def embed_inputs(cfg, params, batch, ctx):
     its positions are ``batch["positions3"]`` (3, B, S); learned positions
     add ``pos_embed``'s first S rows."""
     tokens = batch["tokens"]
-    h = params["embed"][tokens.to(torch.int64)].to(cfg.cdtype)
+    h = _lookup(cfg, params, tokens, ctx.mesh)
     b, s = h.shape[0], h.shape[1]
     if cfg.family == "vlm":
         patches = batch["patches"].to(cfg.cdtype)
@@ -316,17 +448,19 @@ def _remat_layer(cfg, btype, layer, sub, h, positions
 def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
             key: Optional[int] = None,
             znorms: Optional[Dict[str, torch.Tensor]] = None,
-            recorder: Optional[cm.tag_recorder] = None
+            recorder: Optional[cm.tag_recorder] = None, mesh=None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full forward to logits.  batch: {"tokens": (B,S), ...}; ``key`` an
     integer seed; ``znorms`` maps tag -> (n_repeats, B[, S]) estimates.
     Under ``policy.remat`` other than ``"none"`` each layer runs as a
-    ``_RematLayer`` (when a backward will follow)."""
+    ``_RematLayer`` (when a backward will follow).  ``mesh``: a
+    model-parallel mesh (see the module doc); the logits are then this
+    rank's vocab shard where the head is sharded."""
     if policy.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {policy.remat!r}; one of "
                          f"{REMAT_MODES}")
     ctx = cm.Ctx(policy=policy, key=key, znorms=None, recorder=recorder,
-                 compute_dtype=cfg.cdtype)
+                 compute_dtype=cfg.cdtype, mesh=mesh)
     h, positions = embed_inputs(cfg, params, batch, ctx)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
@@ -344,13 +478,25 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
         if "lb_loss" in aux:
             lb = lb + aux["lb_loss"]
     h = cm.apply_norm(cfg, params["final_norm"], h)
-    return _logits(cfg, params, h), {"lb_loss": lb}
+    return _logits(cfg, params, h, mesh), {"lb_loss": lb}
 
 
-def _logits(cfg, params, h):
-    if cfg.tie_embeddings:
-        return torch.matmul(h, params["embed"].t().to(cfg.cdtype))
-    return torch.matmul(h, params["head"].to(cfg.cdtype))
+def _logits(cfg, params, h, mesh=None):
+    """Logits of ``h``; a vocab-sharded head's (column-parallel: h passes
+    *f*) are this rank's shard."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    if mesh is not None and w.shape[1] != cfg.vocab_size:
+        h = collectives.copy_to_model(h, mesh)
+    return torch.matmul(h, w.to(cfg.cdtype))
+
+
+def _whole_logits(cfg, params, h, mesh=None):
+    """Logits over the whole vocabulary (serving): a sharded head's are
+    all-gathered."""
+    logits = _logits(cfg, params, h, mesh)
+    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = collectives.all_gather(logits, mesh, "model", dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +519,18 @@ def _flash_prefill(q, k, v):
     return o.reshape(b, h, s, dh).permute(0, 2, 1, 3).reshape(b, s, h * dh)
 
 
-def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
+def _seq_shard(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of a (B, S, ...) cache's sequence dim."""
+    n = collectives.axis_size(mesh, "model")
+    if x.shape[1] % n:
+        raise NotImplementedError(
+            f"a KV cache of {x.shape[1]} positions does not shard over "
+            f"{n} model ranks (ROADMAP Queue A.15)")
+    rows = x.shape[1] // n
+    return x.narrow(1, collectives.index(mesh, "model") * rows, rows)
+
+
+def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy, mesh=None):
     """Run the prompt through the stack, returning (last_logits, states).
 
     Attention is the ``flash_attention_fwd`` kernel (its plain version on
@@ -383,10 +540,12 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
     compute dtype for an attention block (the serving layer adds head-room
     by padding the KV axis), the block's recurrent state after the prompt
     for a recurrent one.  Only the last position goes through the final
-    norm and the head.
+    norm and the head.  On a model-parallel ``mesh`` each rank keeps its
+    slice of the caches' sequence dim (S / M positions) and the logits
+    are whole.
     """
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
-                 compute_dtype=cfg.cdtype)
+                 compute_dtype=cfg.cdtype, mesh=mesh)
     h, positions = embed_inputs(cfg, params, batch, ctx)
     caches = [{} for _ in cfg.pattern]
     for i in range(cfg.n_layers):
@@ -398,19 +557,22 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy):
                                   return_state=True)
             h = h + cfg.residual_scale * o
         else:
-            q, k, v = _project_qkv(cfg, p["attn"], ctx_r, x, positions)
-            o = ctx_r.linear("attn_o", _flash_prefill(q, k, v),
-                             p["attn"]["wo"])
+            q, k, v, (k_all, v_all) = _project_qkv(
+                cfg, p["attn"], ctx_r, x, positions, want_all=True)
+            o = _attn_out(cfg, p["attn"], ctx_r, _flash_prefill(q, k, v))
             h = h + cfg.residual_scale * o
             x = cm.apply_norm(cfg, p["norm2"], h)
             h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
-            st = {"k": k.to(cfg.cdtype), "v": v.to(cfg.cdtype)}
+            if mesh is not None:
+                k_all, v_all = _seq_shard(k_all, mesh), _seq_shard(v_all,
+                                                                   mesh)
+            st = {"k": k_all.to(cfg.cdtype), "v": v_all.to(cfg.cdtype)}
         for name, x in st.items():
             caches[j].setdefault(name, []).append(x)
     states = tuple({name: torch.stack(xs) for name, xs in c.items()}
                    for c in caches)
     h = cm.apply_norm(cfg, params["final_norm"], h[:, -1:])
-    return _logits(cfg, params, h)[:, 0], states
+    return _whole_logits(cfg, params, h, mesh)[:, 0], states
 
 
 # ---------------------------------------------------------------------------
@@ -454,26 +616,45 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
 def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
     """h1: (B,1,D); k_cache/v_cache: (B, Smax, KVH, Dh) views into the
     stacked states, written IN PLACE at (row, pos[row]); pos: (B,), the
-    position of all three M-RoPE streams."""
+    position of all three M-RoPE streams.  On a model-parallel mesh the
+    caches are this rank's (B, Smax / M, KVH, Dh) slice of the sequence:
+    the rank holding a row's position writes it, q is all-gathered and
+    ``decode_attention_sharded`` combines the ranks' softmax parts."""
     b = h1.shape[0]
     hh, dh = cfg.n_heads, cfg.head_dim
     x = cm.apply_norm(cfg, p["norm1"], h1)
     positions = pos[:, None]
     if cfg.pos_mode == "mrope":
         positions = pos[None, :, None].expand(3, b, 1)
-    q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
     rows = torch.arange(b, device=h1.device)
-    k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
-    v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
-    o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
-    o = ctx.linear("attn_o", o.reshape(b, 1, hh * dh), p["attn"]["wo"])
+    if ctx.mesh is None:
+        q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
+        k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
+        v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
+        o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
+    else:
+        q, _, _, (k, v) = _project_qkv(cfg, p["attn"], ctx, x, positions,
+                                       want_all=True)
+        span = k_cache.shape[1]
+        lo = collectives.index(ctx.mesh, "model") * span
+        mine = ((pos >= lo) & (pos < lo + span))[:, None, None]
+        at = torch.clamp(pos - lo, 0, span - 1)
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[rows, at] = torch.where(mine, new[:, 0].to(cfg.cdtype),
+                                          cache[rows, at])
+        if q.shape[2] != hh:
+            q = collectives.all_gather(q.reshape(b, 1, -1), ctx.mesh,
+                                       "model").reshape(b, 1, hh, dh)
+        o = attn_lib.decode_attention_sharded(q, k_cache, v_cache, pos + 1,
+                                              lo, ctx.mesh)
+    o = _attn_out(cfg, p["attn"], ctx, o.reshape(b, 1, hh * dh))
     h1 = h1 + cfg.residual_scale * o
     x = cm.apply_norm(cfg, p["norm2"], h1)
     return h1 + cfg.residual_scale * _ffn(cfg, p, ctx, x)[0]
 
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
-                policy: cm.Policy):
+                policy: cm.Policy, mesh=None):
     """One serve step: token (B,) integer -> logits (B, V), states.
 
     ``pos`` is a scalar (every row at the same position) or a (B,) vector
@@ -482,14 +663,16 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
     broadcast, so both share one set of numerics.  Each row's new K/V is
     written into ``states`` in place (no copy of the caches per step), and
     so is each recurrent block's new state (computed whole, then copied
-    over the old); the returned states are that same object.
+    over the old); the returned states are that same object.  On a
+    model-parallel ``mesh`` the caches are each rank's sequence slice (see
+    ``prefill``) and the logits are whole.
     """
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
-                 compute_dtype=cfg.cdtype)
+                 compute_dtype=cfg.cdtype, mesh=mesh)
     token = token.to(torch.int64)
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64)
     pos = pos.reshape(-1).expand(token.shape)
-    h = params["embed"][token][:, None, :].to(cfg.cdtype)
+    h = _lookup(cfg, params, token, mesh)[:, None, :]
     if cfg.pos_mode == "learned":
         h = h + params["pos_embed"][pos][:, None].to(cfg.cdtype)
     for i in range(cfg.n_layers):
@@ -505,26 +688,51 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
             h = _attn_decode(cfg, p, ctx, h, states[j]["k"][ridx],
                              states[j]["v"][ridx], pos)
     h = cm.apply_norm(cfg, params["final_norm"], h)
-    return _logits(cfg, params, h)[:, 0], states
+    return _whole_logits(cfg, params, h, mesh)[:, 0], states
+
+
+def _vocab_parallel_nll(logits, labels, lo: int, mesh):
+    """-log softmax(logits)[label] over a vocab split across the model
+    ranks, from this rank's (..., V / M) f32 shard: the max and the sum of
+    exponentials are all-reduced, the label's logit comes from the rank
+    holding it; the logits are never gathered."""
+    rows = logits.shape[-1]
+    mx = collectives.all_reduce(torch.amax(logits, dim=-1).detach(), mesh,
+                                "model", op="max")
+    se = collectives.reduce_from_model(
+        torch.sum(torch.exp(logits - mx[..., None]), dim=-1), mesh)
+    local = labels - lo
+    inside = (labels >= 0) & (local >= 0) & (local < rows)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, rows - 1)[..., None]
+                        )[..., 0]
+    gold = collectives.reduce_from_model(
+        torch.where(inside, gold, torch.zeros_like(gold)), mesh)
+    return torch.log(se) + mx - gold
 
 
 def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
-            key=None, znorms=None) -> Tuple[torch.Tensor, Dict]:
+            key=None, znorms=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy (labels = batch["labels"], negative =
     masked; a VLM's labels cover the text after its vision prefix),
     computed in f32; an MoE arch adds ``0.01 * lb_loss /
     n_layers``.  As in the reference, ``aux["ce_loss"]`` is the returned
-    loss, that term included."""
-    logits, aux = forward(cfg, params, batch, policy, key, znorms)
+    loss, that term included.  A vocab-sharded head's loss is
+    vocab-parallel (``_vocab_parallel_nll``)."""
+    logits, aux = forward(cfg, params, batch, policy, key, znorms,
+                          mesh=mesh)
     labels = batch["labels"].to(torch.int64)
     if cfg.family == "vlm":
         # only text positions carry labels; the vision prefix has none
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None])[..., 0]
-    nll = logz - gold
+    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
+        lo = collectives.index(mesh, "model") * logits.shape[-1]
+        nll = _vocab_parallel_nll(logits, labels, lo, mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(labels, min=0)[..., None])[..., 0]
+        nll = logz - gold
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     if cfg.n_experts:

@@ -20,6 +20,14 @@ first, in the compute dtype — the order of the reference's expert-major
 scatter-add — and the backward sums a token's k slot gradients in the same
 order.  No atomic add is involved, so the layer is deterministic on the
 card, which the remat legs, the serving pool and resume need.
+
+On a model-parallel mesh (``Ctx.mesh``) the dense MLP's ``wi`` / ``wg``
+are column-parallel and ``wo`` row-parallel; an MoE layer is expert
+parallel: each rank holds E/M experts and the router whole, every rank
+routes every token (the tokens are replicated over ``model``) and runs
+its own experts' slots, and the combine is one all-reduce.  The slots'
+input and the combine weights pass Megatron's *f*, so the router's
+gradient sums every expert's part.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import linear as lin
+from repro_torch.launch import collectives
 from repro_torch.models import common as cm
 
 
@@ -53,15 +62,18 @@ def init_mlp(cfg, gen: torch.Generator, dtype, device):
 
 
 def apply_mlp(cfg, p, ctx: cm.Ctx, h):
+    sharded = ctx.mesh is not None and p["wi"].shape[1] != cfg.d_ff
+    col, row = ("column", "row") if sharded else (None, None)
     if cfg.mlp_type == "swiglu":
         # shared plan + single stored H' for wi/wg (same input)
         up, gate = ctx.linear_shared(("mlp_wi", "mlp_wg"), h,
-                                     [p["wi"], p["wg"]])
+                                     [p["wi"], p["wg"]],
+                                     parallel=(col, col))
         z = F.silu(gate) * up
     else:
-        up = ctx.linear("mlp_wi", h, p["wi"])
+        up = ctx.linear("mlp_wi", h, p["wi"], parallel=col)
         z = act_fn(cfg.mlp_type)(up)
-    return ctx.linear("mlp_wo", z, p["wo"])
+    return ctx.linear("mlp_wo", z, p["wo"], parallel=row)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +116,9 @@ def _expert_ffn(cfg, p, ctx: cm.Ctx, xs: torch.Tensor) -> torch.Tensor:
         cap = xs.shape[1]
         g = ctx.policy.moe_groups if cap % ctx.policy.moe_groups == 0 else 1
         seed = ctx._key_for(tag)
+        if ctx.mesh is not None:
+            # each rank's experts draw from their own stream
+            seed = cm.fold_seed(seed, collectives.index(ctx.mesh, "model"))
         up, gate = lin.expert_linear(xs, (wi, wg), cm.fold_seed(seed, 0),
                                      cfg_w, g, ctx.stash)
         z = F.silu(gate) * up
@@ -236,13 +251,28 @@ def apply_moe(cfg, p, ctx: cm.Ctx, h) -> Tuple[torch.Tensor, Dict]:
         0, torch.where(flat < n_slots, flat, spare),
         torch.arange(t * k, device=dev))[:n_slots, None]
 
+    e_local = p["wi"].shape[0]
+    expert_parallel = ctx.mesh is not None and e_local != e
+    if expert_parallel:
+        # this rank's experts' slots: [lo, hi) of the (E, G*C) layout
+        span = e_local * g * cap
+        lo = collectives.index(ctx.mesh, "model") * span
+        fwd_dispatch = fwd_dispatch[lo:lo + span]
+        inverse = inverse[lo:lo + span]
+        mine = (slots >= lo) & (slots < lo + span)
+        slots = torch.where(mine, slots - lo, torch.full_like(slots, span))
+        x = collectives.copy_to_model(x, ctx.mesh)
+        weights = collectives.copy_to_model(weights, ctx.mesh)
+        n_slots = span
     xs = _GatherRows.apply(x, fwd_dispatch, slots)
-    ys = _expert_ffn(cfg, p, ctx, xs.reshape(e, g * cap, d))
+    ys = _expert_ffn(cfg, p, ctx, xs.reshape(e_local, g * cap, d))
     parts = _GatherRows.apply(ys.reshape(n_slots, d), slots, inverse)
     w = weights.to(parts.dtype)
     out = parts[:, 0] * w[:, 0, None]
     for j in range(1, k):
         out = out + parts[:, j] * w[:, j, None]
+    if expert_parallel:
+        out = collectives.reduce_from_model(out, ctx.mesh)
 
     me = torch.mean(probs, dim=0)
     ce = torch.mean((top_e[:, :1] == torch.arange(e, device=dev)

@@ -83,26 +83,49 @@ def abstract_params(cfg: ArchConfig):
     return params, axes
 
 
+def model_parallel_mesh(cfg: ArchConfig, mesh):
+    """``mesh`` where its ``model`` axis holds several ranks (the model
+    code's tensor / expert parallelism), else None; raises for the archs
+    whose blocks have no model-parallel program yet."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder over a model-parallel mesh "
+            f"is not ported (ROADMAP Queue A.13)")
+    recurrent = sorted(set(cfg.pattern) & set(lm.ssm_lib.RECURRENT))
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: the {'/'.join(recurrent)} blocks over a "
+            f"model-parallel mesh (ssm_inner sharded over model) are not "
+            f"ported (ROADMAP Queue A.12)")
+    return mesh
+
+
 def forward(cfg, params, batch, policy, key=None, znorms=None,
-            recorder=None):
+            recorder=None, mesh=None):
+    """``mesh``: a model-parallel mesh (``models/lm.py``), or None."""
+    mesh = model_parallel_mesh(cfg, mesh)
     if cfg.is_encdec:
         return encdec.forward(cfg, params, batch, policy, key, znorms,
                               recorder=recorder)
     return lm.forward(cfg, params, batch, policy, key, znorms,
-                      recorder=recorder)
+                      recorder=recorder, mesh=mesh)
 
 
-def loss_fn(cfg, params, batch, policy, key=None, znorms=None):
+def loss_fn(cfg, params, batch, policy, key=None, znorms=None, mesh=None):
+    mesh = model_parallel_mesh(cfg, mesh)
     if cfg.is_encdec:
         return encdec.loss(cfg, params, batch, policy, key, znorms)
-    return lm.lm_loss(cfg, params, batch, policy, key, znorms)
+    return lm.lm_loss(cfg, params, batch, policy, key, znorms, mesh=mesh)
 
 
-def prefill(cfg, params, batch, policy):
+def prefill(cfg, params, batch, policy, mesh=None):
     if cfg.is_encdec:
         raise NotImplementedError(
             "enc-dec prefill == prime_cross_cache + decode loop")
-    return lm.prefill(cfg, params, batch, policy)
+    return lm.prefill(cfg, params, batch, policy,
+                      mesh=model_parallel_mesh(cfg, mesh))
 
 
 def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
@@ -114,12 +137,14 @@ def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
     return lm.decode_state_init(cfg, batch_size, max_len, device=device)
 
 
-def decode_step(cfg, params, token, pos, states, policy):
+def decode_step(cfg, params, token, pos, states, policy, mesh=None):
     """``pos``: scalar (aligned batch) or (B,) per-slot positions
     (continuous batching; decoder-only LMs only)."""
+    mesh = model_parallel_mesh(cfg, mesh)
     if cfg.is_encdec:
         return encdec.decode_step(cfg, params, token, pos, states, policy)
-    return lm.decode_step(cfg, params, token, pos, states, policy)
+    return lm.decode_step(cfg, params, token, pos, states, policy,
+                          mesh=mesh)
 
 
 def block_decode_init(cfg, btype: str, batch_size: int, max_len: int,

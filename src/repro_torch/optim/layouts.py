@@ -230,7 +230,8 @@ def from_legacy_adamw(adamw_state, params) -> Dict:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def update(grads, state: Dict, params, lr: float, spec: OptimSpec):
+def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
+           gnorm=None):
     """Updates ``params`` and ``state`` in place; returns (params, state,
     metrics, rank_energy).
 
@@ -239,8 +240,10 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec):
     index: captured-energy 0-dim tensor} averaged over the rule's stacked
     leaves — what ``update_rank_stats`` folds into ``budget_stats`` for
     the scheduled step's ``RankController``.  Empty for specs without
-    controller rules."""
-    gnorm = adamw_lib.global_norm(grads)
+    controller rules.  ``gnorm``: the gradient norm where the leaves are
+    shards (a model-parallel step); by default theirs."""
+    if gnorm is None:
+        gnorm = adamw_lib.global_norm(grads)
     flat_g = adamw_lib.tree_leaves(grads)
     if spec.grad_clip_norm > 0:
         scale = torch.clamp(spec.grad_clip_norm

@@ -19,9 +19,11 @@ ranks' maxima, not their max, so at W ranks each rank's values use about
 process group, or None for one rank without a group.  One rank still
 quantizes and dequantizes, so its numerics are the reference's one-device
 mesh.  Trees are nested dicts / lists / tuples of tensors (or a list of
-leaves).  The collectives run on whatever backend the group was built
-with: NCCL when each rank has its own card, gloo on the CPU (or on one
-card shared by several ranks, through host memory).
+leaves).  The collectives go through ``launch/collectives.py``,
+on whatever backend the group was built with: NCCL when each rank has
+its own card, gloo on the CPU (or on one card shared by several ranks,
+through host memory); on a ``meta`` mesh they are recorded (the dry
+run).
 """
 from __future__ import annotations
 
@@ -30,34 +32,44 @@ from typing import Literal
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import collectives
 from repro_torch.train.optim import tree_leaves, tree_map
 
 Mode = Literal["none", "bf16", "int8"]
 MODES = ("none", "bf16", "int8")
 
 
-def _group(mesh_or_group):
-    return getattr(mesh_or_group, "group", mesh_or_group)
+def _data_axes(mesh_or_group):
+    names = getattr(mesh_or_group, "axis_names", None)
+    if names is None:
+        return "data"
+    return tuple(a for a in names if a in ("pod", "data"))
 
 
 def world_size(mesh_or_group) -> int:
-    group = _group(mesh_or_group)
+    """Ranks the reduction spans: a live mesh's data group, a ``meta``
+    mesh's data axes, a process group's ranks (1 for None)."""
+    if getattr(mesh_or_group, "is_meta", False):
+        return collectives.axis_size(mesh_or_group,
+                                     _data_axes(mesh_or_group))
+    group = getattr(mesh_or_group, "group", mesh_or_group)
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """SUM over the group's ranks, in place (nothing to do for one rank
-    without a group)."""
-    if group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+def _all_reduce_(x: torch.Tensor, mesh_or_group) -> torch.Tensor:
+    """SUM over the data ranks, in place, through ``launch/collectives.py``
+    (nothing to do for one rank)."""
+    if world_size(mesh_or_group) == 1:
+        return x
+    return collectives.all_reduce_(x, mesh_or_group,
+                                   _data_axes(mesh_or_group))
 
 
 def psum_tree(tree, mesh_or_group, mode: Mode = "none"):
     """All-reduce (sum) a gradient tree across the ranks.  Under ``none``
     the leaves of ``tree`` are reduced in place and returned; the other
     modes return new f32 tensors."""
-    group = _group(mesh_or_group)
+    group = mesh_or_group          # a mesh, a process group or None
     if mode == "none":
         return tree_map(lambda g: _all_reduce_(g, group), tree)
     if mode == "bf16":

@@ -87,10 +87,12 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, lr: float,
-                 cfg: AdamWConfig = AdamWConfig()):
+                 cfg: AdamWConfig = AdamWConfig(), gnorm=None):
     """Updates ``params`` and ``state`` in place; returns
-    (params, state, metrics)."""
-    gnorm = global_norm(grads)
+    (params, state, metrics).  ``gnorm``: the gradient norm where the
+    leaves are shards (a model-parallel step); by default theirs."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     flat_g = tree_leaves(grads)
     if cfg.grad_clip_norm > 0:
         scale = torch.clamp(cfg.grad_clip_norm

@@ -119,12 +119,20 @@ def test_wiring_derived_from_policy_as_in_the_reference(kind, kw, cache,
     dict(mesh="host"), dict(model_parallel=2), dict(data_axes=("data",))],
     ids=["mesh_host", "model_parallel", "data_axes"])
 def test_unported_fields_raise_not_implemented(kw):
-    """``model_parallel`` > 1 still waits for Queue A.9; ``mesh="host"``
-    and ``data_axes`` are accepted, and without a process group a host
-    mesh is one rank: its Run equals the plain Run bit for bit."""
+    """``mesh="host"``, ``model_parallel`` and ``data_axes`` are accepted
+    (tensor / expert parallelism runs in ``tests/test_torch_tp.py``).
+    Without a process group a host mesh is one rank: its Run equals the
+    plain Run bit for bit, and ``model_parallel=2`` does not divide it —
+    nor runs without ``mesh="host"``."""
     if "model_parallel" in kw:
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            _spec(PORT, _policy(PORT, "plain"), **kw)
+        spec = _spec(PORT, _policy(PORT, "plain"), **kw)
+        assert spec.model_parallel == _spec(
+            JAX, _policy(JAX, "plain"), **kw).model_parallel == 2
+        with pytest.raises(ValueError, match="needs mesh='host'"):
+            Run(spec, **CPU)
+        with pytest.raises(ValueError, match="does not divide"):
+            Run(_spec(PORT, _policy(PORT, "plain"), mesh="host", **kw),
+                **CPU)
         return
     runs = [Run(_spec(PORT, _policy(PORT, "cached"), steps=3, **extra),
                 **CPU) for extra in (kw, {})]
@@ -165,8 +173,11 @@ def test_run_needs_a_card_unless_asked_for_the_cpu():
         pytest.skip("this machine has a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Run(_spec(PORT, _policy(PORT, "plain")))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        Run(_spec(PORT, _policy(PORT, "plain")), **CPU).dryrun()
+    # the dry run needs no card: it traces one rank on the meta device
+    run = Run(_spec(PORT, _policy(PORT, "plain")), **CPU)
+    rec = run.dryrun(shape="decode_32k")
+    assert rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0
+    assert "## §Roofline" in run.report()
 
 
 def test_kernel_config_reaches_every_resolved_config():
@@ -558,9 +569,20 @@ def test_run_report_optimizer_section_equals_the_reference():
 
 
 def test_run_report_has_no_roofline_until_the_dry_run_is_ported():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        report.run_report(n_steps=1, budget_records=[], n_compiles=0,
-                          roofline_rec={"status": "ok"})
+    """A record that did not trace (skipped, error) adds no §Roofline; an
+    ok one adds the reference's section with the H100's rates
+    (``tests/test_torch_dryrun.py`` holds the text to the reference's)."""
+    kw = dict(n_steps=1, budget_records=[], n_compiles=0)
+    for rec in (None, {"status": "skipped"}, {"status": "error"}):
+        assert "§Roofline" not in report.run_report(roofline_rec=rec, **kw)
+    rec = {"arch": "a", "shape": "train_4k", "mesh": "single",
+           "status": "ok", "kind": "train", "seq_len": 8,
+           "global_batch": 2, "n_active_params": 10,
+           "cost": {"flops": 989.4e12, "bytes_accessed": 3.35e12},
+           "collectives": {"total_bytes": 450e9}}
+    text = report.run_report(roofline_rec=rec, **kw)
+    assert ("a x train_4k x single: compute 1.0000s | memory 1.0000s | "
+            "collective 1.0000s") in text
 
 
 # ---------------------------------------------------------------------------

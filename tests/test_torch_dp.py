@@ -539,7 +539,9 @@ def test_host_mesh_without_a_process_group_is_one_rank(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="no process group"):
         mesh_lib.make_host_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # one rank does not split into a model axis of two
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(ValueError, match="does not divide"):
         mesh_lib.make_host_mesh(model_parallel=2, device="cpu")
 
 

@@ -38,7 +38,8 @@ def test_quickstart_fits_in_30_non_argparse_lines():
 
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_finetune_lora_wtacrs.py",
-                                  "torch_serve_decode.py"])
+                                  "torch_serve_decode.py",
+                                  "torch_distributed_dryrun.py"])
 def test_examples_default_to_the_card(name):
     src = (EXAMPLES / name).read_text()
     assert 'ap.add_argument("--device", default="cuda")' in src
@@ -65,3 +66,14 @@ def test_serve_decode_serves_two_requests():
     out = _run("torch_serve_decode.py", "--requests", "2", "--gen", "6")
     assert "req 0: prompt[" in out and "req 1: prompt[" in out
     assert "served 2 ragged requests" in out and "## §Serving" in out
+
+
+def test_distributed_dryrun_prints_the_roofline():
+    """One rank of the reduced arch's 16x16 train cell traced on the meta
+    device: its memory, flops and collectives, and the report's
+    §Roofline."""
+    out = _run("torch_distributed_dryrun.py", "--reduced", "--mesh",
+               "single")
+    assert "cell: qwen2.5-3b x train_4k x single" in out
+    assert "per-device memory: args" in out and "collectives: {" in out
+    assert "## §Roofline" in out and "dominant" in out

@@ -257,8 +257,11 @@ def test_load_balance_loss_positive_and_grads_reach_every_group():
 
 def test_moe_groups_and_pspec_policy_fields():
     assert cm.Policy().moe_groups == jax_cm.Policy().moe_groups == 1
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cm.Policy(moe_pspec=("model", ("data",)))
+    # the reference's optimized dry run sets it; the port carries it
+    # (its expert-parallel program is explicit, tests/test_torch_tp.py)
+    spec = ("model", ("data",))
+    assert cm.Policy(moe_pspec=spec).moe_pspec == \
+        jax_cm.Policy(moe_pspec=spec).moe_pspec == spec
     with pytest.raises(ValueError, match="moe_groups"):
         cm.Policy(moe_groups=0)
 

@@ -1,0 +1,55 @@
+"""The dry run's predictions for the cells ``chip_smoke.py`` measures on
+the card, on the host alone (``meta`` device, no card needed).
+
+    PYTHONPATH=src python tools/predict_cells.py
+
+Prints one JSON line a cell: the train phase's cell (12-layer qwen2.5-3b,
+B=4, S=1024, WTA-CRS 0.3, AdamW, one rank) and the tp phase's qwen2.5-3b
+step (depth 4, B=2, S=1024, model = 2, rank 0): predicted peak bytes,
+flops, bytes accessed, the step's bound on an H100
+(max(flops / 989.4e12, bytes / 3.35e12)), kernel launches, collectives.
+"""
+import dataclasses
+import json
+
+from repro_torch.configs.base import InputShape
+from repro_torch.core import WTACRSConfig
+from repro_torch.launch import dryrun, mesh as mesh_lib, roofline
+from repro_torch.models import common as cm
+from repro_torch.models.registry import get_config
+
+
+def predict(name, cfg, shape, mesh, policy):
+    c, _, _ = dryrun.trace_step(cfg, shape, mesh, policy)
+    bound = max(c.flops / roofline.PEAK_FLOPS,
+                c.bytes_accessed / roofline.HBM_BW)
+    return {"cell": name, "peak_bytes": c.peak,
+            "argument_bytes": c.argument_bytes, "flops": c.flops,
+            "bytes_accessed": c.bytes_accessed, "bound_ms": 1e3 * bound,
+            "launches": c.launches,
+            "collectives": {f"{op} over {axis}": v for (op, axis), v
+                            in c.collectives.by_axis().items()},
+            "trace_s": c.seconds}
+
+
+def main():
+    wta = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
+                                        min_rows=4),
+                    remat="none", flash_block=512)
+    qwen = get_config("qwen2.5-3b")
+    cells = [
+        ("train (12 layers, B=4, S=1024, 1 rank)",
+         dataclasses.replace(qwen, n_layers=12),
+         InputShape("train", 1024, 4, "train"),
+         mesh_lib.make_mesh((1, 1), ("data", "model"))),
+        ("tp qwen (4 layers, B=2, S=1024, model 2, rank 0)",
+         dataclasses.replace(qwen, n_layers=4),
+         InputShape("tp", 1024, 2, "train"),
+         mesh_lib.make_mesh((1, 2), ("data", "model"))),
+    ]
+    for name, cfg, shape, mesh in cells:
+        print(json.dumps(predict(name, cfg, shape, mesh, wta)), flush=True)
+
+
+if __name__ == "__main__":
+    main()
