@@ -419,6 +419,23 @@ WHISPER_ARCH, WHISPER_STEPS, WHISPER_B, WHISPER_S = "whisper-base", 4, 8, 2048
 WHISPER_K = MOE_WTA.budget_rows(WHISPER_S // 2)
 WHISPER_ROW_D = (512, 2048)
 WHISPER_DW = [(512, 512), (512, 2048), (2048, 512)]
+# The tp phase's recurrent and enc-dec legs at model = 2, one rank's shard
+# of every sampled linear (column-parallel: half the outputs, Mamba2's
+# in_proj half of each of its segments; row-parallel: half the inputs):
+# zamba2-2.7b depth 54 -> 6 (one pattern unit) at B=2, S=1024; xlstm-125m
+# depth 12 -> 2 (one mLSTM, one sLSTM) at B=2, S=512 (two 256-step
+# chunks); whisper-base at full size, B=4 of 1024 frames + 1024 tokens
+TP_ZAMBA_DEPTH, TP_XLSTM_DEPTH, TP_XLSTM_S, TP_WHISPER_B = 6, 2, 512, 4
+TP_BLOCKS_GEN = 8
+TP_BLOCK_SHAPES = (
+    ("tp_zamba2", 2, 1024, (2560, 1280, 5120),
+     [(2560, 5224), (2560, 2560), (2560, 1280), (1280, 2560), (2560, 5120),
+      (5120, 2560)]),
+    ("tp_xlstm", 2, TP_XLSTM_S, (768, 384),
+     [(768, 1536), (768, 768), (768, 8), (384, 768)]),
+    ("tp_whisper", TP_WHISPER_B, 1024, (512, 256, 1024),
+     [(512, 256), (256, 512), (512, 1024), (1024, 512)]))
+FLASH_TP_ZAMBA2 = (2, 16, 16, 1024, 1024, 80, True)
 
 
 def card_sms() -> int:
@@ -1307,6 +1324,21 @@ def phase_kernels():
                               phase=phase))
     cases.append(dict(flash_case(*FLASH_ZAMBA2, bf16, gen, timed=True,
                                  in_summary=True), phase="ssm"))
+    # the tp phase's recurrent and enc-dec legs: one rank's shards at
+    # model = 2, and zamba2's prefill at 16 heads of 80 a rank
+    for phase, b, s, row_d, dws in TP_BLOCK_SHAPES:
+        k = MOE_WTA.budget_rows(s)
+        for d in row_d:
+            cases.append(dict(row_norms_case(b * s, d, bf16, gen, timed=True),
+                              phase=phase))
+            cases.append(dict(gather_scale_case(b, s, d, k, bf16, gen,
+                                                timed=True), phase=phase))
+        for d_in, d_out in dws:
+            cases.append(dict(dw_case("fused_sampled_dw", b, k, s, d_in,
+                                      d_out, bf16, gen, timed=True),
+                              phase=phase))
+    cases.append(dict(flash_case(*FLASH_TP_ZAMBA2, bf16, gen, timed=True,
+                                 in_summary=True), phase="tp_zamba2"))
     # the VLM and encoder-decoder phases' shapes, bf16, timed: row norms
     # and H' at every width a plan reads, every sampled dW; qwen2-vl-2b's
     # vis_proj plan over the B x 256 patch rows (k = 77: a k tail well
@@ -3926,7 +3958,8 @@ def tp_collectives(rec):
     return {f"{op} over {axis}": v for (op, axis), v in rec.by_axis().items()}
 
 
-def tp_train(cfg, policy, mesh, ds, what, n_steps=TP_STEPS):
+def tp_train(cfg, policy, mesh, ds, what, n_steps=TP_STEPS,
+             microbatches=1):
     """``n_steps`` train steps of TP_BATCH sequences on this rank's shards
     of fresh parameters from seed 0 (the same on both ranks; ``mesh`` may
     be one rank's): losses, step ms, launches by route, each collective's
@@ -3941,7 +3974,7 @@ def tp_train(cfg, policy, mesh, ds, what, n_steps=TP_STEPS):
     step = train_steps.make_train_step(
         cfg, policy, optim.AdamWConfig(), optim.linear_warmup_constant(TP_LR,
                                                                        2),
-        mesh=mesh)
+        mesh=mesh, microbatches=microbatches)
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3968,76 +4001,65 @@ def tp_train(cfg, policy, mesh, ds, what, n_steps=TP_STEPS):
             "collectives": tp_collectives(rec)}, state, specs
 
 
-def tp_serve(cfg, local, mesh, prompt, feed):
+def tp_serve(cfg, local, mesh, prompt, feed, n_gen=TP_GEN):
     """Prefill of ``prompt`` on this rank's shards (each rank keeps half
-    the caches' positions), the caches gathered, padded by TP_GEN and
-    split again, then TP_GEN decode steps fed ``feed``: the prefill's last
-    logits, each step's logits (whole on every rank), prefill and decode
-    ms, the collectives."""
+    the KV caches' positions and its heads' recurrent states), the states
+    gathered, the caches padded by ``n_gen`` and split again
+    (``sharding.decode_state_specs``), then ``n_gen`` decode steps fed
+    ``feed``: the prefill's last logits, each step's logits (whole on
+    every rank), prefill and decode ms, the collectives."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy(), mesh=mesh)
     serve = train_steps.make_serve_step(cfg, cm.Policy(), mesh=mesh)
+    b, s = prompt["tokens"].shape
     with collectives.recording(timed=True) as rec:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last, states = prefill(local, prompt)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
-        states = tuple({k: collectives.all_gather(v, mesh, "model", dim=2)
-                        for k, v in st.items()} for st in states)
-        states = pad_kv(states, TP_GEN)
-        specs = sharding.decode_state_shardings(states, mesh, TP_PROMPT_B)
+        states = sharding.gather_tree(states, sharding.decode_state_specs(
+            cfg, registry.decode_state_init(cfg, b, s, device="meta"), mesh,
+            b), mesh)
+        states = pad_kv(states, n_gen)
+        specs = sharding.decode_state_specs(cfg, states, mesh, b)
         states = sharding.shard_tree(states, specs, mesh)
         logits, times = [], []
-        pos = prompt["tokens"].shape[1]
-        for t in range(TP_GEN):
+        for t in range(n_gen):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, lg, states = serve(local, feed[:, t], pos + t, states)
+            _, lg, states = serve(local, feed[:, t], s + t, states)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             logits.append(lg.float())
     return last.float(), torch.stack(logits), {
         "prefill_ms": prefill_ms, "decode_ms": times,
-        "kv_spec": list(map(str, specs["0/k"])),
+        "state_specs": {p: list(map(str, sp)) for p, sp in specs.items()},
         "collectives": tp_collectives(rec)}
 
 
-def tp_one_rank_serve(cfg, params, prompt, feed):
+def tp_one_rank_serve(cfg, params, prompt, feed, n_gen=TP_GEN):
     """The same prefill and decode on one rank (the whole parameters)."""
     prefill = train_steps.make_prefill_step(cfg, cm.Policy())
     serve = train_steps.make_serve_step(cfg, cm.Policy())
     last, states = prefill(params, prompt)
-    states = pad_kv(states, TP_GEN)
+    states = pad_kv(states, n_gen)
     logits = []
     pos = prompt["tokens"].shape[1]
-    for t in range(TP_GEN):
+    for t in range(n_gen):
         _, lg, states = serve(params, feed[:, t], pos + t, states)
         logits.append(lg.float())
     return last.float(), torch.stack(logits)
 
 
-def tp_hold_to_one_rank(rec, m1, params, ref, ref_state):
-    """The exact f32 steps at model = 2 against one rank: the losses at
-    rtol 1e-5; each first-moment leaf (linear in the gradient) at a
-    relative L2 error of 1e-4 — the ranks' GEMMs run at half the width,
-    where cuBLAS picks other kernels and sums in another order, so an
-    element's error is relative to the terms it sums, not to itself; the
-    parameters after the steps: Adam moves an element by about lr a
-    step, and where a gradient is as small as its rounding noise the two
-    runs move it apart by up to 2·lr a step, so at most 1e-3 of the
-    elements stand beyond 1e-6 + 1e-5·|p| and none beyond 2·lr a step."""
-    if not np.allclose(rec["losses"], ref["losses"], rtol=1e-5, atol=0):
-        fail(f"tp exact f32: losses {rec['losses']} vs one rank "
-             f"{ref['losses']}")
-    worst_m = 0.0
-    for i, (x, y) in enumerate(zip(m1, optim.tree_leaves(
-            ref_state["opt"].m))):
-        rel = float((x - y).norm() / y.norm().clamp(min=1e-30))
-        worst_m = max(worst_m, rel)
-        if not rel <= 1e-4:
-            fail(f"tp exact f32: first moments of leaf {i} "
-                 f"{tuple(y.shape)} are {rel:.3g} (relative L2) off one "
-                 f"rank's")
+def tp_distance(losses, m1, params, ref, ref_state):
+    """(the losses' largest relative difference, each first-moment leaf's
+    relative L2 error, the fraction of parameters beyond 1e-6 +
+    1e-5·|p|, the largest parameter difference) of a run against one
+    rank's."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         ref["losses"]))
+    m_rel = [float((x - y).norm() / y.norm().clamp(min=1e-30))
+             for x, y in zip(m1, optim.tree_leaves(ref_state["opt"].m))]
     off = total = 0
     worst = 0.0
     for x, y in zip(optim.tree_leaves(params),
@@ -4046,11 +4068,317 @@ def tp_hold_to_one_rank(rec, m1, params, ref, ref_state):
         off += int((d > 1e-6 + 1e-5 * y.abs()).sum())
         total += d.numel()
         worst = max(worst, float(d.max()))
-    if off > total * 1e-3 or worst > 2 * TP_LR * TP_STEPS:
-        fail(f"tp exact f32: {off} of {total} parameters off one rank "
-             f"(largest {worst})")
-    rec.update(m1_rel_l2_worst=worst_m, params_off_one_rank=off,
-               params_max_diff_one_rank=worst)
+    return loss_rel, m_rel, off / total, worst
+
+
+def tp_hold_to_one_rank(rec, m1, params, ref, ref_state, n_steps=TP_STEPS,
+                        floor=None):
+    """The exact f32 steps at model = 2 against one rank: the losses at
+    rtol 1e-5; each first-moment leaf (linear in the gradient) at a
+    relative L2 error of 1e-4 — the ranks' GEMMs run at half the width,
+    where cuBLAS picks other kernels and sums in another order, so an
+    element's error is relative to the terms it sums, not to itself; the
+    parameters after the steps: Adam moves an element by about lr a
+    step, and where a gradient is as small as its rounding noise the two
+    runs move it apart by up to 2·lr a step, so at most 1e-3 of the
+    elements stand beyond 1e-6 + 1e-5·|p| and none beyond 2·lr a step.
+    ``floor``: (record, state) of one rank running the batch as two
+    microbatches — the same function, GEMMs of other shapes — whose
+    distance to one rank, doubled, raises each bound where it is larger
+    (zamba2: see ``tp_blocks``)."""
+    loss_tol, m_tol, off_tol = 1e-5, 1e-4, 1e-3
+    if floor is not None:
+        f_loss, f_m, f_off, _ = tp_distance(
+            floor[0]["losses"], optim.tree_leaves(floor[1]["opt"].m),
+            floor[1]["params"], ref, ref_state)
+        loss_tol = max(loss_tol, 2 * f_loss)
+        m_tol = max(m_tol, 2 * max(f_m))
+        off_tol = max(off_tol, 2 * f_off)
+        rec.update(floor_loss_rel=f_loss, floor_m1_rel_l2_worst=max(f_m),
+                   floor_params_off_fraction=f_off)
+    loss_rel, m_rel, off, worst = tp_distance(rec["losses"], m1, params,
+                                              ref, ref_state)
+    if not loss_rel <= loss_tol:
+        fail(f"tp exact f32: losses {rec['losses']} vs one rank "
+             f"{ref['losses']} (rtol {loss_tol:.3g})")
+    for i, (rel, y) in enumerate(zip(m_rel, optim.tree_leaves(
+            ref_state["opt"].m))):
+        if not rel <= m_tol:
+            fail(f"tp exact f32: first moments of leaf {i} "
+                 f"{tuple(y.shape)} are {rel:.3g} (relative L2) off one "
+                 f"rank's (bound {m_tol:.3g})")
+    if off > off_tol or worst > 2 * TP_LR * n_steps:
+        fail(f"tp exact f32: {off:.3g} of the parameters off one rank "
+             f"(bound {off_tol:.3g}; largest {worst})")
+    rec.update(m1_rel_l2_worst=max(m_rel), params_off_fraction=off,
+               params_max_diff_one_rank=worst, loss_rtol_used=loss_tol,
+               m1_rel_l2_bound=m_tol, params_off_bound=off_tol)
+
+
+TP_WTA = cm.Policy(wtacrs=MOE_WTA, remat="none", flash_block=512)
+TP_EXACT = cm.Policy(wtacrs=EXACT_CONFIG, remat="none", flash_block=512)
+
+
+def tp_leg_train(name, cfg, mesh, rank, ds, seq, batch, n_exact,
+                 calibrate=False):
+    """One leg's training at model = 2: 2 WTA-CRS bf16 steps (launches a
+    step from ``launches_per_step``, every H' on ``bulk`` and every dW on
+    ``wgmma``, the replicated leaves' digest), then ``n_exact`` exact f32
+    steps held against one rank on the gathered parameters (rank 0);
+    ``calibrate``: the bounds raised to twice one rank's own spread
+    (``tp_hold_to_one_rank``'s floor)."""
+    rec, state, specs = tp_train(cfg, TP_WTA, mesh, ds, f"tp {name} wta_crs")
+    per_step = launches_per_step(cfg, TP_WTA, seq, batch=batch)
+    if rec["launches"] != {n: TP_STEPS * per_step.get(n, 0)
+                           for n in KERNEL_NAMES}:
+        fail(f"tp {name}: launches {rec['launches']}, expected {TP_STEPS} "
+             f"x {per_step}")
+    routes = rec["launches_by_route"]
+    if routes["gather_scale"].get("bulk", 0) != rec["launches"][
+            "gather_scale"] or routes["fused_sampled_dw"].get(
+                "wgmma", 0) != rec["launches"]["fused_sampled_dw"]:
+        fail(f"tp {name}: launches by route {routes}")
+    rec["launches_per_step_expected"] = per_step
+    rec["replicated_digest"] = tp_replicated_digest(state["params"], specs)
+    del state
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    exact, state, specs = tp_train(cfg32, TP_EXACT, mesh, ds,
+                                   f"tp {name} exact", n_steps=n_exact)
+    params = sharding.gather_params(state["params"], specs, mesh)
+    m1 = optim.tree_leaves(sharding.gather_tree(state["opt"].m, specs, mesh))
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = mesh_lib.Mesh({"data": 1, "model": 1}, ("data", "model"),
+                            device=torch.device("cuda"))
+        ref, ref_state, _ = tp_train(cfg32, TP_EXACT, one, ds,
+                                     f"tp {name} one rank exact",
+                                     n_steps=n_exact)
+        exact["losses_one_rank"] = ref["losses"]
+        exact["step_ms_one_rank"] = ref["step_ms"]
+        exact["peak_bytes_one_rank"] = ref["peak_bytes"]
+        floor = None
+        if calibrate:
+            f_rec, f_state, _ = tp_train(
+                cfg32, TP_EXACT, one, ds, f"tp {name} one rank microbatched",
+                n_steps=n_exact, microbatches=2)
+            floor = (f_rec, f_state)
+        tp_hold_to_one_rank(exact, m1, params, ref, ref_state, n_exact,
+                            floor)
+        del ref_state, floor
+    del params, m1
+    torch.cuda.empty_cache()
+    return rec, exact
+
+
+def tp_hold_serve(name, cfg, mesh, rank, prompt, feed, calibrate=False):
+    """Prefill of ``prompt`` and TP_BLOCKS_GEN decode steps at model = 2 in
+    f32, held against one rank (rank 0): f32, the ranks' partial sums in
+    another order, at 2e-3 of the logits' largest magnitude (the
+    reference's decode tolerance); ``calibrate``: or at twice one rank's
+    own spread (one rank serving each sequence alone: the same function,
+    GEMMs of other shapes) where that is larger.  Returns the record and,
+    on rank 0, one rank's f32 (prefill, decode) logits."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    full = registry.init_params(cfg32, 0)
+    local = sharding.shard_params(full, tp_specs(cfg32, mesh), mesh)
+    if rank != 0:
+        del full
+    last, steps, rec = tp_serve(cfg32, local, mesh, prompt, feed,
+                                TP_BLOCKS_GEN)
+    rec["logits_digest"] = hashlib.sha256(
+        torch.cat([last[None], steps]).cpu().numpy()).hexdigest()
+    del local
+    if rank == 0:
+        want_last, want_steps = tp_one_rank_serve(cfg32, full, prompt, feed,
+                                                  TP_BLOCKS_GEN)
+        atol = 2e-3 * max(1.0, float(want_steps.abs().max()))
+        if calibrate:
+            rows = [tp_one_rank_serve(cfg32, full, prompt_rows(
+                prompt, slice(i, i + 1)), feed[i:i + 1], TP_BLOCKS_GEN)
+                for i in range(feed.shape[0])]
+            floor = max(
+                float((torch.cat([r[0] for r in rows]) - want_last).abs()
+                      .max()),
+                float((torch.cat([r[1] for r in rows], dim=1)
+                       - want_steps).abs().max()))
+            rec["one_rank_row_by_row_floor"] = floor
+            atol = max(atol, 2 * floor)
+        rec.update(prefill_max_abs_err_one_rank=check_close(
+            f"tp {name} f32 prefill vs one rank", last, want_last, 0.0,
+            atol), decode_max_abs_err_one_rank=check_close(
+            f"tp {name} f32 decode vs one rank", steps, want_steps, 0.0,
+            atol), atol_used=atol)
+        del full
+    torch.cuda.empty_cache()
+    return rec, ((want_last, want_steps) if rank == 0 else None)
+
+
+def tp_blocks(rank, mesh, out):
+    """The recurrent and enc-dec legs at model = 2 (``models/ssm.py``'s
+    heads path; ``models/encdec.py``): zamba2-2.7b and xlstm-125m at
+    published width, whisper-base at full size (TP_BLOCK_SHAPES' cuts).
+    Each trains (WTA-CRS bf16, then exact f32 against one rank), prefills
+    (whisper: primes its cross caches) and decodes against one rank.
+    Returns each leg's launches on this rank."""
+    legs = {}
+    # zamba2: 5 Mamba2 layers and the shared block, 40 Mamba2 heads and 16
+    # attention heads of 80 a rank
+    zcfg = dataclasses.replace(get_config("zamba2-2.7b"),
+                               n_layers=TP_ZAMBA_DEPTH)
+    zds = data.SyntheticLM(zcfg.vocab_size, S, TP_BATCH, seed=0)
+    # the SSD's decays exp(seg_t - seg_s) are differences of cumulative
+    # sums of dt·a reaching ~1e4 in f32 (|a| up to 80), so one rounding of
+    # an input moves a decay by ~1e-3 of itself: the exact f32 steps are
+    # held against one rank at twice one rank's own spread
+    rec, exact = tp_leg_train("zamba2", zcfg, mesh, rank, zds, S, TP_BATCH,
+                              TP_STEPS, calibrate=True)
+    out["zamba2_wta_crs"], out["zamba2_exact_f32"] = rec, exact
+    legs["tp_zamba2"] = dict(rec["launches"])
+    toks = torch.from_numpy(data.SyntheticLM(
+        zcfg.vocab_size, S + TP_BLOCKS_GEN, TP_PROMPT_B, seed=0).batch_at(
+            0, TP_PROMPT_B)["tokens"]).cuda().to(torch.int64)
+    prompt, feed = {"tokens": toks[:, :S]}, toks[:, S:]
+    # bf16 prefill on flash's mma route (16 heads of 80 a rank) and decode,
+    # and the same in f32: the f32 logits held against one rank's; the
+    # bf16 ones (the ranks' all-reduced partial sums round in bf16 in
+    # another order) against one rank's f32 ones at twice one rank's own
+    # bf16 distance from them
+    full = registry.init_params(zcfg, 0)
+    local = sharding.shard_params(full, tp_specs(zcfg, mesh), mesh)
+    if rank != 0:
+        del full
+    reset_launches()
+    last, steps, zserve = tp_serve(zcfg, local, mesh, prompt, feed,
+                                   TP_BLOCKS_GEN)
+    flash = expect_route("tp zamba2 prefill", "flash_attention_fwd", "mma")
+    zserve["flash_launches_by_route"] = flash
+    legs["tp_zamba2"]["flash_attention_fwd"] = flash["mma"]
+    zserve["logits_digest"] = hashlib.sha256(
+        torch.cat([last[None], steps]).cpu().numpy()).hexdigest()
+    del local
+    if rank == 0:
+        want_last, want_steps = tp_one_rank_serve(zcfg, full, prompt, feed,
+                                                  TP_BLOCKS_GEN)
+        zserve["prefill_max_abs_err_one_rank"] = float(
+            (last - want_last).abs().max())
+        zserve["decode_max_abs_err_one_rank"] = float(
+            (steps - want_steps).abs().max())
+        del full
+    torch.cuda.empty_cache()
+    out["zamba2_serve_f32"], f32 = tp_hold_serve(
+        "zamba2", zcfg, mesh, rank, prompt, feed, calibrate=True)
+    if rank == 0:
+        for what, got, one, truth in (("prefill", last, want_last, f32[0]),
+                                      ("decode", steps, want_steps, f32[1])):
+            floor = float((one - truth).abs().max())
+            zserve[f"{what}_one_rank_bf16_vs_f32"] = floor
+            zserve[f"{what}_max_abs_err_vs_one_rank_f32"] = check_close(
+                f"tp zamba2 bf16 {what} vs one rank's f32", got, truth,
+                0.0, 2 * floor)
+    out["zamba2_serve_bf16"] = zserve
+    # xlstm: one mLSTM and one sLSTM layer, 2 of 4 heads a rank; S = 512,
+    # two chunks of 256 steps, so the chunk carry crosses
+    xcfg = dataclasses.replace(get_config("xlstm-125m"),
+                               n_layers=TP_XLSTM_DEPTH)
+    xds = data.SyntheticLM(xcfg.vocab_size, TP_XLSTM_S, TP_BATCH, seed=0)
+    rec, exact = tp_leg_train("xlstm", xcfg, mesh, rank, xds, TP_XLSTM_S,
+                              TP_BATCH, 1)
+    out["xlstm_wta_crs"], out["xlstm_exact_f32"] = rec, exact
+    legs["tp_xlstm"] = dict(rec["launches"])
+    toks = torch.from_numpy(data.SyntheticLM(
+        xcfg.vocab_size, TP_XLSTM_S + TP_BLOCKS_GEN, TP_PROMPT_B,
+        seed=0).batch_at(0, TP_PROMPT_B)["tokens"]).cuda().to(torch.int64)
+    out["xlstm_serve_f32"] = tp_hold_serve(
+        "xlstm", xcfg, mesh, rank, {"tokens": toks[:, :TP_XLSTM_S]},
+        toks[:, TP_XLSTM_S:])[0]
+    # whisper: 4 of 8 heads a rank in the encoder, the decoder and the
+    # cross-attention; the tied head's 51865 rows do not divide 2 (whole)
+    wcfg = get_config(WHISPER_ARCH)
+    wds = FixedBatch(wcfg, TP_WHISPER_B, WHISPER_S)
+    rec, exact = tp_leg_train("whisper", wcfg, mesh, rank, wds,
+                              WHISPER_S // 2, TP_WHISPER_B, 1)
+    out["whisper_wta_crs"], out["whisper_exact_f32"] = rec, exact
+    legs["tp_whisper"] = dict(rec["launches"])
+    out["whisper_serve"] = tp_whisper_serve(wcfg, mesh, rank)
+    return legs
+
+
+def tp_whisper_serve(cfg, mesh, rank):
+    """``prime_cross_cache`` on 2 x 1024 frames at model = 2 (each rank its
+    4 heads' cross caches) and TP_BLOCKS_GEN greedy decode steps, in f32
+    and in bf16, each held as the whisper phase holds them, against one
+    rank's teacher-forced forward on the fed tokens (5e-2, or 1.5x the
+    forward's own floor at another flash block size), their distance to
+    one rank's decode beside it."""
+    params = registry.init_params(cfg, 0)
+    local = sharding.shard_params(params, tp_specs(cfg, mesh), mesh)
+    batch = registry.make_synthetic_batch(cfg, 2, WHISPER_S, 1)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        frames = batch["frames"].to(c.cdtype)
+        serve = train_steps.make_serve_step(c, cm.Policy(), mesh=mesh)
+        with collectives.recording(timed=True) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                xk, xv = encdec.prime_cross_cache(c, local, frames,
+                                                  cm.Policy(), mesh=mesh)
+            torch.cuda.synchronize()
+            prime_ms = 1e3 * (time.perf_counter() - t0)
+            whole = encdec.decode_state_init(c, 2, 128, frames.shape[1],
+                                             device="meta")
+            specs = sharding.decode_state_specs(c, whole, mesh, 2)
+            state = sharding.shard_tree(encdec.decode_state_init(
+                c, 2, 128, frames.shape[1]), specs, mesh)
+            state["xk"].copy_(xk)
+            state["xv"].copy_(xv)
+            tok, fed, got, times = batch["tokens"][:, 0], [], [], []
+            for g in range(TP_BLOCKS_GEN):
+                fed.append(tok)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tok, logits, state = serve(local, tok, g, state)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t1))
+                got.append(logits.float())
+        got = torch.stack(got, dim=1)
+        leg = {"prime_cross_cache_ms": prime_ms, "decode_ms": times,
+               "cross_cache_local": list(xk.shape),
+               "state_specs": {p: list(map(str, sp))
+                               for p, sp in specs.items()},
+               "collectives": tp_collectives(rec),
+               "logits_digest": hashlib.sha256(
+                   got.cpu().numpy()).hexdigest()}
+        del state, xk, xv
+        if rank == 0:
+            forced = {"frames": frames,
+                      "tokens": torch.stack(fed, dim=1)}
+            err, floor, atol = close_to_forward(
+                f"tp whisper {dtype} decode vs one rank's forward", got,
+                forward_logits(c, params, forced, slice(None), 512),
+                forward_logits(c, params, forced, slice(None), 256), 5e-2)
+            one = train_steps.make_serve_step(c, cm.Policy())
+            with torch.no_grad():
+                oxk, oxv = encdec.prime_cross_cache(c, params, frames,
+                                                    cm.Policy())
+            ostate = encdec.decode_state_init(c, 2, 128, frames.shape[1])
+            ostate["xk"].copy_(oxk)
+            ostate["xv"].copy_(oxv)
+            ones = []
+            for g, t in enumerate(fed):
+                _, lg, ostate = one(params, t, g, ostate)
+                ones.append(lg.float())
+            leg.update(max_abs_err_vs_forward=err,
+                       forward_vs_itself_other_block=floor, atol_used=atol,
+                       decode_max_abs_err_one_rank=float(
+                           (got - torch.stack(ones, dim=1)).abs().max()))
+            del ostate, oxk, oxv
+        out[dtype] = leg
+        torch.cuda.empty_cache()
+    return out
 
 
 def tp_child(rank, port):
@@ -4192,6 +4520,8 @@ def tp_child(rank, port):
                 (steps - want_steps).abs().max())
             del full
         out["dbrx_serve"] = drec
+        torch.cuda.empty_cache()
+        out["legs"] = tp_blocks(rank, mesh, out)
         emit(out)
     finally:
         dist.destroy_process_group()
@@ -4202,23 +4532,34 @@ def phase_tp():
     card): the ranks' replicated leaves and whole logits compared."""
     t0 = time.perf_counter()
     ranks = run_children("tp_child", 2, str(free_port()), timeout=900)
-    for key in ("qwen_wta_crs", "granite"):
+    for key in ("qwen_wta_crs", "granite", "zamba2_wta_crs",
+                "xlstm_wta_crs", "whisper_wta_crs"):
         if len({r[key]["replicated_digest"] for r in ranks}) != 1:
             fail(f"tp {key}: the ranks' replicated parameters differ")
         if ranks[0][key]["losses"] != ranks[1][key]["losses"]:
             fail(f"tp {key}: the ranks' losses differ")
-    for key in ("qwen_serve", "dbrx_serve"):
+    for key in ("qwen_serve", "dbrx_serve", "zamba2_serve_bf16",
+                "zamba2_serve_f32", "xlstm_serve_f32"):
         if len({r[key]["logits_digest"] for r in ranks}) != 1:
             fail(f"tp {key}: the ranks' logits differ")
+    for dtype in ("float32", "bfloat16"):
+        if len({r["whisper_serve"][dtype]["logits_digest"]
+                for r in ranks}) != 1:
+            fail(f"tp whisper {dtype}: the ranks' logits differ")
+    legs = {leg: {n: sum(r["legs"][leg].get(n, 0) for r in ranks)
+                  for n in KERNEL_NAMES} for leg in ranks[0]["legs"]}
     emit({"phase": "tp", "ranks": ranks, "seconds": time.perf_counter() - t0,
           "depths": {"qwen2.5-3b": TP_DEPTH,
                      "granite-moe-1b-a400m": TP_GRANITE_DEPTH,
-                     "dbrx-132b": TP_DBRX_DEPTH},
+                     "dbrx-132b": TP_DBRX_DEPTH,
+                     "zamba2-2.7b": TP_ZAMBA_DEPTH,
+                     "xlstm-125m": TP_XLSTM_DEPTH, "whisper-base": 6},
+          "launches_by_leg": legs,
           "note": "two gloo ranks share one card: each collective's ms is "
                   "a host round trip, not an interconnect's"})
     return {n: sum(r[k]["launches"][n] for r in ranks
                    for k in ("qwen_wta_crs", "granite"))
-            for n in KERNEL_NAMES}
+            for n in KERNEL_NAMES}, legs
 
 
 # ---------------------------------------------------------------------------
@@ -4226,7 +4567,7 @@ def phase_tp():
 # production cells
 # ---------------------------------------------------------------------------
 
-DRYRUN_CELLS = ("qwen2.5-3b", "dbrx-132b")
+DRYRUN_CELLS = ("qwen2.5-3b", "dbrx-132b", "zamba2-2.7b")
 DRYRUN_PROCS = []
 
 
@@ -4502,7 +4843,8 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         dp_launches = clocked("dp", phase_dp)
     tp_launches = {}
     if "tp" in phases:
-        tp_launches = clocked("tp", phase_tp)
+        tp_launches, tp_legs = clocked("tp", phase_tp)
+        phase_launches.update(tp_legs)
     if "dryrun" in phases:
         clocked("dryrun", phase_dryrun, dryrun_dir)
 

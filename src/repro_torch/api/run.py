@@ -93,8 +93,6 @@ class Run:
                              f"mesh='host'")
         self._model_parallel = (self.mesh is not None
                                 and self.mesh.shape["model"] > 1)
-        if self._model_parallel:
-            registry.model_parallel_mesh(self.cfg, self.mesh)
         self._dryrun_rec: Optional[dict] = None
         self._world = 1 if self.mesh is None else self.mesh.shape["data"]
         self._rank = 0 if self.mesh is None else mesh_lib.data_index(

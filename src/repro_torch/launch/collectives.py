@@ -18,7 +18,15 @@ Megatron's pair (arXiv:1909.08053, §3):
 
 ``gather_from_model`` all-gathers a tensor's last dim over ``model`` (its
 backward keeps this rank's slice of the summed gradient: a
-reduce-scatter).
+reduce-scatter), for a tensor each rank then reads in part;
+``gather_replicated`` all-gathers it for a computation every rank runs
+whole (its backward keeps this rank's slice of the gradient, which is
+the same on every rank).  ``scatter_to_model`` reduce-scatters a
+row-parallel product's partial sums onto its last dim (backward: an
+all-gather).  ``sum_over_model`` all-reduces both ways: the forward sums
+the ranks' parts, and the backward sums the ranks' gradients, for a sum
+each rank reads for its own share of the output (a norm over features
+that are split across the ranks).
 
 Recording: inside ``recording()`` every collective adds ``(op, axis,
 bytes, count)`` to the recorder, with the reference's byte convention
@@ -269,6 +277,40 @@ class _GatherFromModel(torch.autograd.Function):
         return reduce_scatter(dz, ctx.mesh, "model", dim=-1), None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.part = mesh, x.shape[-1]
+        return all_gather(x, mesh, "model", dim=-1)
+
+    @staticmethod
+    def backward(ctx, dz):
+        lo = index(ctx.mesh, "model") * ctx.part
+        return dz.narrow(-1, lo, ctx.part).contiguous(), None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return reduce_scatter(x, mesh, "model", dim=-1)
+
+    @staticmethod
+    def backward(ctx, dz):
+        return all_gather(dz, ctx.mesh, "model", dim=-1), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.contiguous(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, dz):
+        return all_reduce(dz.contiguous(), ctx.mesh, "model"), None
+
+
 def model_size(mesh) -> int:
     return 1 if mesh is None else axis_size(mesh, "model")
 
@@ -293,3 +335,29 @@ def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if model_size(mesh) == 1:
         return x
     return _GatherFromModel.apply(x, mesh)
+
+
+def gather_replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The last dim all-gathered over ``model`` for a computation every
+    rank runs whole; backward: this rank's slice of the gradient (the
+    same on every rank, so nothing is summed)."""
+    if model_size(mesh) == 1:
+        return x
+    return _GatherReplicated.apply(x, mesh)
+
+
+def scatter_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over ``model`` of a partial product, this rank's slice of
+    its last dim (a reduce-scatter); backward: the slices' gradients
+    all-gathered."""
+    if model_size(mesh) == 1:
+        return x
+    return _ScatterToModel.apply(x, mesh)
+
+
+def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """All-reduce over ``model`` forward, and all-reduce of the gradient
+    backward: a sum each rank reads for its own part of the output."""
+    if model_size(mesh) == 1:
+        return x
+    return _SumOverModel.apply(x, mesh)

@@ -11,7 +11,7 @@ cell this:
      abstractly, seen from rank 0 (``launch.mesh.meta_mesh``),
   2. takes rank 0's shards of the abstract train state / parameters /
      decode state (``train_state_shardings`` / ``param_shardings`` /
-     ``decode_state_shardings``) and of the batch,
+     ``decode_state_specs``) and of the batch,
   3. runs one step of the port's own step function on them under
      ``launch/cost.py``'s counter (flops, bytes, peak live bytes,
      collectives, the hand kernels' meta launches),
@@ -23,9 +23,9 @@ Keys that only XLA has are ``null``: ``cost.xla_flops_loopbody_once``,
 ``lower_s`` and ``compile_s`` become one ``trace_s``.  The microbatches
 of a train step are one program run 8 times: the counter traces one and
 counts its flops, bytes and collectives 8 times, never its peak.  A cell
-whose arch has no model-parallel program yet records ``status: "error"``
-with the ROADMAP item in its message, as the reference records a failed
-lowering; a cell ``shape_applicable`` rejects, ``status: "skipped"``.
+whose trace raises records ``status: "error"`` with the message, as the
+reference records a failed lowering; a cell ``shape_applicable``
+rejects, ``status: "skipped"``.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
       PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \\
@@ -51,6 +51,7 @@ from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch import train_steps
 from repro_torch.models import common as cm
 from repro_torch.models import registry
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.train import optim
 
 
@@ -82,15 +83,24 @@ def model_axis_notes(cfg, mesh) -> dict:
     """How the port's program splits the attention over ``model`` where
     GSPMD's might differ: q heads sliced through (q all-gathered before
     the scores, every rank attending over every head), kv heads
-    replicated."""
+    replicated; and which path each recurrent block type takes
+    (``models/ssm.py``): its heads split over the ranks, or gathered (every
+    rank running every head)."""
     m = mesh.shape["model"]
     notes = {}
-    if m > 1 and cfg.n_heads * cfg.head_dim % m == 0 \
+    attention = cfg.is_encdec or any(
+        b not in ssm_lib.RECURRENT for b in cfg.pattern)
+    if attention and m > 1 and cfg.n_heads * cfg.head_dim % m == 0 \
             and cfg.n_heads % m:
         notes["q_heads"] = ("sliced through heads: q all-gathered before "
                             "the scores")
-    if m > 1 and cfg.n_kv_heads % m:
+    if attention and m > 1 and cfg.n_kv_heads % m:
         notes["kv_heads"] = "replicated"
+    for btype in dict.fromkeys(cfg.pattern):
+        if m > 1 and btype in ssm_lib.RECURRENT:
+            notes[btype] = ("heads split over model"
+                            if ssm_lib.splits_heads(cfg, btype, m) else
+                            "gathered: every rank runs every head")
     return notes
 
 
@@ -122,8 +132,8 @@ def trace_step(cfg, shape, mesh, policy, microbatches: int = 1):
         else:
             token, pos, states = registry.decode_specs(
                 cfg, shape.global_batch, shape.seq_len)
-            st_sh = shard_lib.decode_state_shardings(
-                states, mesh, shape.global_batch)
+            st_sh = shard_lib.decode_state_specs(
+                cfg, states, mesh, shape.global_batch)
             token = _fresh(shard_lib.shard_batch({"t": token}, mm))["t"]
             args = (params, token, pos,
                     shard_lib.shard_tree(states, st_sh, mm))

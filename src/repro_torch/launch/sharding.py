@@ -21,6 +21,15 @@ rank its slice of the batch; ``shard_tree`` (``shard_params``) slices each
 leaf of a tree to this rank's shard under its spec, and ``gather_tree``
 (``gather_params``) is its inverse.  Weights cross to a model-parallel
 rank as ``convert.params_from_jax`` followed by ``shard_params``.
+
+Fused projections (Mamba2's ``in_proj`` [z | x | B | C | dt] and its conv
+[x | B | C], mLSTM's ``up`` [xs | z]) are split segment by segment: their
+logical axes and specs are ``Segmented`` tuples, equal to the plain ones
+(so the specs are the reference's) and carrying the segment widths, and
+a rank holds its 1/M of each segment in order, so that its shard is a
+whole column-parallel slice of each part (``models/ssm.py``).
+``decode_state_specs`` shards the port's decode states as its model code
+splits them.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.launch import collectives
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.train.optim import named_leaves
 
 DEFAULT_RULES: Dict[str, Optional[str]] = {
@@ -59,6 +69,20 @@ def _names(part) -> Tuple[str, ...]:
     return (part,) if isinstance(part, str) else tuple(part)
 
 
+class Segmented(tuple):
+    """Logical axes, or a spec, equal to its plain tuple and carrying the
+    segments of dim ``dim``: ``widths`` side by side.  A spec is
+    ``Segmented`` where that dim is sharded and every width of ``group``
+    (the block's one decision for its fused leaves) divides the mesh
+    axis; a rank then holds its 1/M of each segment, in order."""
+
+    def __new__(cls, parts, dim: Optional[int] = None, widths=(),
+                group=()):
+        out = super().__new__(cls, parts)
+        out.dim, out.widths, out.group = dim, tuple(widths), tuple(group)
+        return out
+
+
 def _spec_for_axes(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
                    mesh, rules: Dict[str, Optional[str]]) -> Tuple:
     parts = []
@@ -72,6 +96,10 @@ def _spec_for_axes(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
         if phys is not None:
             used.add(phys)
         parts.append(phys)
+    if isinstance(axes, Segmented) and parts[axes.dim] is not None:
+        n = mesh_lib.mesh_size(mesh, _names(parts[axes.dim]))
+        if all(w % n == 0 for w in axes.group):
+            return Segmented(parts, axes.dim, axes.widths, axes.group)
     return tuple(parts)
 
 
@@ -162,6 +190,51 @@ def decode_state_shardings(states, mesh, batch_size: int):
     return {path: one(x) for path, x in named_leaves(states)}
 
 
+def decode_state_specs(cfg, states, mesh, batch_size: int):
+    """{leaf path: spec} of the port's decode states (``registry.
+    decode_state_init``'s tree) on ``mesh``, as its model code splits
+    them: a KV cache by ``decode_state_shardings`` (its sequence dim); a
+    recurrent block's state by heads on the heads path
+    (``models/ssm.py::splits_heads``), Mamba2's conv state by its
+    [x | B | C] segments, and whole on every model rank on the gathered
+    path; an encoder-decoder's cross caches by heads where the kv heads
+    shard, else whole.  The batch dim takes the data axes as
+    ``decode_state_shardings`` gives them."""
+    heuristic = decode_state_shardings(states, mesh, batch_size)
+    dnames = mesh_lib.data_axes(mesh)
+    dsize = mesh_lib.mesh_size(mesh, dnames)
+    msize = mesh.shape["model"]
+    leaves = dict(named_leaves(states))
+
+    def by_heads(x, dim, split, widths=None):
+        parts = [None] * x.ndim
+        if x.shape[1] == batch_size and batch_size % dsize == 0:
+            parts[1] = _part(dnames)
+        if split:
+            parts[dim] = "model"
+            if widths is not None:
+                return Segmented(parts, dim, widths, widths)
+        return tuple(parts)
+
+    out = {}
+    for path, spec in heuristic.items():
+        x, (block, _, name) = leaves[path], path.partition("/")
+        if cfg.is_encdec and block in ("xk", "xv"):
+            out[path] = by_heads(x, 3, cfg.n_kv_heads % msize == 0)
+            continue
+        btype = None if cfg.is_encdec else cfg.pattern[int(block)]
+        if btype not in ssm_lib.RECURRENT:
+            out[path] = spec
+            continue
+        split = ssm_lib.splits_heads(cfg, btype, msize)
+        if name == "conv":
+            widths = ssm_lib.segments(cfg, btype, "conv_w")[0]
+            out[path] = by_heads(x, 3, split, widths)
+        else:
+            out[path] = by_heads(x, 2, split)
+    return out
+
+
 def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
     """The shape one rank holds of a tensor of ``shape`` under ``spec``."""
     out = list(shape)
@@ -204,10 +277,25 @@ def _rank_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     out = x
     for dim, part in enumerate(spec):
         names = _names(part)
-        if names:
-            n = shape[dim]
-            out = out.narrow(dim, collectives.index(mesh, names) * n, n)
+        if not names:
+            continue
+        i, n = collectives.index(mesh, names), shape[dim]
+        if isinstance(spec, Segmented) and dim == spec.dim:
+            m = mesh_lib.mesh_size(mesh, names)
+            out = torch.cat([seg.narrow(dim, i * (w // m), w // m)
+                             for seg, w in zip(out.split(spec.widths, dim),
+                                               spec.widths)], dim)
+        else:
+            out = out.narrow(dim, i * n, n)
     return out.clone() if out is x else out.contiguous().clone()
+
+
+def _unsegment(x: torch.Tensor, spec: "Segmented", m: int) -> torch.Tensor:
+    """The whole leaf from the ``m`` ranks' segmented shards laid side by
+    side along ``spec.dim`` (rank order): each segment's parts joined."""
+    dim, local = spec.dim, [w // m for w in spec.widths]
+    ranks = [r.split(local, dim) for r in x.chunk(m, dim)]
+    return torch.cat([r[s] for s in range(len(local)) for r in ranks], dim)
 
 
 def _rebuild(tree, fn, prefix=""):
@@ -235,10 +323,13 @@ def gather_tree(tree, specs: Dict[str, Tuple], mesh):
     """The inverse of ``shard_tree``: each sharded leaf all-gathered over
     its spec's axes (every rank gets the whole tensor)."""
     def one(path, x):
-        for dim, part in enumerate(specs.get(path, ())):
+        spec = specs.get(path, ())
+        for dim, part in enumerate(spec):
             names = _names(part)
             if names:
                 x = collectives.all_gather(x, mesh, names, dim=dim)
+                if isinstance(spec, Segmented) and dim == spec.dim:
+                    x = _unsegment(x, spec, mesh_lib.mesh_size(mesh, names))
         return x
     return _rebuild(tree, one)
 

@@ -51,6 +51,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import common as cm
 from repro_torch.models import registry
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.train import compression, optim, znorm
 
 
@@ -340,7 +341,7 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     step without peers, for the dry run.
     """
     device = resolve_or_meta(device)
-    model_mesh = registry.model_parallel_mesh(cfg, mesh)
+    model_mesh = registry.model_parallel_mesh(mesh)
     if model_mesh is not None and isinstance(opt_cfg, optim_lib.OptimSpec) \
             and not opt_cfg.all_dense:
         raise NotImplementedError(
@@ -775,7 +776,7 @@ def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
     this rank's slice of the caches' sequence dim, as
     ``launch.sharding.decode_state_shardings`` shards them."""
     device = resolve_or_meta(device)
-    mesh = registry.model_parallel_mesh(cfg, mesh)
+    mesh = registry.model_parallel_mesh(mesh)
     _no_tf32()
 
     def prefill_step(params, batch):
@@ -790,7 +791,10 @@ def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
 
 def _check_kv_sharding(cfg, mesh, tokens_shape) -> None:
     """Refuse a cache that ``decode_state_shardings`` would shard on
-    another dim than its sequence (the one the model code splits)."""
+    another dim than its sequence (the one the model code splits); an
+    arch without attention blocks has none."""
+    if all(b in ssm_lib.RECURRENT for b in cfg.pattern):
+        return
     b, s = tokens_shape[0], tokens_shape[-1]
     meta = torch.empty((cfg.n_repeats, b, s, cfg.n_kv_heads,
                         cfg.head_dim), device="meta")
@@ -809,7 +813,7 @@ def make_serve_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
     model-parallel mesh, the states each rank's sequence slice (see
     ``make_prefill_step``)."""
     device = resolve_or_meta(device)
-    mesh = registry.model_parallel_mesh(cfg, mesh)
+    mesh = registry.model_parallel_mesh(mesh)
     _no_tf32()
 
     def serve_step(params, token, pos, states):

@@ -279,7 +279,9 @@ class Ctx:
     does the znorm whose tap then all-reduces, as squares, over
     ``model``), ``"row"`` for one sharded on its input features (the
     plan's row norms are the square roots of the all-reduced partial
-    squares, and the output passes *g* before the bias).  Every model
+    squares, and the output passes *g* before the bias), ``"row_scatter"``
+    for a row-parallel one whose output each rank reads only its slice of
+    (the partial sums reduce-scattered onto the last dim).  Every model
     rank draws the same plan: the same seed from the same norms.
     """
     policy: Policy
@@ -323,8 +325,9 @@ class Ctx:
         resolved per fully-prefixed tag through ``Policy.config_for``.
         ``lora``: ``{"lora_a", "lora_b"}`` adapter parameters, used when
         ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled).
-        ``parallel``: ``None``, ``"column"`` or ``"row"`` (see the class
-        doc; ignored without a model-parallel mesh)."""
+        ``parallel``: ``None``, ``"column"``, ``"row"`` or
+        ``"row_scatter"`` (see the class doc; ignored without a
+        model-parallel mesh)."""
         tag = self.tag_prefix + tag
         self._record_call((tag,), h)
         cfg = self.policy.config_for(tag)
@@ -343,15 +346,18 @@ class Ctx:
         if parallel == "column":
             h = collectives.copy_to_model(h, self.mesh)
             zn = collectives.copy_to_model(zn, self.mesh)
-        elif parallel == "row":
+        elif parallel in ("row", "row_scatter"):
             z = wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
                               cfg=cfg, stash=self.stash,
                               norm_reduce=self._norm_reduce)
-            z = collectives.reduce_from_model(z, self.mesh)
+            if parallel == "row_scatter":
+                z = collectives.scatter_to_model(z, self.mesh)
+            else:
+                z = collectives.reduce_from_model(z, self.mesh)
             return z if bias is None else z + bias
         elif parallel is not None:
-            raise ValueError(f"parallel must be None, 'column' or 'row', "
-                             f"got {parallel!r}")
+            raise ValueError(f"parallel must be None, 'column', 'row' or "
+                             f"'row_scatter', got {parallel!r}")
         return wtacrs_linear(h, w, key=self._key_for(tag), znorm=zn,
                              cfg=cfg, bias=bias, stash=self.stash)
 

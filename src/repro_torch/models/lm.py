@@ -48,7 +48,11 @@ loss reduces the max and the sum-exp of the logits across ranks without
 gathering them.  Prefill and decode keep the KV cache sharded on its
 sequence dim, as ``launch.sharding.decode_state_shardings`` shards it:
 decode attends over the local positions and all-reduces the softmax max,
-its sum and the P·V product.
+its sum and the P·V product.  The recurrent blocks run their own
+model-parallel programs (``models/ssm.py``), their states split by heads
+or whole as ``launch.sharding.decode_state_specs`` says; Zamba2's shared
+block is an attention block like the others, its one parameter set read
+by every use.
 """
 from __future__ import annotations
 
@@ -205,17 +209,17 @@ def _project_qkv(cfg, p, ctx, x, positions, want_all: bool = False):
     return (q, k, v, every) if want_all else (q, k, v)
 
 
-def _attn_out(cfg, p, ctx, o):
+def _attn_out(cfg, p, ctx, o, tag: str = "attn_o"):
     """The out-projection of the (B, S, Hq·Dh) attention output: row-
     parallel on a model-parallel mesh (after keeping this rank's slice of
     the features where q was all-gathered)."""
     shards = _AttnShards.of(cfg, p, ctx.mesh)
     if shards is None:
-        return ctx.linear("attn_o", o, p["wo"])
+        return ctx.linear(tag, o, p["wo"])
     rows = p["wo"].shape[0]
     if o.shape[-1] != rows:
         o = o.narrow(-1, collectives.index(ctx.mesh, "model") * rows, rows)
-    return ctx.linear("attn_o", o, p["wo"], parallel="row")
+    return ctx.linear(tag, o, p["wo"], parallel="row")
 
 
 def _ffn(cfg, p, ctx: cm.Ctx, x) -> Tuple[torch.Tensor, Dict]:
@@ -237,10 +241,6 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions,
     if btype == "shared_attn":
         p = shared
     x = cm.apply_norm(cfg, p["norm1"], h)
-    if btype in _APPLY and ctx.mesh is not None:
-        raise NotImplementedError(
-            f"the {btype} block over a model-parallel mesh (ssm_inner "
-            f"sharded over model) is not ported (ROADMAP Queue A.12)")
     if btype in _APPLY:
         return h + rs * _APPLY[btype](cfg, p[btype], ctx, x), {}
     q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
@@ -613,27 +613,30 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
         cfg, btype, batch_size, max_len, device)) for btype in cfg.pattern)
 
 
-def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
-    """h1: (B,1,D); k_cache/v_cache: (B, Smax, KVH, Dh) views into the
-    stacked states, written IN PLACE at (row, pos[row]); pos: (B,), the
-    position of all three M-RoPE streams.  On a model-parallel mesh the
-    caches are this rank's (B, Smax / M, KVH, Dh) slice of the sequence:
-    the rank holding a row's position writes it, q is all-gathered and
-    ``decode_attention_sharded`` combines the ranks' softmax parts."""
-    b = h1.shape[0]
+def cached_self_attention(cfg, p, ctx, x, k_cache, v_cache, pos,
+                          positions):
+    """The cached self-attention of one decode step, out-projected: x
+    (B,1,D) normed; k_cache/v_cache: (B, Smax, KVH, Dh) views into the
+    stacked states, written IN PLACE at (row, pos[row]); pos: (B,).  On a
+    model-parallel mesh the caches are this rank's (B, Smax / M, KVH, Dh)
+    slice of the sequence: the rank holding a row's position writes it, q
+    is all-gathered and ``decode_attention_sharded`` combines the ranks'
+    softmax parts."""
+    b = x.shape[0]
     hh, dh = cfg.n_heads, cfg.head_dim
-    x = cm.apply_norm(cfg, p["norm1"], h1)
-    positions = pos[:, None]
-    if cfg.pos_mode == "mrope":
-        positions = pos[None, :, None].expand(3, b, 1)
-    rows = torch.arange(b, device=h1.device)
+    rows = torch.arange(b, device=x.device)
     if ctx.mesh is None:
-        q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
+        q, k, v = _project_qkv(cfg, p, ctx, x, positions)
         k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
         v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
         o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
     else:
-        q, _, _, (k, v) = _project_qkv(cfg, p["attn"], ctx, x, positions,
+        if tuple(k_cache.shape[2:]) != (cfg.n_kv_heads, cfg.head_dim):
+            raise NotImplementedError(
+                f"a ({tuple(k_cache.shape)}) KV cache shard: the model "
+                f"code splits only a cache's sequence dim over model "
+                f"(ROADMAP Queue A.15)")
+        q, _, _, (k, v) = _project_qkv(cfg, p, ctx, x, positions,
                                        want_all=True)
         span = k_cache.shape[1]
         lo = collectives.index(ctx.mesh, "model") * span
@@ -647,7 +650,20 @@ def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
                                        "model").reshape(b, 1, hh, dh)
         o = attn_lib.decode_attention_sharded(q, k_cache, v_cache, pos + 1,
                                               lo, ctx.mesh)
-    o = _attn_out(cfg, p["attn"], ctx, o.reshape(b, 1, hh * dh))
+    return _attn_out(cfg, p, ctx, o.reshape(b, 1, hh * dh))
+
+
+def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
+    """One attention block of a decode step (``cached_self_attention``
+    and the MLP / MoE); pos: (B,), the position of all three M-RoPE
+    streams."""
+    b = h1.shape[0]
+    x = cm.apply_norm(cfg, p["norm1"], h1)
+    positions = pos[:, None]
+    if cfg.pos_mode == "mrope":
+        positions = pos[None, :, None].expand(3, b, 1)
+    o = cached_self_attention(cfg, p["attn"], ctx, x, k_cache, v_cache, pos,
+                              positions)
     h1 = h1 + cfg.residual_scale * o
     x = cm.apply_norm(cfg, p["norm2"], h1)
     return h1 + cfg.residual_scale * _ffn(cfg, p, ctx, x)[0]
@@ -710,6 +726,23 @@ def _vocab_parallel_nll(logits, labels, lo: int, mesh):
     return torch.log(se) + mx - gold
 
 
+def masked_nll(cfg: ArchConfig, logits, labels, mesh=None) -> torch.Tensor:
+    """The mean next-token cross-entropy over the labels that are not
+    negative, in f32; vocab-parallel (``_vocab_parallel_nll``) where the
+    logits are this rank's vocab shard."""
+    logits = logits.to(torch.float32)
+    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
+        lo = collectives.index(mesh, "model") * logits.shape[-1]
+        nll = _vocab_parallel_nll(logits, labels, lo, mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(labels, min=0)[..., None])[..., 0]
+        nll = logz - gold
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
             key=None, znorms=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy (labels = batch["labels"], negative =
@@ -724,17 +757,7 @@ def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
     if cfg.family == "vlm":
         # only text positions carry labels; the vision prefix has none
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    logits = logits.to(torch.float32)
-    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
-        lo = collectives.index(mesh, "model") * logits.shape[-1]
-        nll = _vocab_parallel_nll(logits, labels, lo, mesh)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            torch.clamp(labels, min=0)[..., None])[..., 0]
-        nll = logz - gold
-    mask = (labels >= 0).to(torch.float32)
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = masked_nll(cfg, logits, labels, mesh)
     if cfg.n_experts:
         loss = loss + 0.01 * aux["lb_loss"] / cfg.n_layers
     aux["ce_loss"] = loss

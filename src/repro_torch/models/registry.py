@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs import get_config  # noqa: F401  (re-export)
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import encdec, lm
 from repro_torch.train.optim import named_leaves
 
@@ -75,48 +76,50 @@ def _param_axes(path: str) -> Tuple[Optional[str], ...]:
     return _AXES[module][leaf]
 
 
+def _leaf_axes(cfg: ArchConfig, path: str):
+    """``_param_axes``, as ``sharding.Segmented`` axes for a fused
+    projection (``models/ssm.py::segments``)."""
+    axes = _param_axes(path)
+    parts = path.split("/")
+    seg = (lm.ssm_lib.segments(cfg, parts[-2], parts[-1])
+           if len(parts) > 1 else None)
+    if seg is None:
+        return axes
+    return shard_lib.Segmented(axes, len(axes) - 1, *seg)
+
+
 def abstract_params(cfg: ArchConfig):
     """(params on the ``meta`` device, {leaf path: logical axes}) without
     any allocation."""
     params = init_params(cfg, 0, device="meta")
-    axes = {path: _param_axes(path) for path, _ in named_leaves(params)}
+    axes = {path: _leaf_axes(cfg, path) for path, _ in named_leaves(params)}
     return params, axes
 
 
-def model_parallel_mesh(cfg: ArchConfig, mesh):
+def model_parallel_mesh(mesh):
     """``mesh`` where its ``model`` axis holds several ranks (the model
-    code's tensor / expert parallelism), else None; raises for the archs
-    whose blocks have no model-parallel program yet."""
+    code's tensor / expert parallelism), else None."""
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return None
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder over a model-parallel mesh "
-            f"is not ported (ROADMAP Queue A.13)")
-    recurrent = sorted(set(cfg.pattern) & set(lm.ssm_lib.RECURRENT))
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: the {'/'.join(recurrent)} blocks over a "
-            f"model-parallel mesh (ssm_inner sharded over model) are not "
-            f"ported (ROADMAP Queue A.12)")
     return mesh
 
 
 def forward(cfg, params, batch, policy, key=None, znorms=None,
             recorder=None, mesh=None):
     """``mesh``: a model-parallel mesh (``models/lm.py``), or None."""
-    mesh = model_parallel_mesh(cfg, mesh)
+    mesh = model_parallel_mesh(mesh)
     if cfg.is_encdec:
         return encdec.forward(cfg, params, batch, policy, key, znorms,
-                              recorder=recorder)
+                              recorder=recorder, mesh=mesh)
     return lm.forward(cfg, params, batch, policy, key, znorms,
                       recorder=recorder, mesh=mesh)
 
 
 def loss_fn(cfg, params, batch, policy, key=None, znorms=None, mesh=None):
-    mesh = model_parallel_mesh(cfg, mesh)
+    mesh = model_parallel_mesh(mesh)
     if cfg.is_encdec:
-        return encdec.loss(cfg, params, batch, policy, key, znorms)
+        return encdec.loss(cfg, params, batch, policy, key, znorms,
+                           mesh=mesh)
     return lm.lm_loss(cfg, params, batch, policy, key, znorms, mesh=mesh)
 
 
@@ -125,7 +128,7 @@ def prefill(cfg, params, batch, policy, mesh=None):
         raise NotImplementedError(
             "enc-dec prefill == prime_cross_cache + decode loop")
     return lm.prefill(cfg, params, batch, policy,
-                      mesh=model_parallel_mesh(cfg, mesh))
+                      mesh=model_parallel_mesh(mesh))
 
 
 def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
@@ -140,9 +143,10 @@ def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
 def decode_step(cfg, params, token, pos, states, policy, mesh=None):
     """``pos``: scalar (aligned batch) or (B,) per-slot positions
     (continuous batching; decoder-only LMs only)."""
-    mesh = model_parallel_mesh(cfg, mesh)
+    mesh = model_parallel_mesh(mesh)
     if cfg.is_encdec:
-        return encdec.decode_step(cfg, params, token, pos, states, policy)
+        return encdec.decode_step(cfg, params, token, pos, states, policy,
+                                  mesh=mesh)
     return lm.decode_step(cfg, params, token, pos, states, policy,
                           mesh=mesh)
 

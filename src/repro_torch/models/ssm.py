@@ -18,15 +18,47 @@ the reference's: the conv sums its taps in order and adds the bias before
 the cast, bf16 x f32 promotes to f32 at the same points, Mamba's conv
 state stays in the compute dtype and its SSM state in f32, and the ``m``
 stabilizers start at -1e30.
+
+Over a model-parallel mesh (``Ctx.mesh``, M ranks; the parameters this
+rank's shards, ``launch.sharding.shard_params``) a block runs one of two
+programs, chosen by its shapes (``splits_heads``):
+
+* heads: each rank runs nh/M heads and keeps their states.  The fused
+  projections are sharded segment by segment (``segments``: Mamba2's
+  ``in_proj`` as [z_r | x_r | B_r | C_r | dt_r], its conv as [x_r | B_r |
+  C_r], mLSTM's ``up`` as [xs_r | z_r]), so the input projections are
+  column-parallel and the depthwise conv local.  Mamba2 all-gathers B and
+  C after the conv (every head reads all of them) and all-reduces the
+  gated RMSNorm's sum of squares both ways (``sum_over_model``).  mLSTM's
+  q / k / v are row-parallel on xs_r, reduce-scattered onto the rank's
+  heads; its gate product is row-parallel and all-reduced, each rank
+  reading its heads' i and f columns.  sLSTM's ``w_in`` is head-major, so
+  its contiguous column split is whole heads.  The replicated per-head
+  leaves (``a_log``, ``d_skip``, ``dt_bias``, ``if_bias``, ``r``,
+  ``bias``) pass Megatron's *f* and are sliced to the rank's heads, so
+  their gradient sums the ranks' parts.
+* gathered, where the heads (or Mamba2's state width) do not divide M:
+  the block's projected inputs are gathered whole (column-parallel
+  outputs all-gathered, row-parallel ones all-reduced), every rank runs
+  every head, and the cell output passes *f* before the rank keeps its
+  slice for the row-parallel out-projection: the gradient upstream of it
+  is then whole and the same on every rank, as on one rank.
+
+The out-projection is row-parallel in both.  Every collective sits
+outside the recurrence over time, so a chunk's recompute under
+``torch.utils.checkpoint`` issues none.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import collectives
 from repro_torch.models import common as cm
 
 _F32 = torch.float32
@@ -59,6 +91,152 @@ def init_mamba(cfg, gen, dtype, device):
         "norm_g": torch.ones((di,), dtype=dtype, device=device),
         "out_proj": cm.dense_init(gen, (di, d), dtype, device),
     }
+
+
+# ---------------------------------------------------------------------------
+# The model axis
+# ---------------------------------------------------------------------------
+
+def segments(cfg, btype: str, leaf: str):
+    """(widths, group) of a fused projection leaf of a ``btype`` block, or
+    None: ``widths`` are the segments side by side in its last dim, and
+    where every width of ``group`` (the block's one decision for all its
+    fused leaves) divides the model axis, a rank holds its 1/M of each
+    segment in order (``launch/sharding.py``); else the leaf splits
+    contiguously, as the reference's rules split it."""
+    if btype == "mamba" and leaf in ("in_proj", "conv_w", "conv_b"):
+        di, nh, _, n = mamba_dims(cfg)
+        group = (di, di, n, n, nh)
+        return (group if leaf == "in_proj" else (di, n, n)), group
+    if btype == "mlstm" and leaf == "up":
+        di = mlstm_dims(cfg)[0]
+        return (di, di), (di, di)
+    return None
+
+
+def splits_heads(cfg, btype: str, m: int) -> bool:
+    """Whether a ``btype`` block over ``m`` model ranks runs nh/m heads a
+    rank (its head count, and Mamba2's state width, divide ``m``); else it
+    takes the gathered path (module doc)."""
+    if btype == "mamba":
+        _, nh, _, n = mamba_dims(cfg)
+        return nh % m == 0 and n % m == 0
+    return cfg.n_heads % m == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shards:
+    """How this rank runs one recurrent block: ``m`` model ranks, this
+    rank's index ``r`` and the path, ``"heads"`` or ``"gathered"`` (None:
+    one rank)."""
+    m: int = 1
+    r: int = 0
+    path: Optional[str] = None
+    mesh: Optional[object] = None
+
+    @staticmethod
+    def of(cfg, btype: str, mesh) -> "_Shards":
+        m = collectives.model_size(mesh)
+        if m == 1:
+            return _Shards()
+        path = "heads" if splits_heads(cfg, btype, m) else "gathered"
+        return _Shards(m, collectives.index(mesh, "model"), path, mesh)
+
+    @property
+    def heads(self) -> bool:
+        return self.path == "heads"
+
+    def local(self, n: int) -> int:
+        """This rank's part of a width split by heads."""
+        return n // self.m if self.heads else n
+
+    def head_slice(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's heads of a replicated per-head leaf (heads along
+        ``dim``) on the heads path, its gradient summed over the ranks
+        (*f*); the leaf itself otherwise."""
+        if not self.heads:
+            return x
+        part = x.shape[dim] // self.m
+        return collectives.copy_to_model(x, self.mesh).narrow(
+            dim, self.r * part, part)
+
+    def whole(self, x: torch.Tensor, full: int) -> torch.Tensor:
+        """``x`` with its last dim whole on the gathered path: a sharded
+        leaf or a column-parallel output all-gathered (its gradient, the
+        same on every rank, sliced back)."""
+        if self.path != "gathered" or x.shape[-1] == full:
+            return x
+        return collectives.gather_replicated(x, self.mesh)
+
+    def project(self, ctx, tag, h, w, full: int) -> torch.Tensor:
+        """An input projection of ``full`` output features: column-
+        parallel where ``w`` is sharded (this rank's segments on the heads
+        path, gathered whole on the gathered one)."""
+        if self.path is None or w.shape[-1] == full:
+            return ctx.linear(tag, h, w)
+        return self.whole(ctx.linear(tag, h, w, parallel="column"), full)
+
+    def rank_part(self, y: torch.Tensor, rows: int) -> torch.Tensor:
+        """The features of the cell output ``y`` a row-parallel weight of
+        ``rows`` rows reads on this rank: on the gathered path ``y`` is
+        whole, passes *f* and this rank keeps its slice."""
+        if y.shape[-1] == rows:
+            return y
+        y = collectives.copy_to_model(y, self.mesh)
+        return y.narrow(-1, self.r * rows, rows)
+
+    def out(self, ctx, tag, y, w, full: int) -> torch.Tensor:
+        """The out-projection of the cell output ``y`` (``full`` rows
+        whole): row-parallel where ``w`` is sharded."""
+        if self.path is None or w.shape[0] == full:
+            return ctx.linear(tag, y, w)
+        return ctx.linear(tag, self.rank_part(y, w.shape[0]), w,
+                          parallel="row")
+
+    # Mamba2
+
+    def mamba_dims(self, cfg):
+        di, nh, hd, n = mamba_dims(cfg)
+        return self.local(di), self.local(nh), hd, self.local(n)
+
+    def mamba_leaves(self, cfg, p):
+        """The Mamba2 leaves as this rank computes with them: the head
+        leaves sliced on the heads path, the sharded conv and norm leaves
+        whole on the gathered one."""
+        if self.path is None:
+            return p
+        di, _, _, n = mamba_dims(cfg)
+        q = dict(p)
+        for name in ("a_log", "d_skip", "dt_bias"):
+            q[name] = self.head_slice(p[name])
+        for name, full in (("conv_w", di + 2 * n), ("conv_b", di + 2 * n),
+                           ("norm_g", di)):
+            q[name] = self.whole(p[name], full)
+        return q
+
+    def whole_bc(self, bmat, cmat):
+        """B and C whole on the heads path: this rank's parts of both,
+        all-gathered in one collective (backward: the ranks' partial
+        gradients reduce-scattered)."""
+        if not self.heads:
+            return bmat, cmat
+        n = bmat.shape[-1]
+        bc = collectives.gather_from_model(torch.cat([bmat, cmat], -1),
+                                           self.mesh)
+        bc = bc.reshape(*bc.shape[:-1], self.m, 2, n)
+        return (bc[..., 0, :].flatten(-2), bc[..., 1, :].flatten(-2))
+
+    def rms_norm(self, y, gamma, eps):
+        """RMSNorm over the whole inner width; on the heads path its sum
+        of squares is all-reduced both ways over the ranks' features."""
+        if not self.heads:
+            return cm.rms_norm(y, gamma, eps)
+        nrm = torch.linalg.vector_norm(y, dim=-1, keepdim=True,
+                                       dtype=_F32)
+        ms = collectives.sum_over_model(nrm * nrm, self.mesh) / (
+            y.shape[-1] * self.m)
+        inv = torch.rsqrt(ms + eps).to(y.dtype)
+        return y * inv * gamma.to(y.dtype)
 
 
 def _causal_conv(x, w, b, state=None):
@@ -138,12 +316,16 @@ def apply_mamba(cfg, p, ctx: cm.Ctx, h, chunk: int = 256,
                 return_state: bool = False):
     """h: (B, L, D) -> (B, L, D) [, decode state]."""
     bsz, l, d = h.shape
-    di, nh, hd, n = mamba_dims(cfg)
-    proj = ctx.linear("mamba_in", h, p["in_proj"])
+    sh = _Shards.of(cfg, "mamba", ctx.mesh)
+    p = sh.mamba_leaves(cfg, p)
+    di, nh, hd, n = sh.mamba_dims(cfg)
+    proj = sh.project(ctx, "mamba_in", h, p["in_proj"],
+                      sum(segments(cfg, "mamba", "in_proj")[0]))
     z, xbc_raw, dt_raw = torch.split(proj, [di, di + 2 * n, nh], dim=-1)
     xbc, conv_state = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xbc = F.silu(xbc)
     x, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    bmat, cmat = sh.whole_bc(bmat, cmat)
 
     dt = F.softplus(dt_raw.to(_F32) + p["dt_bias"][None, None, :])
     a = -torch.exp(p["a_log"].to(_F32))
@@ -152,8 +334,8 @@ def apply_mamba(cfg, p, ctx: cm.Ctx, h, chunk: int = 256,
                                 chunk)
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(bsz, l, di).to(h.dtype)
-    y = cm.rms_norm(y, p["norm_g"], cfg.norm_eps) * F.silu(z)
-    out = ctx.linear("mamba_out", y, p["out_proj"])
+    y = sh.rms_norm(y, p["norm_g"], cfg.norm_eps) * F.silu(z)
+    out = sh.out(ctx, "mamba_out", y, p["out_proj"], mamba_dims(cfg)[0])
     if return_state:
         return out, {"conv": conv_state, "ssm": ssm_state}
     return out
@@ -172,13 +354,17 @@ def mamba_decode_init(cfg, batch: int, dtype, device):
 def mamba_decode_step(cfg, p, ctx: cm.Ctx, h1, state):
     """h1: (B, 1, D) -> (B, 1, D); O(1) state update (new tensors)."""
     bsz = h1.shape[0]
-    di, nh, hd, n = mamba_dims(cfg)
-    proj = ctx.linear("mamba_in", h1, p["in_proj"])
+    sh = _Shards.of(cfg, "mamba", ctx.mesh)
+    p = sh.mamba_leaves(cfg, p)
+    di, nh, hd, n = sh.mamba_dims(cfg)
+    proj = sh.project(ctx, "mamba_in", h1, p["in_proj"],
+                      sum(segments(cfg, "mamba", "in_proj")[0]))
     z, xbc, dt_raw = torch.split(proj, [di, di + 2 * n, nh], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    state["conv"])
     xbc = F.silu(xbc)
     x, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    bmat, cmat = sh.whole_bc(bmat, cmat)
 
     dt = F.softplus(dt_raw.to(_F32)
                     + p["dt_bias"][None, None, :])[:, 0]        # (B,H)
@@ -190,8 +376,8 @@ def mamba_decode_step(cfg, p, ctx: cm.Ctx, h1, state):
     y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].to(_F32), ssm)
     y = y + p["d_skip"][None, :, None] * xh
     y = y.reshape(bsz, 1, di).to(h1.dtype)
-    y = cm.rms_norm(y, p["norm_g"], cfg.norm_eps) * F.silu(z)
-    out = ctx.linear("mamba_out", y, p["out_proj"])
+    y = sh.rms_norm(y, p["norm_g"], cfg.norm_eps) * F.silu(z)
+    out = sh.out(ctx, "mamba_out", y, p["out_proj"], mamba_dims(cfg)[0])
     return out, {"conv": conv_state, "ssm": ssm}
 
 
@@ -290,37 +476,63 @@ def _recurrent_over_chunks(cell_step, state, xs_seq, chunk: int):
     return state, torch.cat(outs)
 
 
+def _mlstm_inputs(cfg, p, ctx: cm.Ctx, sh: _Shards, h):
+    """(q, k, v (B, L, H, dh), i_raw, f_raw (B, L, H) in f32, z) of this
+    rank's H heads: on the heads path q / k / v are reduce-scattered onto
+    the rank's heads and the gate product all-reduced (each rank reads its
+    heads' i and f columns, so its gradient sums over the ranks); on the
+    gathered path all of them are whole."""
+    bsz, l, _ = h.shape
+    di, nh, dh = mlstm_dims(cfg)
+    sharded = sh.path is not None and p["up"].shape[-1] != 2 * di
+    up = ctx.linear("mlstm_up", h, p["up"],
+                    parallel="column" if sharded else None)
+    if sharded and di % sh.m:
+        up = sh.whole(up, 2 * di)       # not split [xs_r | z_r]
+    xs, z = torch.chunk(up, 2, dim=-1)
+    row = None
+    if p["wq"].shape[0] != di:
+        row = "row_scatter" if sh.heads else "row"
+    hl = sh.local(nh)
+    q, k, v = (ctx.linear(f"mlstm_{n}", xs, p[w], parallel=row).reshape(
+        bsz, l, hl, dh) for n, w in (("q", "wq"), ("k", "wk"), ("v", "wv")))
+    gif = ctx.linear("mlstm_if", xs, p["w_if"],
+                     parallel="row" if row else None).to(_F32)
+    gif = gif + p["if_bias"][None, None, :]
+    if sh.heads:
+        gif = collectives.copy_to_model(gif, sh.mesh).reshape(
+            bsz, l, 2, nh).narrow(-1, sh.r * hl, hl).reshape(bsz, l, 2 * hl)
+    i_raw, f_raw = torch.chunk(gif, 2, dim=-1)          # (B,L,H)
+    return q, k, v, i_raw, f_raw, z
+
+
 def apply_mlstm(cfg, p, ctx: cm.Ctx, h, chunk: int = 256,
                 return_state: bool = False):
     bsz, l, d = h.shape
     di, nh, dh = mlstm_dims(cfg)
-    up = ctx.linear("mlstm_up", h, p["up"])
-    xs, z = torch.chunk(up, 2, dim=-1)
-    q = ctx.linear("mlstm_q", xs, p["wq"]).reshape(bsz, l, nh, dh)
-    k = ctx.linear("mlstm_k", xs, p["wk"]).reshape(bsz, l, nh, dh)
-    v = ctx.linear("mlstm_v", xs, p["wv"]).reshape(bsz, l, nh, dh)
-    gif = (ctx.linear("mlstm_if", xs, p["w_if"]).to(_F32)
-           + p["if_bias"][None, None, :])
-    i_raw, f_raw = torch.chunk(gif, 2, dim=-1)          # (B,L,H)
+    sh = _Shards.of(cfg, "mlstm", ctx.mesh)
+    q, k, v, i_raw, f_raw, z = _mlstm_inputs(cfg, p, ctx, sh, h)
 
     def to_seq(x):
         return torch.movedim(x.to(_F32), 1, 0)
 
-    init = mlstm_decode_init(cfg, bsz, h.device)
+    init = mlstm_decode_init(cfg, bsz, h.device, heads=q.shape[2])
     (cs, ns, ms), hs = _recurrent_over_chunks(
         _mlstm_scaled_step, (init["c"], init["n"], init["m"]),
         (to_seq(q), to_seq(k) / math.sqrt(dh), to_seq(v), to_seq(i_raw),
          -F.softplus(-to_seq(f_raw))), chunk)
-    hs = torch.movedim(hs, 0, 1).reshape(bsz, l, di)    # (B,L,di)
-    y = hs.to(h.dtype) * F.silu(z)
-    out = ctx.linear("mlstm_down", y, p["down"])
+    hs = torch.movedim(hs, 0, 1).reshape(bsz, l, -1)    # (B,L,H·dh)
+    y = sh.rank_part(hs.to(h.dtype), z.shape[-1]) * F.silu(z)
+    out = sh.out(ctx, "mlstm_down", y, p["down"], di)
     if return_state:
         return out, {"c": cs, "n": ns, "m": ms}
     return out
 
 
-def mlstm_decode_init(cfg, batch: int, device):
+def mlstm_decode_init(cfg, batch: int, device, heads: Optional[int] = None):
+    """The mLSTM state of ``heads`` heads (all by default)."""
     di, nh, dh = mlstm_dims(cfg)
+    nh = nh if heads is None else heads
     return {"c": torch.zeros((batch, nh, dh, dh), dtype=_F32, device=device),
             "n": torch.zeros((batch, nh, dh), dtype=_F32, device=device),
             "m": torch.full((batch, nh), -1e30, dtype=_F32, device=device)}
@@ -329,19 +541,15 @@ def mlstm_decode_init(cfg, batch: int, device):
 def mlstm_decode_step(cfg, p, ctx: cm.Ctx, h1, state):
     bsz = h1.shape[0]
     di, nh, dh = mlstm_dims(cfg)
-    up = ctx.linear("mlstm_up", h1, p["up"])
-    xs, z = torch.chunk(up, 2, dim=-1)
-    q = ctx.linear("mlstm_q", xs, p["wq"]).reshape(bsz, nh, dh)
-    k = ctx.linear("mlstm_k", xs, p["wk"]).reshape(bsz, nh, dh)
-    v = ctx.linear("mlstm_v", xs, p["wv"]).reshape(bsz, nh, dh)
-    gif = (ctx.linear("mlstm_if", xs, p["w_if"]).to(_F32)
-           + p["if_bias"][None, None, :])[:, 0]
-    i_raw, f_raw = torch.chunk(gif, 2, dim=-1)
+    sh = _Shards.of(cfg, "mlstm", ctx.mesh)
+    q, k, v, i_raw, f_raw, z = _mlstm_inputs(cfg, p, ctx, sh, h1)
     st = (state["c"], state["n"], state["m"])
     (c, n, m), h_out = _mlstm_cell_step(
-        st, (q.to(_F32), k.to(_F32), v.to(_F32), i_raw, f_raw))
-    y = h_out.reshape(bsz, 1, di).to(h1.dtype) * F.silu(z)
-    out = ctx.linear("mlstm_down", y, p["down"])
+        st, (q[:, 0].to(_F32), k[:, 0].to(_F32), v[:, 0].to(_F32),
+             i_raw[:, 0], f_raw[:, 0]))
+    y = sh.rank_part(h_out.reshape(bsz, 1, -1).to(h1.dtype),
+                     z.shape[-1]) * F.silu(z)
+    out = sh.out(ctx, "mlstm_down", y, p["down"], di)
     return out, {"c": c, "n": n, "m": m}
 
 
@@ -391,25 +599,41 @@ def _slstm_cell_step_factory(p, nh, dh):
     return step
 
 
+def _slstm_local(cfg, p, ctx: cm.Ctx, sh: _Shards, h):
+    """(the input projection (B, L, 4·dh·H) in f32, the cell's leaves,
+    H) for this rank's H heads: ``w_in`` is head-major, so its column
+    split is whole heads; ``r`` and ``bias`` are sliced to them (*f*).
+    On the gathered path the projection is gathered whole."""
+    _, nh, dh = slstm_dims(cfg)
+    x = sh.project(ctx, "slstm_in", h, p["w_in"], 4 * cfg.d_model)
+    leaves = {"r": sh.head_slice(p["r"]),
+              "bias": sh.head_slice(p["bias"].reshape(nh, 4 * dh)
+                                    ).reshape(-1)}
+    return x.to(_F32), leaves, sh.local(nh)
+
+
 def apply_slstm(cfg, p, ctx: cm.Ctx, h, chunk: int = 256,
                 return_state: bool = False):
     bsz, l, d = h.shape
     _, nh, dh = slstm_dims(cfg)
-    x = ctx.linear("slstm_in", h, p["w_in"]).to(_F32)
-    xs = torch.movedim(x, 1, 0)                      # (L,B,4d)
-    init = slstm_decode_init(cfg, bsz, h.device)
-    step = _slstm_cell_step_factory(p, nh, dh)
+    sh = _Shards.of(cfg, "slstm", ctx.mesh)
+    x, leaves, hl = _slstm_local(cfg, p, ctx, sh, h)
+    xs = torch.movedim(x, 1, 0)                      # (L,B,4·dh·H)
+    init = slstm_decode_init(cfg, bsz, h.device, heads=hl)
+    step = _slstm_cell_step_factory(leaves, hl, dh)
     (c, n, m, hh), hs = _recurrent_over_chunks(
         step, (init["c"], init["n"], init["m"], init["h"]), (xs,), chunk)
-    hs = torch.movedim(hs, 0, 1).reshape(bsz, l, d)
-    out = ctx.linear("slstm_down", hs.to(h.dtype), p["down"])
+    hs = torch.movedim(hs, 0, 1).reshape(bsz, l, hl * dh)
+    out = sh.out(ctx, "slstm_down", hs.to(h.dtype), p["down"], d)
     if return_state:
         return out, {"c": c, "n": n, "m": m, "h": hh}
     return out
 
 
-def slstm_decode_init(cfg, batch: int, device):
+def slstm_decode_init(cfg, batch: int, device, heads: Optional[int] = None):
+    """The sLSTM state of ``heads`` heads (all by default)."""
     _, nh, dh = slstm_dims(cfg)
+    nh = nh if heads is None else heads
     z = torch.zeros((batch, nh, dh), dtype=_F32, device=device)
     return {"c": z, "n": z.clone(), "m": z - 1e30, "h": z.clone()}
 
@@ -417,13 +641,14 @@ def slstm_decode_init(cfg, batch: int, device):
 def slstm_decode_step(cfg, p, ctx: cm.Ctx, h1, state):
     bsz = h1.shape[0]
     _, nh, dh = slstm_dims(cfg)
-    x = ctx.linear("slstm_in", h1, p["w_in"]).to(_F32)[:, 0]
-    step = _slstm_cell_step_factory(p, nh, dh)
+    sh = _Shards.of(cfg, "slstm", ctx.mesh)
+    x, leaves, hl = _slstm_local(cfg, p, ctx, sh, h1)
+    step = _slstm_cell_step_factory(leaves, hl, dh)
     st = (state["c"], state["n"], state["m"], state["h"])
-    (c, n, m, hh), h_out = step(st, (x,))
-    out = ctx.linear("slstm_down",
-                     h_out.reshape(bsz, 1, cfg.d_model).to(h1.dtype),
-                     p["down"])
+    (c, n, m, hh), h_out = step(st, (x[:, 0],))
+    out = sh.out(ctx, "slstm_down",
+                 h_out.reshape(bsz, 1, hl * dh).to(h1.dtype), p["down"],
+                 cfg.d_model)
     return out, {"c": c, "n": n, "m": m, "h": hh}
 
 

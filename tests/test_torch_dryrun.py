@@ -40,6 +40,8 @@ from repro_torch.kernels.sampled_matmul import sampled_matmul_plain
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import report, roofline
+from repro_torch.models import common as cm
+from repro_torch.models import registry
 from repro_torch.models.registry import get_config
 
 torch.set_num_threads(1)
@@ -228,7 +230,9 @@ def test_flash_visible_keys_closed_form():
 SMALL = InputShape("small_train", 64, 8, "train")
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-1b-a400m",
+                                  "zamba2-2.7b", "xlstm-125m",
+                                  "whisper-base"])
 def test_argument_bytes_equal_the_reference_shard_shapes(arch):
     cfg = get_config(arch, reduced=True)
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"))
@@ -248,8 +252,11 @@ def test_argument_bytes_equal_the_reference_shard_shapes(arch):
     want = sum(int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
                for (path, x), s in zip(leaves, shardings)
                if not jax.tree_util.keystr(path).endswith(host))
-    # the batch: tokens and labels, int32, split over the 2 data ranks
-    want += 2 * (SMALL.global_batch // 2) * SMALL.seq_len * 4
+    # the batch (tokens and labels, int32; an enc-dec's frames too), split
+    # over the 2 data ranks
+    want += sum(int(np.prod(shape)) * dtype.itemsize for shape, dtype in
+                registry.train_batch_specs(cfg, SMALL.global_batch // 2,
+                                           SMALL.seq_len).values())
     assert counter.argument_bytes == want
 
 
@@ -302,10 +309,45 @@ def test_minicpm_record_says_how_q_is_split():
 def test_skipped_and_error_cells(tmp_path):
     rec, _, _ = dryrun.lower_cell("qwen2.5-3b", "long_500k", False)
     assert rec["status"] == "skipped" and "full-attention" in rec["reason"]
-    out = dryrun.run_cells([("xlstm-125m", "train_4k", False)],
-                           out_dir=str(tmp_path))
-    assert out[0]["status"] == "error" and "A.12" in out[0]["error"]
-    assert (tmp_path / "xlstm-125m__train_4k__single.json").exists()
+    # a trace that raises is recorded, as the reference records a failed
+    # lowering: here a remat mode the model does not know
+    out = dryrun.run_cells([("qwen2.5-3b", "train_4k", False)],
+                           out_dir=str(tmp_path),
+                           policy=cm.Policy(remat="nowhere"))
+    assert out[0]["status"] == "error" and "nowhere" in out[0]["error"]
+    assert (tmp_path / "qwen2.5-3b__train_4k__single.json").exists()
+
+
+@pytest.mark.parametrize("arch,shape,reduced", [
+    ("xlstm-125m", "decode_32k", False), ("zamba2-2.7b", "decode_32k", False),
+    ("zamba2-2.7b", "prefill_32k", True), ("whisper-base", "train_4k", False)])
+def test_recurrent_and_encdec_cells_trace_on_the_production_mesh(
+        arch, shape, reduced):
+    cfg = get_config(arch, reduced=reduced)
+    rec = dryrun.lower_cell(arch, shape, False, cfg=cfg)[0]
+    assert rec["status"] == "ok"
+    assert rec["cost"]["flops"] > 0 and rec["collectives"]["total_bytes"] > 0
+    # 16 model ranks: zamba2's 80 Mamba2 heads and its state width of 64
+    # split (the reduced arch's 8 heads do not), xlstm-125m's 4 heads do
+    # not: every rank runs every head
+    split = arch == "zamba2-2.7b" and not reduced
+    for btype in set(cfg.pattern) & {"mamba", "mlstm", "slstm"}:
+        assert rec["model_axis"][btype] == (
+            "heads split over model" if split else
+            "gathered: every rank runs every head")
+    json.dumps(rec)
+
+
+def test_production_records_say_how_the_blocks_split():
+    mesh = mesh_lib.make_production_mesh()
+    gathered = "gathered: every rank runs every head"
+    assert dryrun.model_axis_notes(get_config("xlstm-125m"), mesh) == {
+        "mlstm": gathered, "slstm": gathered}
+    assert dryrun.model_axis_notes(get_config("zamba2-2.7b"), mesh) == {
+        "mamba": "heads split over model"}
+    assert dryrun.model_axis_notes(get_config("whisper-base"), mesh) == {
+        "q_heads": "sliced through heads: q all-gathered before the scores",
+        "kv_heads": "replicated"}
 
 
 def test_train_cell_folds_the_microbatches():

@@ -12,11 +12,16 @@ encoder-decoder stack) on a leading axis whose logical name is
 ``layers``: ``convert.reference_leaf`` maps each port leaf to its
 reference leaf, whose shape is the port's behind the stack's depth and
 whose spec the port's behind a replicated layer dim.  Every comparison is
-exact."""
+exact.  The port's own layouts (fused projections split by segment,
+decode states split as the model code splits them) are held to the
+reference's per-rank shapes and to their rule."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import AbstractMesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
@@ -33,7 +38,7 @@ from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding, train_steps
-from repro_torch.models import registry
+from repro_torch.models import registry, ssm
 from repro_torch.models.registry import get_config
 from repro_torch.train import optim, znorm
 
@@ -314,3 +319,129 @@ def test_shard_shape_and_batch(mesh):
     np.testing.assert_array_equal(part["tokens"], batch["tokens"][:6])
     assert part["positions3"].shape == (3, 6, 5)
     assert part["odd"] is batch["odd"]
+
+
+# ---------------------------------------------------------------------------
+# the port's own layouts: fused projections by segment, decode states as
+# the model code splits them
+# ---------------------------------------------------------------------------
+
+FUSED = {"zamba2-2.7b": ("mamba/in_proj", "mamba/conv_w", "mamba/conv_b"),
+         "xlstm-125m": ("mlstm/up",)}
+
+
+@pytest.mark.parametrize("m", [2, 16])
+@pytest.mark.parametrize("arch", list(FUSED))
+def test_fused_projections_split_segment_by_segment(arch, m):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    port_mesh = mesh_lib.make_mesh((1, m), ("data", "model"))
+    ref_mesh = AbstractMesh((1, m), ("data", "model"))
+    params, axes = registry.abstract_params(cfg)
+    rules = sharding.arch_rules(cfg, port_mesh)
+    got = sharding.param_shardings(axes, params, port_mesh, rules=rules)
+    ref_params, ref_axes = jax_registry.abstract_params(jcfg)
+    want = jax_sharding.param_shardings(ref_axes, ref_params, ref_mesh,
+                                        rules=rules)
+    want_flat = _ref_flat(want, is_leaf=lambda x: isinstance(
+        x, NamedSharding))
+    ref_flat = _ref_flat(ref_params)
+    seen = 0
+    for path, p in optim.named_leaves(params):
+        if not path.endswith(FUSED[arch]):
+            continue
+        seen += 1
+        spec = got[path]
+        ref, index = convert.reference_leaf(cfg, path)
+        # the reference's spec and per-rank shape, the segments carried
+        assert isinstance(spec, sharding.Segmented), path
+        assert (None,) + spec == tuple(want_flat[ref].spec)
+        shape = sharding.shard_shape(tuple(p.shape), spec, port_mesh)
+        assert (ref_flat[ref].shape[0],) + shape == \
+            want_flat[ref].shard_shape(ref_flat[ref].shape)
+        widths, group = ssm.segments(cfg, *path.split("/")[-2:])
+        assert spec.widths == widths and sum(widths) == p.shape[-1]
+        assert shape[-1] == sum(w // m for w in widths)
+        if not path.startswith("layers/0/"):
+            continue
+        # rank r holds the r-th 1/m of every segment, in order; the ranks'
+        # shards gathered back are the leaf
+        whole = torch.arange(p.numel(), dtype=torch.float32).reshape(
+            p.shape)
+        shards = []
+        for r in range(m):
+            mesh_r = mesh_lib.meta_mesh(port_mesh, {"data": 0, "model": r})
+            got_r = sharding._rank_slice(whole, spec, mesh_r)
+            want_r = torch.cat([seg.narrow(-1, r * (w // m), w // m)
+                                for seg, w in zip(whole.split(widths, -1),
+                                                  widths)], -1)
+            assert torch.equal(got_r, want_r), (path, r)
+            shards.append(got_r)
+        assert torch.equal(sharding._unsegment(torch.cat(shards, -1), spec,
+                                               m), whole)
+    block = FUSED[arch][0].split("/")[0]
+    assert seen == len(FUSED[arch]) * cfg.n_layers * cfg.pattern.count(
+        block) // len(cfg.pattern)
+
+
+def test_segments_that_do_not_divide_split_contiguously():
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              ssm_state=7)
+    port_mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    params, axes = registry.abstract_params(cfg)
+    got = sharding.param_shardings(axes, params, port_mesh)
+    spec = got["layers/0/mamba/in_proj"]
+    # 7 does not divide 2: the reference's contiguous split (Mamba2 then
+    # takes the gathered path)
+    assert spec == (None, "model") and not isinstance(
+        spec, sharding.Segmented)
+
+
+DECODE_CASES = {"zamba2-2.7b": {}, "xlstm-125m": {},
+                "xlstm-125m/h1": {"n_heads": 1, "n_kv_heads": 1},
+                "whisper-base": {}}
+
+
+@pytest.mark.parametrize("m", [2, 16])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_state_specs_split_recurrent_states_by_heads(case, m):
+    cfg = dataclasses.replace(get_config(case.split("/")[0]),
+                              **DECODE_CASES[case])
+    mesh = mesh_lib.make_mesh((2, m), ("data", "model"))
+    _, _, states = registry.decode_specs(cfg, 4, 1024)
+    specs = sharding.decode_state_specs(cfg, states, mesh, 4)
+    heuristic = sharding.decode_state_shardings(states, mesh, 4)
+    leaves = dict(optim.named_leaves(states))
+    assert set(specs) == set(leaves)
+    for path, spec in specs.items():
+        block, _, name = path.partition("/")
+        x = leaves[path]
+        if cfg.is_encdec:
+            # self-attention caches on their sequence; cross caches by
+            # heads where the kv heads divide, else whole
+            want = heuristic[path]
+            if block in ("xk", "xv"):
+                want = (None, "data", None,
+                        "model" if cfg.n_kv_heads % m == 0 else None, None)
+            assert spec == want, path
+            continue
+        btype = cfg.pattern[int(block)]
+        if btype not in ssm.RECURRENT:
+            assert spec == heuristic[path], path    # a KV cache
+            continue
+        split = ssm.splits_heads(cfg, btype, m)
+        dim = 3 if name == "conv" else 2
+        want = [None] * x.ndim
+        want[1] = "data"
+        if split:
+            want[dim] = "model"
+        assert spec == tuple(want), (path, spec)
+        assert isinstance(spec, sharding.Segmented) == (split and
+                                                        name == "conv")
+        local = sharding.shard_shape(tuple(x.shape), spec, mesh)
+        if split and name != "conv":
+            assert local[2] == x.shape[2] // m     # this rank's heads
+    # xlstm-125m's 4 heads do not divide 16: every rank holds every head
+    if case == "xlstm-125m":
+        assert ssm.splits_heads(cfg, "mlstm", m) == (m == 2)
+    if case == "xlstm-125m/h1":
+        assert not ssm.splits_heads(cfg, "slstm", m)

@@ -485,17 +485,6 @@ def _roadmap_items():
         return set(re.findall(r"\*\*(A\.\d+)[:*]", f.read()))
 
 
-@pytest.mark.parametrize("arch,item", [("zamba2-2.7b", "A.12"),
-                                       ("xlstm-125m", "A.12"),
-                                       ("whisper-base", "A.13")])
-def test_archs_without_a_model_parallel_program_raise(arch, item):
-    mesh = mesh_lib.meta_mesh(mesh_lib.make_mesh((1, 2), ("data", "model")))
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        registry.model_parallel_mesh(cfg, mesh)
-    assert item in _roadmap_items()
-
-
 def test_sharded_optimizer_layouts_raise():
     mesh = mesh_lib.meta_mesh(mesh_lib.make_mesh((1, 2), ("data", "model")))
     cfg = get_config("qwen2.5-3b", reduced=True)

@@ -4,8 +4,10 @@ the card, on the host alone (``meta`` device, no card needed).
     PYTHONPATH=src python tools/predict_cells.py
 
 Prints one JSON line a cell: the train phase's cell (12-layer qwen2.5-3b,
-B=4, S=1024, WTA-CRS 0.3, AdamW, one rank) and the tp phase's qwen2.5-3b
-step (depth 4, B=2, S=1024, model = 2, rank 0): predicted peak bytes,
+B=4, S=1024, WTA-CRS 0.3, AdamW, one rank) and the tp phase's steps at
+model = 2, rank 0 (qwen2.5-3b depth 4, B=2, S=1024; zamba2-2.7b depth 6,
+B=2, S=1024; xlstm-125m depth 2, B=2, S=512; whisper-base, B=4 of 1024
+frames + 1024 tokens): predicted peak bytes,
 flops, bytes accessed, the step's bound on an H100
 (max(flops / 989.4e12, bytes / 3.35e12)), kernel launches, collectives.
 """
@@ -37,6 +39,7 @@ def main():
                                         min_rows=4),
                     remat="none", flash_block=512)
     qwen = get_config("qwen2.5-3b")
+    tp = mesh_lib.make_mesh((1, 2), ("data", "model"))
     cells = [
         ("train (12 layers, B=4, S=1024, 1 rank)",
          dataclasses.replace(qwen, n_layers=12),
@@ -44,8 +47,16 @@ def main():
          mesh_lib.make_mesh((1, 1), ("data", "model"))),
         ("tp qwen (4 layers, B=2, S=1024, model 2, rank 0)",
          dataclasses.replace(qwen, n_layers=4),
-         InputShape("tp", 1024, 2, "train"),
-         mesh_lib.make_mesh((1, 2), ("data", "model"))),
+         InputShape("tp", 1024, 2, "train"), tp),
+        ("tp zamba2 (6 layers, B=2, S=1024, model 2, rank 0)",
+         dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6),
+         InputShape("tp", 1024, 2, "train"), tp),
+        ("tp xlstm (2 layers, B=2, S=512, model 2, rank 0)",
+         dataclasses.replace(get_config("xlstm-125m"), n_layers=2),
+         InputShape("tp", 512, 2, "train"), tp),
+        ("tp whisper (6 + 6 layers, B=4, 1024 + 1024, model 2, rank 0)",
+         get_config("whisper-base"), InputShape("tp", 2048, 4, "train"),
+         tp),
     ]
     for name, cfg, shape, mesh in cells:
         print(json.dumps(predict(name, cfg, shape, mesh, wta)), flush=True)
