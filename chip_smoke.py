@@ -97,7 +97,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
   decode   64 greedy serve_steps from the prefill's (padded) caches, the
            first 8 positions against a teacher-forced forward
   pool     ServeSession (8 slots, paged KV, chunked prefill) on its
-           background loop, qwen2.5-3b at published width cut to 12 layers,
+           background loop, qwen2.5-3b at published width cut to 8 layers,
            serving 12 ragged greedy and 2 sampled requests; each greedy
            request bit-equal to itself served alone, the sampled ones
            repeatable, the solo route counted
@@ -141,7 +141,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            54 layers far past the forward's own floor), the same in f32
            held against the f32 forward at 5e-2; 4 pool requests each
            bit-equal to itself alone and to the solo route
-  xlstm    xlstm-125m at published width, depth 12 -> 6: 3 WTA-CRS
+  xlstm    xlstm-125m at published width, depth 12 -> 4: 3 WTA-CRS
            steps (the last one traced) and 1 exact step at B=4, S=1024,
            the device's idle share of a step (the host's per-time-step
            loop); prefill 2 x 1024 and 16 decode steps held against the
@@ -192,8 +192,21 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            floor; granite-moe-1b-a400m at published width, depth 6, 2
            WTA-CRS steps with 16 experts a rank; dbrx-132b at published
            width, depth 2, prefill and decode with 8 experts a rank (the
-           distance to one rank measured); each collective's count,
-           bytes and ms (a host round trip through gloo)
+           distance to one rank measured); qwen2.5-3b at depth 2 under
+           the factored_came / factored / mixed optimizer specs (3
+           WTA-CRS bf16 steps, then 3 exact f32 steps held against one
+           rank: factored slots and parameters at 1e-4 relative L2;
+           mixed's energy at 1e-3 and parameters at twice one rank's
+           microbatched spread; replicated slots bit-identical across the
+           ranks), Run(mesh="host", model_parallel=2) (fit 4 steps with
+           checkpoints at 2 and 4 written by rank 0 alone, a fresh Run
+           from step 2 bit-equal under deterministic algorithms, the
+           checkpoint restored at one rank in the parent, generate with
+           caches split on head_dim and on the sequence, serve 6 requests
+           from a pool split by page positions, f32 tokens equal to one
+           rank's) and a column- and a row-parallel LoRA linear held
+           against one rank; each collective's count, bytes and ms (a
+           host round trip through gloo)
   dryrun   the train phase's cell (12 layers, B=4, S=1024, its WTA-CRS
            policy, one rank) traced on the meta device by
            launch/cost.py and held against the same step on the card:
@@ -212,6 +225,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -226,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Dict
 
 import numpy as np
 import torch
@@ -237,8 +252,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import optim as optim_lib  # noqa: E402
 from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
-                              ESSProportional, PolicyRules, Rule,
-                              WTACRSConfig, plans)
+                              ESSProportional, LoRAConfig, PolicyRules,
+                              RankController, Rule, WTACRSConfig, plans)
+from repro_torch.core import lora as lora_lib  # noqa: E402
 from repro_torch.kernels import _build, costs  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_sampling, ops  # noqa: E402
@@ -261,7 +277,8 @@ from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.serve import ServeSession, ServeSpec  # noqa: E402
 from repro_torch.serve import pool as pool_lib  # noqa: E402
-from repro_torch.train import compression, data, optim, znorm  # noqa: E402
+from repro_torch.train import (checkpoint, compression, data,  # noqa: E402
+                               optim, znorm)
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), the yardstick
 # every bound below is computed against.
@@ -394,8 +411,9 @@ SSM_DW = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
 FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 80, True)
 XLSTM_ARCH, XLSTM_STEPS, XLSTM_B, XLSTM_S = "xlstm-125m", 3, 4, 1024
 # the phase's depth: its steps, prefill and decode are a host loop over
-# time steps, ≈ 27 s a layer in all
-XLSTM_DEPTH = 6
+# time steps, ≈ 27 s a layer in all (12 -> 6 -> 4 to keep the script
+# within its time limit)
+XLSTM_DEPTH = 4
 XLSTM_K = MOE_WTA.budget_rows(XLSTM_S)
 XLSTM_ROW_D = (768, 1536)
 XLSTM_DW = [(768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 768)]
@@ -434,7 +452,15 @@ TP_BLOCK_SHAPES = (
     ("tp_xlstm", 2, TP_XLSTM_S, (768, 384),
      [(768, 1536), (768, 768), (768, 8), (384, 768)]),
     ("tp_whisper", TP_WHISPER_B, 1024, (512, 256, 1024),
-     [(512, 256), (256, 512), (512, 1024), (1024, 512)]))
+     [(512, 256), (256, 512), (512, 1024), (1024, 512)]),
+    # qwen2.5-3b's shards at model = 2 under the optimizer legs and
+    # Run (q / k / v on one plan, wo row-parallel on 1024 features, the
+    # MLP's 5504 a rank), and the LoRA leg's h·A down-projections (r = 16)
+    ("tp_optim", 2, 1024, (2048, 1024, 5504),
+     [(2048, 1024), (2048, 128), (1024, 2048), (2048, 5504), (5504, 2048)]),
+    ("tp_run", 2, 1024, (2048, 1024, 5504),
+     [(2048, 1024), (2048, 128), (1024, 2048), (2048, 5504), (5504, 2048)]),
+    ("tp_lora", 2, 1024, (2048, 5504), [(2048, 16), (5504, 16)]))
 FLASH_TP_ZAMBA2 = (2, 16, 16, 1024, 1024, 80, True)
 
 
@@ -2570,8 +2596,9 @@ POOL_GREEDY = [(1, 8), (5, 64), (17, 16), (32, 40), (33, 8), (64, 24),
                (100, 64), (128, 12), (9, 33), (48, 50), (77, 20), (120, 8)]
 POOL_SAMPLED = [(20, 32), (90, 24)]
 # the pool phase's depth: its three-way comparison (the load, each request
-# alone, the solo route) is decode-bound on the host, ≈ 6 s a layer
-POOL_DEPTH = 12
+# alone, the solo route) is decode-bound on the host, ≈ 6 s a layer (36
+# -> 12 -> 8 to keep the script within its time limit)
+POOL_DEPTH = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4381,7 +4408,595 @@ def tp_whisper_serve(cfg, mesh, rank):
     return out
 
 
-def tp_child(rank, port):
+# The model axis's remaining edges, on the same two ranks:
+# qwen2.5-3b at published width, depth TP_DEPTH, B=2, S=1024
+TP_OPTIM_STEPS, TP_RUN_STEPS = 3, 4
+# Run.generate's (prompt, new tokens) at B=2: 32 positions (< head_dim
+# 128) split the caches on head_dim, 128 on the sequence (Run.prefill
+# streams the prompt through decode steps, so 2 x 2048 would take
+# thousands of them: cut to 112); bf16 at the first only
+TP_GENERATE = ((16, 16), (112, 16))
+# Run.serve's 6 requests (prompt, new tokens) in a pool of 4 slots of 128
+# positions (pages of 16: each rank 8 positions of every page)
+TP_SERVE = ((12, 8), (7, 12), (1, 10), (9, 6), (5, 9), (3, 4))
+TP_LORA_R = 16
+# the optimizer legs at depth 2 (cut from TP_DEPTH for the script's time
+# limit; mixed's first step SVDs every transformer matrix on model rank
+# 0, one rank and one rank microbatched)
+TP_OPTIM_DEPTH = 2
+# Run's configs in the tp_run leg: depth 4, bf16 parameters (each
+# checkpoint 1.24 GB to gather, write and read rather than 2.48)
+TP_RUN_CONFIG = dict(n_layers=TP_DEPTH, param_dtype="bfloat16")
+
+
+def tp_optim_specs():
+    """bench_memory.py's factored_came, factored and mixed; mixed's
+    low-rank rule carries a RankController (nothing migrates in a plain
+    train step) so that its captured energy rides budget_stats."""
+    specs = optim_specs()
+    specs["mixed"] = optim_lib.OptimSpec.of(
+        dict(pattern="unit/*", layout="lowrank", rank=8,
+             controller=RankController()),
+        dict(pattern="embed*", layout="factored", momentum=False))
+    return specs
+
+
+def tp_replicated_slots(state) -> Dict[str, str]:
+    """sha256 of each optimizer slot a rank holds whole (the factored
+    vectors, the low-rank subspace)."""
+    out = {}
+    for ref, slots in state["opt"]["leaves"].items():
+        for name, t in slots.items():
+            if name in ("v_row", "v_col", "u_row", "u_col", "proj") or (
+                    name in ("m", "v") and "proj" in slots):
+                out[f"{ref}/{name}"] = hashlib.sha256(
+                    bits(t).cpu().numpy()).hexdigest()
+    return out
+
+
+def tp_optim_train(cfg, policy, spec, mesh, ds, n_steps, microbatches=1):
+    """``n_steps`` steps under ``spec`` from seed 0's parameters on this
+    rank's shards (``mesh`` may be one rank's): losses, step ms, peak, the
+    state's bytes on the card, each step's collectives (a low-rank
+    refresh's first step apart), launches by route; the state."""
+    whole = train_steps.init_train_state(cfg, 0, opt=spec)
+    sh_state, axes = train_steps.abstract_train_state(cfg, opt=spec)
+    sh = train_steps.train_state_shardings(cfg, sh_state, axes, mesh)
+    state = train_steps.shard_train_state(whole, sh, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    step = train_steps.make_train_step(
+        cfg, policy, spec, optim.linear_warmup_constant(TP_LR, 2),
+        mesh=mesh, microbatches=microbatches)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, colls = [], [], []
+    for i in range(n_steps):
+        if mesh.model_group is not None:
+            dist.barrier(group=mesh.model_group)
+        with collectives.recording(timed=True) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, TP_BATCH))
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        colls.append(tp_collectives(rec))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"tp_optim: non-finite loss in {losses}")
+    return {"losses": losses, "step_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "state_bytes_rank": optim_lib.tree_bytes(state["opt"]),
+            "collectives_by_step": colls, "launches": launch_counts(),
+            "launches_by_route": {n: dict(getattr(ops, n).launches_by_route)
+                                  for n in KERNEL_NAMES
+                                  if hasattr(getattr(ops, n),
+                                             "launches_by_route")}}, \
+        state, sh
+
+
+def tp_rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp(min=1e-30))
+
+
+def tp_optim_errors(state, ref):
+    """({leaf: relative L2 against ``ref``} of the parameters and of the
+    optimizer slots but CAME's instability vectors, {those: the same})."""
+    errs = {f"params/{path}": tp_rel_l2(x, y) for (path, x), (_, y) in zip(
+        optim.named_leaves(state["params"]),
+        optim.named_leaves(ref["params"]))}
+    unheld = {}
+    for refp, slots in ref["opt"]["leaves"].items():
+        for slot, y in slots.items():
+            e = tp_rel_l2(state["opt"]["leaves"][refp][slot], y)
+            (unheld if slot in ("u_row", "u_col") else errs)[
+                f"{refp}/{slot}"] = e
+    return errs, unheld
+
+
+def tp_optim_leg(rank, mesh, cfg, ds):
+    """Three steps under each spec at model = 2: bf16 WTA-CRS (launches,
+    every H' on ``bulk`` and every dW on ``wgmma``, the replicated slots
+    and parameters compared across the ranks by sha256), then exact f32
+    held against one rank (rank 0): the factored specs' parameters and
+    slots within 1e-4 relative L2 each (the dense layout's bound for its
+    first moments), or, for a leaf CAME's confidence step amplifies beyond it,
+    twice one rank's own microbatched spread on that leaf; mixed, where an SVD fixes its vectors only up to sign, at its
+    captured energy within 1e-3 of one rank's and its parameters within
+    twice the spread of one rank run as two microbatches."""
+    out, launches = {}, dict.fromkeys(KERNEL_NAMES, 0)
+    one = mesh_lib.Mesh({"data": 1, "model": 1}, ("data", "model"),
+                        device=torch.device("cuda"))
+    base = cfg
+    for name, spec in tp_optim_specs().items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, n_layers=TP_OPTIM_DEPTH)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        meta = registry.init_params(cfg, 0, device="meta")
+        rec, state, sh = tp_optim_train(cfg, TP_WTA, spec, mesh, ds,
+                                        TP_OPTIM_STEPS)
+        for k in ("row_norms", "gather_scale", "fused_sampled_dw"):
+            if rec["launches"][k] == 0:
+                fail(f"tp_optim {name}: {k} never launched")
+            launches[k] += rec["launches"][k]
+        routes = rec["launches_by_route"]
+        if routes["gather_scale"].get("bulk", 0) != rec["launches"][
+                "gather_scale"] or routes["fused_sampled_dw"].get(
+                    "wgmma", 0) != rec["launches"]["fused_sampled_dw"]:
+            fail(f"tp_optim {name}: launches by route {routes}")
+        rec["replicated_slots"] = tp_replicated_slots(state)
+        rec["replicated_digest"] = tp_replicated_digest(
+            state["params"], sh["params"])
+        report = optim_lib.memory_report(spec, meta)
+        rec["state_bytes_one_rank"] = report["state_bytes"]
+        del state
+        torch.cuda.empty_cache()
+        exact, state, sh = tp_optim_train(cfg32, TP_EXACT, spec, mesh, ds,
+                                          TP_OPTIM_STEPS)
+        whole = train_steps.gather_train_state(state, sh, mesh)
+        exact["replicated_slots"] = tp_replicated_slots(state)
+        del state
+        torch.cuda.empty_cache()
+        if rank == 0:
+            ref_rec, ref, _ = tp_optim_train(cfg32, TP_EXACT, spec, one, ds,
+                                             TP_OPTIM_STEPS)
+            exact["losses_one_rank"] = ref_rec["losses"]
+            exact["step_ms_one_rank"] = ref_rec["step_ms"]
+            exact["peak_bytes_one_rank"] = ref_rec["peak_bytes"]
+            if not np.allclose(exact["losses"], ref_rec["losses"],
+                               rtol=1e-5, atol=0):
+                fail(f"tp_optim {name} exact f32: losses "
+                     f"{exact['losses']} vs one rank {ref_rec['losses']}")
+            if name != "mixed":
+                # the parameters and the slots linear in the gradient's
+                # statistics (CAME's momentum, the factored second
+                # moments) at 1e-4 relative L2 each; CAME's instability
+                # vectors, means of (u - m)^2 where u and m nearly cancel,
+                # are measured only.  CAME's confidence step m / sqrt(U)
+                # amplifies a rounding where U is small (attn/bk's
+                # gradient): a leaf beyond 1e-4 is held at twice one
+                # rank's own spread on it, run as two microbatches
+                errs, unheld = tp_optim_errors(whole, ref)
+                beyond = {k: e for k, e in errs.items() if not e <= 1e-4}
+                if beyond:
+                    _, floor_state, _ = tp_optim_train(
+                        cfg32, TP_EXACT, spec, one, ds, TP_OPTIM_STEPS,
+                        microbatches=2)
+                    floor, _ = tp_optim_errors(floor_state, ref)
+                    del floor_state
+                    bad = {k: (e, floor[k]) for k, e in beyond.items()
+                           if not e <= 2 * floor[k]}
+                    if bad:
+                        fail(f"tp_optim {name} exact f32: relative L2 off "
+                             f"one rank's beyond 1e-4 and twice one "
+                             f"rank's microbatched spread: {bad}")
+                    exact["held_at_twice_the_microbatched_spread"] = {
+                        k: (e, floor[k]) for k, e in beyond.items()}
+                exact["worst_rel_l2_one_rank"] = sorted(
+                    errs.items(), key=lambda kv: -kv[1])[:3]
+                if unheld:
+                    exact["instability_rel_l2_one_rank_worst"] = max(
+                        unheld.values())
+            else:
+                key = optim_lib.rank_stat_key(0)
+                e_tp = whole["budget_stats"][key]
+                e_one = ref["budget_stats"][key]
+                energy_err = float((e_tp - e_one).abs().max())
+                if not energy_err <= 1e-3:
+                    fail(f"tp_optim mixed: captured energy {e_tp.tolist()} "
+                         f"vs one rank {e_one.tolist()}")
+                _, floor, _ = tp_optim_train(cfg32, TP_EXACT, spec, one, ds,
+                                             TP_OPTIM_STEPS, microbatches=2)
+                d_tp = max(float((x - y).abs().max()) for x, y in zip(
+                    optim.tree_leaves(whole["params"]),
+                    optim.tree_leaves(ref["params"])))
+                d_floor = max(float((x - y).abs().max()) for x, y in zip(
+                    optim.tree_leaves(floor["params"]),
+                    optim.tree_leaves(ref["params"])))
+                if not d_tp <= 2 * d_floor:
+                    fail(f"tp_optim mixed exact f32: parameters {d_tp:.3g} "
+                         f"off one rank, its own spread {d_floor:.3g}")
+                exact.update(energy=e_tp.tolist(),
+                             energy_one_rank=e_one.tolist(),
+                             energy_max_abs_err=energy_err,
+                             params_max_diff_one_rank=d_tp,
+                             params_max_diff_microbatched=d_floor)
+                del floor
+            del ref
+        del whole
+        torch.cuda.empty_cache()
+        out[name] = {"wta_crs_bf16": rec, "exact_f32": exact,
+                     "n_layers": cfg.n_layers,
+                     "seconds": time.perf_counter() - t0}
+        tp_log(f"tp_optim {name}", t0)
+    return out, launches
+
+
+@contextlib.contextmanager
+def run_configs(**over):
+    """``Run`` and ``ServeSpec`` build their configs with ``over``
+    replaced (a depth cut, the compute dtype)."""
+    from repro_torch.api import run as run_mod
+    from repro_torch.serve import spec as serve_spec
+    old = [(m, m.get_config) for m in (run_mod, serve_spec)]
+    for m, get in old:
+        m.get_config = (lambda g: lambda a, reduced=False: dataclasses.replace(
+            g(a, reduced=reduced), **over))(get)
+    try:
+        yield
+    finally:
+        for m, get in old:
+            m.get_config = get
+
+
+def tp_run_spec(work, every=2, **kw):
+    return RunSpec(arch="qwen2.5-3b", reduced=False, policy=TP_WTA,
+                   steps=TP_RUN_STEPS, optimizer=optim_specs()["factored"],
+                   batch_size=TP_BATCH, lr=TP_LR, warmup=2,
+                   data=DataSpec(seq_len=S, n_samples=TP_BATCH * TP_RUN_STEPS),
+                   checkpoint_dir=work, checkpoint_every=every, **kw)
+
+
+def tp_params_digest(params) -> str:
+    h = hashlib.sha256()
+    for _, p in optim.named_leaves(params):
+        h.update(bits(p).cpu().numpy())
+    return h.hexdigest()
+
+
+def tp_generate(run, prompts, gen, feed=None):
+    """``Run.generate``'s greedy loop written out through ``prefill`` /
+    ``decode`` (or fed ``feed``'s tokens after the prompt): the tokens,
+    the last step's logits, the caches' split and local shape."""
+    tok, pos, states = run.prefill(prompts, gen=gen)
+    k = next(st["k"] for st in states if "k" in st)
+    split = (lm.kv_split(run.cfg, k[0], run.mesh) if run.mesh is not None
+             and run.mesh.shape["model"] > 1 else None)
+    toks = []
+    for i, t in enumerate(range(pos, pos + gen)):
+        if feed is not None and i:
+            tok = feed[:, i - 1]
+        tok, logits, states = run.decode(tok, t, states)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), logits.float(), split, tuple(k.shape)
+
+
+def tp_log(what, t0):
+    """A leg's seconds on the child's standard error (a failing child's
+    last lines show how far it got)."""
+    print(f"tp: {what} {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+
+
+def tp_run_leg(rank, mesh, cfg, work):
+    """``Run(mesh="host", model_parallel=2)`` at depth TP_DEPTH: ``fit``
+    for 4 WTA-CRS steps under ``factored``, saving at steps 2 and 4 (only
+    the global rank 0 writes); a fresh Run restored from the step-2
+    checkpoint (nothing carried over but the files) fits to step 4 bit for
+    bit under deterministic algorithms; ``generate`` at a cache split on
+    head_dim and one split on the sequence, greedy f32 tokens equal to one
+    rank's (rank 0), bf16 last logits held against one rank's f32 ones at
+    twice one rank's own bf16 distance; ``serve`` 6 requests in f32,
+    tokens equal to one rank's session at the pool's shapes."""
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    writes = []
+    save = checkpoint.save
+
+    def counted(*a, **kw):
+        writes.append(int(a[1]))
+        return save(*a, **kw)
+
+    checkpoint.save = counted
+    try:
+        with run_configs(**TP_RUN_CONFIG):
+            m2 = dict(mesh="host", model_parallel=2)
+            reset_launches()
+            t0 = time.perf_counter()
+            run = Run(tp_run_spec(work, **m2))
+            run.fit()
+            fit_s = time.perf_counter() - t0
+            launches = launch_counts()
+            for k in ("row_norms", "gather_scale", "fused_sampled_dw"):
+                if launches[k] == 0:
+                    fail(f"tp_run: {k} never launched in Run.fit")
+            whole = run.gathered_params()
+            out.update(fit_s=fit_s, launches=launches,
+                       losses=[h["loss"] for h in run.history],
+                       params_digest=tp_params_digest(whole),
+                       local_digest=tp_params_digest(run.state["params"]),
+                       opt_digest=tp_params_digest(run.state["opt"][
+                           "leaves"]))
+            t0 = time.perf_counter()
+            back = Run.restore(tp_run_spec(work, every=0, **m2), step=2)
+            back.fit()
+            out["resume_s"] = time.perf_counter() - t0
+            tp_log(f"tp_run fit {fit_s:.1f} s, resume", t0)
+            if (back.history != run.history
+                    or tp_params_digest(back.state["params"])
+                    != out["local_digest"]
+                    or tp_params_digest(back.state["opt"]["leaves"])
+                    != out["opt_digest"]):
+                fail("tp_run: the run restored from step 2 is not bit-equal "
+                     "to the uninterrupted run")
+            out["resume_bit_equal"] = True
+            local = run.state["params"]
+            del back, run
+            torch.cuda.empty_cache()
+    finally:
+        checkpoint.save = save
+        torch.use_deterministic_algorithms(False)
+    out["writes"] = writes
+    if (rank == 0) != bool(writes):
+        fail(f"tp_run rank {rank}: wrote checkpoints {writes}")
+    corpus = data.SyntheticLM(cfg.vocab_size, 128, 2, seed=5).batch_at(
+        0, 2)["tokens"]
+    for dtype in ("float32", "bfloat16"):
+        with run_configs(**TP_RUN_CONFIG, compute_dtype=dtype):
+            gen = Run(tp_run_spec(None, every=0, mesh="host",
+                                  model_parallel=2))
+            gen._params = local
+            one = None
+            if rank == 0:
+                one = Run(tp_run_spec(None, every=0))
+                one._params = whole
+            for prompt_len, n_new in TP_GENERATE:
+                if dtype == "bfloat16" and prompt_len != TP_GENERATE[0][0]:
+                    continue          # bf16 at the head_dim split only
+                prompts = corpus[:, :prompt_len]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks, logits, split, local_k = tp_generate(gen, prompts,
+                                                           n_new)
+                torch.cuda.synchronize()
+                if (dtype == "float32" and prompt_len == TP_GENERATE[0][0]
+                        and not torch.equal(gen.generate(prompts, n_new),
+                                            toks)):
+                    fail("tp_run: Run.generate's greedy tokens differ from "
+                         "its prefill / decode loop's")
+                rec = {"split": split, "cache_local": list(local_k),
+                       "ms_per_token": 1e3 * (time.perf_counter() - t0)
+                       / (prompt_len - 1 + n_new),
+                       "tokens_digest": hashlib.sha256(
+                           toks.cpu().numpy()).hexdigest(),
+                       "logits_digest": hashlib.sha256(
+                           logits.cpu().numpy()).hexdigest()}
+                want_split = ("seq" if prompt_len + n_new >= cfg.head_dim
+                              else "dh")
+                if split != want_split:
+                    fail(f"tp_run generate {prompt_len}+{n_new}: caches "
+                         f"split as {split}, expected {want_split}")
+                if rank == 0 and dtype == "float32":
+                    otoks, ologits, _, _ = tp_generate(one, prompts, n_new)
+                    if not torch.equal(toks, otoks):
+                        fail(f"tp_run generate {prompt_len}+{n_new} f32: "
+                             f"tokens {toks.tolist()} vs one rank "
+                             f"{otoks.tolist()}")
+                    rec["last_logits_max_abs_err_one_rank"] = float(
+                        (logits - ologits).abs().max())
+                elif rank == 0:
+                    # bf16 (the ranks' row-parallel partial sums round in
+                    # bf16 before their all-reduce): one rank fed the
+                    # tokens this run generated, in f32 and in bf16; the
+                    # run's last logits held against one rank's f32 ones
+                    # at twice one rank's own bf16 distance from them
+                    _, ologits, _, _ = tp_generate(one, prompts, n_new,
+                                                   feed=toks)
+                    with run_configs(**TP_RUN_CONFIG,
+                                     compute_dtype="float32"):
+                        truth = Run(tp_run_spec(None, every=0))
+                        truth._params = whole
+                        _, tlogits, _, _ = tp_generate(truth, prompts, n_new,
+                                                       feed=toks)
+                    del truth
+                    floor = float((ologits - tlogits).abs().max())
+                    err = check_close(
+                        f"tp_run generate {prompt_len}+{n_new} bf16 last "
+                        f"logits vs one rank's f32", logits, tlogits, 0.0,
+                        2 * floor)
+                    rec.update(last_logits_max_abs_err_one_rank_f32=err,
+                               one_rank_bf16_vs_f32=floor,
+                               bf16_vs_one_rank_bf16=float(
+                                   (logits - ologits).abs().max()))
+                out[f"generate_{dtype}_{prompt_len}+{n_new}"] = rec
+                tp_log(f"tp_run generate {dtype} {prompt_len}+{n_new}", t0)
+            if dtype == "float32":
+                prompts = [np.asarray(corpus[i % 2, :n]) for i, (n, _)
+                           in enumerate(TP_SERVE)]
+                geo = dict(max_slots=4, page_size=16, max_len=128)
+                t0 = time.perf_counter()
+                with gen.serve(**geo).start() as sess:
+                    hs = [sess.submit(p, max_new=m)
+                          for p, (_, m) in zip(prompts, TP_SERVE)]
+                    got = [h.result(300) for h in hs]
+                    pool_kv = sess.scheduler.shards.kv
+                serve_s = time.perf_counter() - t0
+                out["serve"] = {"seconds": serve_s, "pool_split": pool_kv,
+                                "tokens": got}
+                if pool_kv != "pages":
+                    fail(f"tp_run serve: the pool split {pool_kv}")
+                tp_log("tp_run serve", t0)
+                if rank == 0:
+                    sess = one.serve(**geo)
+                    hs = [sess.submit(p, max_new=m)
+                          for p, (_, m) in zip(prompts, TP_SERVE)]
+                    sess.run_until_idle()
+                    want = [h.result(0) for h in hs]
+                    if got != want:
+                        fail(f"tp_run serve f32: tokens {got} vs one rank's "
+                             f"session {want}")
+            del gen, one
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+def tp_lora_leg(rank, mesh):
+    """A column-parallel (2048 -> 11008) and a row-parallel (11008 -> 2048)
+    LoRA linear (r = 16, WTA-CRS 0.3 over B=2 x S=1024) at model = 2, in
+    bf16 and f32: outputs and the gradients of h, A and B gathered and held
+    against one rank's ``lora_linear`` on the whole weight (rank 0) with
+    the same plan — f32 at 1e-4 relative L2 (the ranks' GEMMs at half
+    width sum in another order), bf16 at twice one rank's own bf16
+    distance from its f32 — and launches counted on this rank's calls that
+    draw their own plans."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d, f, b, s = 2048, 11008, TP_BATCH, S
+    m = mesh_lib.model_index(mesh)
+    k = MOE_WTA.budget_rows(s)
+    lcfg = LoRAConfig(rank=TP_LORA_R, alpha=32.0, enabled=True)
+    idx = torch.sort(torch.stack([torch.randperm(s, generator=gen,
+                                                 device="cuda")[:k]
+                                  for _ in range(b)]), dim=1).values
+    scale = torch.rand((b, k), generator=gen, device="cuda") + 0.5
+    plan = (idx.to(torch.int32), scale)
+    out, launches = {}, dict.fromkeys(KERNEL_NAMES, 0)
+    for mode, d_in, d_out in (("column", d, f), ("row", f, d)):
+        h32 = torch.randn((b, s, d_in), generator=gen, device="cuda")
+        w32 = torch.randn((d_in, d_out), generator=gen, device="cuda") \
+            / math.sqrt(d_in)
+        a32 = torch.randn((d_in, TP_LORA_R), generator=gen,
+                          device="cuda") / math.sqrt(TP_LORA_R)
+        b32 = torch.randn((TP_LORA_R, d_out), generator=gen,
+                          device="cuda") / 10
+        ct32 = torch.randn((b, s, d_out), generator=gen, device="cuda")
+        col = mode == "column"
+        half = (d_out if col else d_in) // 2
+        part = slice(m * half, (m + 1) * half)
+        results = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            h, w, a, bb, ct = (x.to(dtype) for x in (h32, w32, a32, b32,
+                                                     ct32))
+            hl = (h if col else h[..., part]).clone().requires_grad_(True)
+            wl = w[:, part] if col else w[part]
+            al = (a if col else a[part]).clone().requires_grad_(True)
+            bl = (bb[:, part] if col else bb).clone().requires_grad_(True)
+            reset_launches()
+            z = lora_lib.lora_linear_parallel(
+                hl, wl, al, bl, lcfg, mode, mesh, cfg=MOE_WTA, plan=plan)
+            (z * (ct[..., part] if col else ct)).sum().backward()
+            # this rank's own plan: row_norms too
+            zz = lora_lib.lora_linear_parallel(
+                hl.detach().requires_grad_(True), wl,
+                al.detach().requires_grad_(True), bl.detach(), lcfg, mode,
+                mesh, key=5, cfg=MOE_WTA)
+            zz.float().sum().backward()
+            torch.cuda.synchronize()
+            got_launches = launch_counts()
+            for kname in ("row_norms", "gather_scale", "fused_sampled_dw"):
+                if got_launches[kname] == 0:
+                    fail(f"tp_lora {mode} {dtype}: {kname} never launched")
+                launches[kname] += got_launches[kname]
+            if dtype == torch.bfloat16:
+                expect_route(f"tp_lora {mode}", "fused_sampled_dw", "wgmma")
+            g = {"z": z.detach(), "h": hl.grad, "a": al.grad, "b": bl.grad}
+            if col:
+                g["z"] = sharding.gather_leaf(g["z"], (None, None, "model"),
+                                              mesh)
+                g["b"] = sharding.gather_leaf(g["b"], (None, "model"), mesh)
+            else:
+                g["h"] = sharding.gather_leaf(g["h"], (None, None, "model"),
+                                              mesh)
+                g["a"] = sharding.gather_leaf(g["a"], ("model", None), mesh)
+            results[dtype] = g
+            if rank == 0:
+                ho = h.clone().requires_grad_(True)
+                ao = a.clone().requires_grad_(True)
+                bo = bb.clone().requires_grad_(True)
+                zo = lora_lib.lora_linear(ho, w, ao, bo, lcfg, cfg=MOE_WTA,
+                                          plan=plan)
+                (zo * ct).sum().backward()
+                results[("one", dtype)] = {"z": zo.detach(), "h": ho.grad,
+                                           "a": ao.grad, "b": bo.grad}
+        if rank == 0:
+            rec = {}
+            for name in ("z", "h", "a", "b"):
+                truth = results[("one", torch.float32)][name]
+                e32 = tp_rel_l2(results[torch.float32][name], truth)
+                floor = tp_rel_l2(results[("one", torch.bfloat16)][name],
+                                  truth)
+                e16 = tp_rel_l2(results[torch.bfloat16][name], truth)
+                if not e32 <= 1e-4:
+                    fail(f"tp_lora {mode} f32 {name}: {e32:.3g} relative "
+                         f"L2 off one rank")
+                if not e16 <= 2 * floor:
+                    fail(f"tp_lora {mode} bf16 {name}: {e16:.3g} relative "
+                         f"L2 off one rank's f32, one rank's own bf16 "
+                         f"{floor:.3g}")
+                rec[name] = {"f32_rel_l2": e32, "bf16_rel_l2": e16,
+                             "one_rank_bf16_rel_l2": floor}
+            out[mode] = rec
+        del results
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def tp_restore_one_rank(work, rec):
+    """The model-parallel run's step-4 checkpoint restored at one rank on
+    the card: every key a one-rank state of the spec holds, with its shape
+    (``checkpoint.restore`` checks) and dtype, and the parameters
+    bit-equal to the ranks' gathered ones."""
+    with run_configs(**TP_RUN_CONFIG):
+        t0 = time.perf_counter()
+        run = Run.restore(tp_run_spec(work, every=0), step=TP_RUN_STEPS)
+        restore_s = time.perf_counter() - t0
+    manifest = checkpoint.read_manifest(work, TP_RUN_STEPS)
+    mine = {k: str(x.dtype).removeprefix("torch.")
+            if isinstance(x, torch.Tensor) else "int64"
+            for k, x in checkpoint._leaves(run.state)}
+    if sorted(mine) != manifest["keys"] or mine != manifest["dtypes"]:
+        fail("tp_run: the model-parallel checkpoint's keys or dtypes are "
+             "not a one-rank state's")
+    if tp_params_digest(run.state["params"]) != rec["params_digest"]:
+        fail("tp_run: the parameters restored at one rank differ from the "
+             "ranks' gathered ones")
+    step_dir = os.path.join(work, f"step_{TP_RUN_STEPS:010d}")
+    out = {"keys": len(mine), "restore_s": restore_s,
+           "checkpoint_bytes": sum(
+               os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir)), "bit_equal": True}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_state_legs(rank, mesh, cfg, ds, work, out):
+    """The optimizer, Run and LoRA legs; returns each one's launches on
+    this rank."""
+    legs = {}
+    t0 = time.perf_counter()
+    out["optim"], legs["tp_optim"] = tp_optim_leg(rank, mesh, cfg, ds)
+    t1 = time.perf_counter()
+    out["run"], legs["tp_run"] = tp_run_leg(rank, mesh, cfg, work)
+    t2 = time.perf_counter()
+    out["lora"], legs["tp_lora"] = tp_lora_leg(rank, mesh)
+    out["state_legs_s"] = {"tp_optim": t1 - t0, "tp_run": t2 - t1,
+                           "tp_lora": time.perf_counter() - t2}
+    return legs
+
+
+def tp_child(rank, port, work):
     """One of two ranks sharing the card over gloo at model = 2
     (``make_host_mesh(model_parallel=2)``: one model group).  qwen2.5-3b
     at published width, depth 4: 2 WTA-CRS bf16 steps (loss falls, the
@@ -4470,6 +5085,9 @@ def tp_child(rank, port):
         out["qwen_serve"] = serve_rec
         del full, local, last, steps
         torch.cuda.empty_cache()
+        # the optimizer layouts, Run (checkpoints, generate, serve) and
+        # LoRA over the model axis
+        state_legs = tp_state_legs(rank, mesh, cfg, ds, work, out)
         # granite: expert parallel training, 16 experts a rank
         gcfg = dataclasses.replace(get_config(MOE_ARCH),
                                    n_layers=TP_GRANITE_DEPTH)
@@ -4522,6 +5140,7 @@ def tp_child(rank, port):
         out["dbrx_serve"] = drec
         torch.cuda.empty_cache()
         out["legs"] = tp_blocks(rank, mesh, out)
+        out["legs"].update(state_legs)
         emit(out)
     finally:
         dist.destroy_process_group()
@@ -4531,7 +5150,34 @@ def phase_tp():
     """Tensor and expert parallelism (``tp_child``, two gloo ranks on the
     card): the ranks' replicated leaves and whole logits compared."""
     t0 = time.perf_counter()
-    ranks = run_children("tp_child", 2, str(free_port()), timeout=900)
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp-run-", dir=os.path.join(here, "build"))
+    try:
+        ranks = run_children("tp_child", 2, str(free_port()), work,
+                             timeout=1000)
+        restored = tp_restore_one_rank(work, ranks[0]["run"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ranks[0]["optim"]:
+        for leg in ("wta_crs_bf16", "exact_f32"):
+            a, b = (r["optim"][name][leg] for r in ranks)
+            if a["replicated_slots"] != b["replicated_slots"]:
+                fail(f"tp_optim {name} {leg}: the ranks' replicated "
+                     f"optimizer slots differ")
+            if a["losses"] != b["losses"]:
+                fail(f"tp_optim {name} {leg}: the ranks' losses differ")
+        if len({r["optim"][name]["wta_crs_bf16"]["replicated_digest"]
+                for r in ranks}) != 1:
+            fail(f"tp_optim {name}: the ranks' replicated parameters differ")
+    for key in ranks[0]["run"]:
+        if key.startswith("generate_") and len(
+                {(r["run"][key]["tokens_digest"], r["run"][key][
+                    "logits_digest"]) for r in ranks}) != 1:
+            fail(f"tp_run {key}: the ranks' tokens or logits differ")
+    if ranks[0]["run"]["serve"]["tokens"] != ranks[1]["run"]["serve"][
+            "tokens"]:
+        fail("tp_run serve: the ranks' tokens differ")
     for key in ("qwen_wta_crs", "granite", "zamba2_wta_crs",
                 "xlstm_wta_crs", "whisper_wta_crs"):
         if len({r[key]["replicated_digest"] for r in ranks}) != 1:
@@ -4549,6 +5195,7 @@ def phase_tp():
     legs = {leg: {n: sum(r["legs"][leg].get(n, 0) for r in ranks)
                   for n in KERNEL_NAMES} for leg in ranks[0]["legs"]}
     emit({"phase": "tp", "ranks": ranks, "seconds": time.perf_counter() - t0,
+          "restored_one_rank": restored,
           "depths": {"qwen2.5-3b": TP_DEPTH,
                      "granite-moe-1b-a400m": TP_GRANITE_DEPTH,
                      "dbrx-132b": TP_DBRX_DEPTH,

@@ -27,11 +27,17 @@ its slice of each global batch through the data-parallel scheduled step,
 restores from the same checkpoints; rank 0 alone writes checkpoints
 (after a barrier) and prints ``fit``'s log lines.  With
 ``model_parallel`` M above 1 the ranks form a (W / M, M) mesh: each
-draws the whole parameters from the seed and keeps its shards
-(``launch.sharding.shard_params``), the ranks of a model group train on
-the same batch slice, and the replication check runs over the data
-group.  Checkpoints and the serving methods over the model axis are not
-ported (ROADMAP Queue A.15).
+draws the whole parameters from the seed and keeps its shards of them
+and of the optimizer state (``train_steps.shard_train_state``), the
+ranks of a model group train on the same batch slice, and the
+replication check runs over the data group.  A checkpoint holds the
+whole state (``train_steps.gather_train_state``: a one-rank
+checkpoint's keys, shapes and dtypes), written by the global rank 0
+alone (data index 0, model index 0), and ``restore`` shards what it
+reads, so a checkpoint moves between model-parallel widths.  ``prefill``
+/ ``decode`` / ``generate`` / ``serve`` run on the shards, each model
+group serving its batch whole (the caches split as
+``launch.sharding.serving_state_specs`` says).
 
 ``Run.dryrun`` traces one rank of this run's (arch, policy) on a
 production mesh cell (``launch/dryrun.py``) and keeps the record for
@@ -97,6 +103,10 @@ class Run:
         self._world = 1 if self.mesh is None else self.mesh.shape["data"]
         self._rank = 0 if self.mesh is None else mesh_lib.data_index(
             self.mesh)
+        # the global rank 0 writes checkpoints and prints
+        self._lead = self._rank == 0 and (self.mesh is None or
+                                          mesh_lib.model_index(self.mesh)
+                                          == 0)
         if spec.batch_size % (self._world * spec.microbatches):
             raise ValueError(
                 f"batch_size {spec.batch_size} does not split into "
@@ -142,16 +152,16 @@ class Run:
                     f"parameters from seed {self.spec.seed} (first at "
                     f"{paths[leaf]})")
 
-    def _new_state(self, opt):
+    def _new_state(self, opt, whole: bool = False):
         """A fresh train state whose optimizer state has ``opt``'s layout
-        (``restore`` of a legacy checkpoint asks for ``AdamWConfig``)."""
+        (``restore`` of a legacy checkpoint asks for ``AdamWConfig``): on
+        a model-parallel mesh this rank's shards of it, or the whole
+        state with ``whole`` (the template a checkpoint is read into)."""
         params = self._params
-        if self._model_parallel:
-            if params is None:
-                params = registry.init_params(self.cfg, self.spec.seed,
-                                              device=self.device)
-            params = shard_lib.shard_params(params, self._param_specs(),
-                                            self.mesh)
+        if self._model_parallel and params is not None:
+            # parameters drawn for serving are this rank's shards
+            params = shard_lib.gather_params(params, self._param_specs(),
+                                             self.mesh)
         state = train_steps.init_train_state(
             self.cfg, self.spec.seed,
             znorm_tags=self.tags if self.use_znorm_cache else None,
@@ -160,22 +170,38 @@ class Run:
             params=params, opt=opt,
             opt_ranks=self.schedule_state.ranks or None)
         self._params = None
-        if self._world > 1:
+        if self._model_parallel and not whole:
+            state = self._shard(state)
+        if self._world > 1 and not whole:
             self._check_replicated(state["params"])
         return state
 
+    def _state_shardings(self, state):
+        """``train_state_shardings`` of a (whole or sharded) train state
+        of this run on its mesh."""
+        whole, axes = train_steps.abstract_train_state(
+            self.cfg, znorm_tags=self.tags if self.use_znorm_cache else None,
+            n_dataset=self.spec.data.n_samples,
+            budget_stats=self.track_budget_stats,
+            opt=(None if isinstance(state["opt"], adamw_lib.AdamWState)
+                 else self.spec.optimizer),
+            opt_ranks=self.schedule_state.ranks or None)
+        return train_steps.train_state_shardings(self.cfg, whole, axes,
+                                                 self.mesh)
+
+    def _shard(self, state):
+        """This rank's shards of a whole train state."""
+        return train_steps.shard_train_state(
+            state, self._state_shardings(state), self.mesh)
+
+    def _gather(self, state):
+        """The whole train state from the model group's shards."""
+        return train_steps.gather_train_state(
+            state, self._state_shardings(state), self.mesh)
+
     def _param_specs(self):
         """{leaf path: spec} of the parameters on this run's mesh."""
-        params, axes = registry.abstract_params(self.cfg)
-        return shard_lib.param_shardings(
-            axes, params, self.mesh,
-            rules=shard_lib.arch_rules(self.cfg, self.mesh))
-
-    def _no_model_axis(self, what: str) -> None:
-        if self._model_parallel:
-            raise NotImplementedError(
-                f"Run.{what} over a model-parallel mesh is not ported "
-                f"(ROADMAP Queue A.15)")
+        return train_steps.model_param_specs(self.cfg, self.mesh)
 
     def gathered_params(self) -> Dict[str, Any]:
         """The whole parameters: on a model-parallel mesh, every rank's
@@ -190,12 +216,15 @@ class Run:
         """The parameters the serving methods read: the train state's, or,
         before one exists, parameters alone from ``spec.seed`` (serving a
         fresh run allocates no optimizer moments, znorm cache or
-        statistics)."""
+        statistics); on a model-parallel mesh, this rank's shards."""
         if self.state is not None:
             return self.state["params"]
         if self._params is None:
             self._params = registry.init_params(self.cfg, self.spec.seed,
                                                 device=self.device)
+            if self._model_parallel:
+                self._params = shard_lib.shard_params(
+                    self._params, self._param_specs(), self.mesh)
         return self._params
 
     @property
@@ -263,7 +292,7 @@ class Run:
         t0 = time.perf_counter()
         for s in range(start, total):
             m = self.step(ds.batch_at(s, self.spec.batch_size))
-            if (log_every and self._rank == 0
+            if (log_every and self._lead
                     and (s % log_every == 0 or s == total - 1)):
                 dt = (time.perf_counter() - t0) / max(s - start + 1, 1)
                 print(f"step {s:5d}  loss {m['loss']:.4f}  "
@@ -277,8 +306,12 @@ class Run:
         return self.history
 
     def _barrier(self) -> None:
+        """Every rank of the mesh (its data group's barrier, then its
+        model group's)."""
         if self._world > 1:
             dist.barrier(group=self.mesh.group)
+        if self._model_parallel:
+            dist.barrier(group=self.mesh.model_group)
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -301,22 +334,27 @@ class Run:
         band positions, trajectory, metrics history).  ``block=False``
         copies the state to host memory now and overlaps the disk write
         with the following steps.  On a host mesh every rank calls it and
-        rank 0 writes, after a barrier (a blocking save passes a second
-        one once the checkpoint is on disk)."""
+        the global rank 0 writes, after a barrier (a blocking save passes a
+        second one once the checkpoint is on disk); on a model-parallel
+        mesh every rank first takes part in gathering the whole state
+        (``train_steps.gather_train_state``, synchronously, also for
+        ``block=False``)."""
         if not self.spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
-        self._no_model_axis("save")
         self.init()
         step = int(self.state["step"])
         self._barrier()
-        if self._rank != 0:
+        tree = (self._gather(self.state) if self._model_parallel
+                else self.state)
+        if not self._lead:
+            del tree
             if block:
                 self._barrier()
             return
         if block:
             if self._async_ckpt is not None:
                 self._async_ckpt.wait()
-            checkpoint.save(self.spec.checkpoint_dir, step, self.state,
+            checkpoint.save(self.spec.checkpoint_dir, step, tree,
                             metadata=self._run_state_metadata(),
                             keep=self.spec.checkpoint_keep)
             self._barrier()
@@ -325,7 +363,7 @@ class Run:
                 self._async_ckpt = checkpoint.AsyncCheckpointer(
                     self.spec.checkpoint_dir,
                     keep=self.spec.checkpoint_keep)
-            self._async_ckpt.save(step, self.state,
+            self._async_ckpt.save(step, tree,
                                   metadata=self._run_state_metadata())
 
     @classmethod
@@ -343,11 +381,12 @@ class Run:
         under an all-dense ``OptimSpec`` (converted in place); any other
         mismatch — unknown layout names, a factored/low-rank spec against
         a dense checkpoint or the other way round — fails with the
-        reference's errors."""
+        reference's errors.  On a model-parallel mesh the whole state is
+        read and this rank keeps its shards of it (a checkpoint written
+        at any model-parallel width restores at any other)."""
         if not spec.checkpoint_dir:
             raise ValueError("RunSpec.checkpoint_dir is not set")
         run = cls(spec, device=device)
-        run._no_model_axis("restore")
         if step is None:
             step = checkpoint.latest_step(spec.checkpoint_dir)
             if step is None:
@@ -386,10 +425,12 @@ class Run:
                     f"Restore with an all-dense spec (or AdamWConfig) "
                     f"and switch layouts on a fresh run.")
             run.state, _ = checkpoint.restore(
-                spec.checkpoint_dir, run._new_state(adamw_lib.AdamWConfig()),
+                spec.checkpoint_dir,
+                run._new_state(adamw_lib.AdamWConfig(), whole=True),
                 step=step)
             run.state["opt"] = optim_lib.from_legacy_adamw(
                 run.state["opt"], run.state["params"])
+            run._adopt(run.state)
         elif not legacy_ckpt and not isinstance(spec_opt,
                                                 optim_lib.OptimSpec):
             raise ValueError(
@@ -398,10 +439,19 @@ class Run:
                 f"legacy AdamWConfig; restore with "
                 f"OptimSpec.from_adamw(cfg) to keep the layouts.")
         else:
-            run.init()
-            run.state, _ = checkpoint.restore(spec.checkpoint_dir,
-                                              run.state, step=step)
+            run.state, _ = checkpoint.restore(
+                spec.checkpoint_dir, run._new_state(spec_opt, whole=True),
+                step=step)
+            run._adopt(run.state)
         return run
+
+    def _adopt(self, whole) -> None:
+        """A restored whole state becomes this rank's: its shards on a
+        model-parallel mesh, checked across the data group."""
+        if self._model_parallel:
+            self.state = self._shard(whole)
+        if self._world > 1:
+            self._check_replicated(self.state["params"])
 
     @classmethod
     def resume(cls, spec: RunSpec, step: Optional[int] = None,
@@ -418,32 +468,49 @@ class Run:
     # serving
     # ------------------------------------------------------------------
 
+    @property
+    def _model_mesh(self):
+        return self.mesh if self._model_parallel else None
+
     def _serve(self):
         if self._serve_fn is None:
             self._serve_fn = train_steps.make_serve_step(
-                self.cfg, self.policy, device=self.device)
+                self.cfg, self.policy, device=self.device,
+                mesh=self._model_mesh)
         return self._serve_fn
 
     def _prefill_chunk_fn(self, chunk_len: int):
         fn = self._prefill_fns.get(chunk_len)
         if fn is None:
             fn = train_steps.make_prefill_chunk_step(
-                self.cfg, self.policy, chunk_len, device=self.device)
+                self.cfg, self.policy, chunk_len, device=self.device,
+                mesh=self._model_mesh)
             self._prefill_fns[chunk_len] = fn
         return fn
+
+    def _decode_states(self, batch_size: int, max_len: int):
+        """Empty decode caches of ``max_len`` positions for ``batch_size``
+        rows: on a model-parallel mesh this rank's shards of them
+        (``launch.sharding.serving_state_specs``)."""
+        states = registry.decode_state_init(self.cfg, batch_size, max_len,
+                                            device=self.device)
+        if not self._model_parallel:
+            return states
+        specs = shard_lib.serving_state_specs(self.cfg, states, self.mesh,
+                                              batch_size)
+        return shard_lib.shard_tree(states, specs, self.mesh)
 
     def prefill(self, prompts, gen: int = 0):
         """Stream a (B, S) prompt batch into decode caches with ``S + gen``
         token headroom, ``spec.prefill_chunk`` tokens per
         ``make_prefill_chunk_step`` call (decode steps, token by token:
         the numerics of decode itself, not the flash kernel).  Returns
-        ``(last_token, pos, states)`` ready for :meth:`decode`."""
-        self._no_model_axis("prefill")
+        ``(last_token, pos, states)`` ready for :meth:`decode`; on a
+        model-parallel mesh the states are this rank's shards."""
         params = self.params
         prompts = np.asarray(prompts, np.int64)
         b, s = prompts.shape
-        states = registry.decode_state_init(self.cfg, b, s + gen,
-                                            device=self.device)
+        states = self._decode_states(b, s + gen)
         t, chunk = 0, self.spec.prefill_chunk
         while t < s - 1:
             n = min(chunk, s - 1 - t)
@@ -453,8 +520,8 @@ class Run:
         return prompts[:, -1], s - 1, states
 
     def decode(self, token, pos, states):
-        """One greedy decode step: ``(next_token, logits, states)``."""
-        self._no_model_axis("decode")
+        """One greedy decode step: ``(next_token, logits, states)`` (the
+        logits whole on every rank of a model group)."""
         return self._serve()(self.params, token, pos, states)
 
     def generate(self, prompts, gen: int, temperature: float = 0.0,
@@ -491,8 +558,10 @@ class Run:
 
             with run.serve(max_slots=4).start() as sess:
                 tokens = sess.submit(prompt, max_new=16).result(60)
-        """
-        self._no_model_axis("serve")
+
+        On a model-parallel mesh every rank of a model group opens the
+        session on its shards and submits the same requests
+        (``serve/session.py``)."""
         if spec is None:
             overrides.setdefault("arch", self.spec.arch)
             overrides.setdefault("reduced", self.spec.reduced)
@@ -503,7 +572,8 @@ class Run:
         elif overrides:
             raise ValueError("pass either a ServeSpec or field "
                              "overrides, not both")
-        return ServeSession(spec, self.params, policy=self.policy)
+        return ServeSession(spec, self.params, policy=self.policy,
+                            mesh=self._model_mesh)
 
     # ------------------------------------------------------------------
     # analysis

@@ -104,19 +104,21 @@ def model_axis_notes(cfg, mesh) -> dict:
     return notes
 
 
-def trace_step(cfg, shape, mesh, policy, microbatches: int = 1):
+def trace_step(cfg, shape, mesh, policy, microbatches: int = 1,
+               opt=None):
     """One rank's step of ``shape`` on ``mesh`` (an abstract mesh) on the
     ``meta`` device under a ``CostCounter``; returns (counter, output
-    bytes, alias bytes)."""
+    bytes, alias bytes).  ``opt``: an ``OptimSpec`` for a train step (the
+    legacy AdamW by default)."""
     mm = mesh_lib.meta_mesh(mesh)
     if shape.kind == "train":
-        state, axes = train_steps.abstract_train_state(cfg)
+        state, axes = train_steps.abstract_train_state(cfg, opt=opt)
         sh = train_steps.train_state_shardings(cfg, state, axes, mesh)
         args = (train_steps.shard_train_state(state, sh, mm),)
         batch = registry.input_specs(cfg, shape)
         args += (_fresh(shard_lib.shard_batch(batch, mm)),)
         step_fn = train_steps.make_train_step(
-            cfg, policy, optim.AdamWConfig(),
+            cfg, policy, opt or optim.AdamWConfig(),
             optim.linear_warmup_constant(1e-4), microbatches=microbatches,
             device="meta", mesh=mm, data_axes=mesh_lib.data_axes(mesh))
     else:

@@ -19,7 +19,10 @@ flat ``{leaf path: spec}`` dict (``train.optim.named_leaves``'s paths)
 where the reference returns a twin tree.  ``shard_batch`` hands each
 rank its slice of the batch; ``shard_tree`` (``shard_params``) slices each
 leaf of a tree to this rank's shard under its spec, and ``gather_tree``
-(``gather_params``) is its inverse.  Weights cross to a model-parallel
+(``gather_params``) is its inverse: on a whole train state (parameters,
+optimizer slots, znorm cache and statistics) they serve checkpoints,
+``shard_leaf`` / ``gather_leaf`` / ``sub_spec`` the optimizer's
+statistics over shards (``optim/layouts.py``).  Weights cross to a model-parallel
 rank as ``convert.params_from_jax`` followed by ``shard_params``.
 
 Fused projections (Mamba2's ``in_proj`` [z | x | B | C | dt] and its conv
@@ -29,12 +32,13 @@ logical axes and specs are ``Segmented`` tuples, equal to the plain ones
 a rank holds its 1/M of each segment in order, so that its shard is a
 whole column-parallel slice of each part (``models/ssm.py``).
 ``decode_state_specs`` shards the port's decode states as its model code
-splits them.
+splits them; ``serving_mesh`` is the model-only view every serving path
+takes the KV caches' rule from (a model group serves its batch whole).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
-
 
 import torch
 
@@ -193,8 +197,10 @@ def decode_state_shardings(states, mesh, batch_size: int):
 def decode_state_specs(cfg, states, mesh, batch_size: int):
     """{leaf path: spec} of the port's decode states (``registry.
     decode_state_init``'s tree) on ``mesh``, as its model code splits
-    them: a KV cache by ``decode_state_shardings`` (its sequence dim); a
-    recurrent block's state by heads on the heads path
+    them: a KV cache by ``decode_state_shardings``, on whichever dim it
+    picks — the sequence, ``head_dim`` (a cache of fewer positions than
+    ``head_dim``, or of an odd number) or the kv heads (``models/lm.py``
+    decodes over each); a recurrent block's state by heads on the heads path
     (``models/ssm.py::splits_heads``), Mamba2's conv state by its
     [x | B | C] segments, and whole on every model rank on the gathered
     path; an encoder-decoder's cross caches by heads where the kv heads
@@ -233,6 +239,42 @@ def decode_state_specs(cfg, states, mesh, batch_size: int):
         else:
             out[path] = by_heads(x, 2, split)
     return out
+
+
+def serving_mesh(mesh):
+    """The (1, M) view of ``mesh``'s model axis that the serving paths
+    take the KV caches' rule from: each model group serves its batch
+    whole, its data ranks replicas of one another."""
+    return mesh_lib.make_mesh((1, mesh.shape["model"]), ("data", "model"))
+
+
+def _model_only(spec):
+    """``spec`` with every part but ``"model"`` replicated."""
+    parts = tuple(p if p == "model" else None for p in spec)
+    if isinstance(spec, Segmented) and parts[spec.dim] is not None:
+        return Segmented(parts, spec.dim, spec.widths, spec.group)
+    return parts
+
+
+def serving_state_specs(cfg, states, mesh, batch_size: int):
+    """{leaf path: spec} of decode states as one model group serves them
+    (``decode_state_specs`` on ``serving_mesh``, over ``model`` only):
+    the specs of ``Run.prefill`` / ``Run.generate``'s caches and of the
+    slot pool's recurrent slots."""
+    specs = decode_state_specs(cfg, states, serving_mesh(mesh), batch_size)
+    return {path: _model_only(spec) for path, spec in specs.items()}
+
+
+def kv_cache_spec(cfg, batch_size: int, length: int, mesh) -> Tuple:
+    """The spec, over ``model`` only, of one layer's (B, S, KVH, Dh) KV
+    cache of ``length`` positions: the dim ``decode_state_shardings``
+    picks on ``serving_mesh`` — the sequence, ``head_dim`` or the kv
+    heads — or none."""
+    x = torch.empty((1, batch_size, length, cfg.n_kv_heads, cfg.head_dim),
+                    device="meta")
+    spec = decode_state_shardings({"k": x}, serving_mesh(mesh),
+                                  batch_size)["k"]
+    return _model_only(spec)[1:]
 
 
 def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
@@ -299,8 +341,14 @@ def _unsegment(x: torch.Tensor, spec: "Segmented", m: int) -> torch.Tensor:
 
 
 def _rebuild(tree, fn, prefix=""):
-    """``tree`` (nested dicts / lists / tuples) with ``fn(path, leaf)`` at
-    each tensor leaf, paths as ``named_leaves`` spells them."""
+    """``tree`` (nested dicts / lists / tuples / dataclasses) with
+    ``fn(path, leaf)`` at each tensor leaf, paths as ``named_leaves``
+    spells them (a dataclass's by its field names)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), fn,
+                             f"{prefix}{f.name}/")
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _rebuild(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -311,10 +359,46 @@ def _rebuild(tree, fn, prefix=""):
     return tree
 
 
+def sub_spec(spec, dims) -> Tuple:
+    """The spec of the dims ``dims`` (in that order) of a tensor under
+    ``spec``: what a reduction over the other dims keeps.  A Segmented
+    spec stays Segmented where its segmented dim is kept."""
+    dims = tuple(dims)
+    parts = tuple(spec[d] if d < len(spec) else None for d in dims)
+    if isinstance(spec, Segmented) and spec.dim in dims:
+        return Segmented(parts, dims.index(spec.dim), spec.widths,
+                         spec.group)
+    return parts
+
+
+def is_sharded(spec) -> bool:
+    """Whether ``spec`` splits any dim."""
+    return any(_names(part) for part in spec)
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``x`` under ``spec`` (a
+    copy)."""
+    return _rank_slice(x, spec, mesh)
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's shard ``x`` under ``spec``
+    (all-gathered over its axes, a Segmented dim's segments rejoined)."""
+    for dim, part in enumerate(spec):
+        names = _names(part)
+        if names:
+            x = collectives.all_gather(x, mesh, names, dim=dim)
+            if isinstance(spec, Segmented) and dim == spec.dim:
+                x = _unsegment(x, spec, mesh_lib.mesh_size(mesh, names))
+    return x
+
+
 def shard_tree(tree, specs: Dict[str, Tuple], mesh):
     """Each tensor leaf of ``tree`` sliced to this rank's shard under
-    ``specs`` ({leaf path: spec}, the paths of ``named_leaves``); a leaf
-    without a spec is kept as it is."""
+    ``specs`` ({leaf path: spec}, the paths of ``named_leaves``; a
+    dataclass's fields by name); a leaf without a spec is kept as it
+    is."""
     return _rebuild(tree, lambda path, x: (
         _rank_slice(x, specs[path], mesh) if path in specs else x))
 
@@ -322,16 +406,8 @@ def shard_tree(tree, specs: Dict[str, Tuple], mesh):
 def gather_tree(tree, specs: Dict[str, Tuple], mesh):
     """The inverse of ``shard_tree``: each sharded leaf all-gathered over
     its spec's axes (every rank gets the whole tensor)."""
-    def one(path, x):
-        spec = specs.get(path, ())
-        for dim, part in enumerate(spec):
-            names = _names(part)
-            if names:
-                x = collectives.all_gather(x, mesh, names, dim=dim)
-                if isinstance(spec, Segmented) and dim == spec.dim:
-                    x = _unsegment(x, spec, mesh_lib.mesh_size(mesh, names))
-        return x
-    return _rebuild(tree, one)
+    return _rebuild(tree, lambda path, x: gather_leaf(
+        x, specs.get(path, ()), mesh))
 
 
 def shard_params(params, specs: Dict[str, Tuple], mesh):

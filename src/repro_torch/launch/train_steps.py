@@ -26,7 +26,10 @@ model group holds its shards of the parameters and of the optimizer
 state (``shard_train_state``), the same batch slice, and draws the same
 plans; the gradients are reduced over the data axes only, and the legacy
 AdamW updates each shard in place (it is elementwise; the gradient norm
-sums the sharded leaves' squares over ``model``).
+sums the sharded leaves' squares over ``model``), as do an
+``OptimSpec``'s layouts, whose factored and low-rank statistics span the
+shards (``optim/layouts.py``).  ``gather_train_state`` rebuilds the whole
+state for a checkpoint and ``shard_train_state`` splits it again.
 
 The serve and prefill step makers below return eager functions with the
 reference's signatures.  Each step enters ``torch.no_grad()`` itself
@@ -51,7 +54,6 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import common as cm
 from repro_torch.models import registry
-from repro_torch.models import ssm as ssm_lib
 from repro_torch.train import compression, optim, znorm
 
 
@@ -149,26 +151,48 @@ def train_state_shardings(cfg, state, axes, mesh):
     return sh
 
 
+def train_state_specs(shardings) -> Dict[str, tuple]:
+    """``train_state_shardings``' specs as one flat {state path: spec}
+    dict (``launch.sharding.shard_tree``'s paths: ``params/<leaf>``,
+    ``opt/m/<leaf>`` / ``opt/v/<leaf>`` of an ``AdamWState``,
+    ``opt/leaves/<reference path>/<slot>`` of an ``OptimSpec``'s state;
+    the znorm cache and statistics, replicated, are left out)."""
+    out = {f"params/{p}": s for p, s in shardings["params"].items()}
+    opt = shardings["opt"]
+    if isinstance(opt, optim.AdamWState):
+        for slot in ("m", "v"):
+            out.update({f"opt/{slot}/{p}": s
+                        for p, s in getattr(opt, slot).items()})
+    else:
+        out.update({f"opt/leaves/{ref}/{slot}": spec
+                    for ref, slots in opt["leaves"].items()
+                    for slot, spec in slots.items()})
+    return out
+
+
 def shard_train_state(state, shardings, mesh):
-    """This rank's shard of a train state (``init_train_state``'s or
+    """This rank's shard of a whole train state (``init_train_state``'s or
     ``abstract_train_state``'s) under ``train_state_shardings``: the
     parameters and the optimizer slots sliced by their specs, the rest as
     it is.  On ``meta`` tensors, fresh ``meta`` tensors of the shard
     shapes."""
-    out = dict(state)
-    out["params"] = shard_lib.shard_params(state["params"],
-                                           shardings["params"], mesh)
-    opt, opt_sh = state["opt"], shardings["opt"]
-    if isinstance(opt, optim.AdamWState):
-        out["opt"] = optim.AdamWState(
-            opt.count, shard_lib.shard_tree(opt.m, opt_sh.m, mesh),
-            shard_lib.shard_tree(opt.v, opt_sh.v, mesh))
-    else:
-        specs = {f"leaves/{ref}/{slot}": spec
-                 for ref, slots in opt_sh["leaves"].items()
-                 for slot, spec in slots.items()}
-        out["opt"] = shard_lib.shard_tree(opt, specs, mesh)
-    return out
+    return shard_lib.shard_tree(state, train_state_specs(shardings), mesh)
+
+
+def gather_train_state(state, shardings, mesh):
+    """The whole train state from every rank's shards: the inverse of
+    ``shard_train_state`` (every rank gets it; a checkpoint's tree has a
+    one-rank state's keys, shapes and dtypes)."""
+    return shard_lib.gather_tree(state, train_state_specs(shardings), mesh)
+
+
+def model_param_specs(cfg, mesh) -> Dict[str, tuple]:
+    """{leaf path: spec} of ``cfg``'s whole parameters on ``mesh`` under
+    the arch's rules (``train_state_shardings``' parameter specs, without
+    allocating anything)."""
+    params, axes = registry.abstract_params(cfg)
+    return shard_lib.param_shardings(
+        axes, params, mesh, rules=shard_lib.arch_rules(cfg, mesh))
 
 
 def _whole_shapes(cfg) -> List[tuple]:
@@ -336,18 +360,14 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     A ``model`` axis above 1 (tensor and expert parallelism, see the
     module doc): every rank of a model group calls the step with its
     shard of the state (``shard_train_state``) and the same batch slice;
-    the reduction runs over the data axes only.  A ``meta`` mesh
+    the reduction runs over the data axes only, and an ``OptimSpec``'s
+    factored and low-rank layouts take their whole-leaf statistics across
+    the shards (``optim/layouts.py``).  A ``meta`` mesh
     (``launch.mesh.meta_mesh``) with ``device="meta"`` runs one rank's
     step without peers, for the dry run.
     """
     device = resolve_or_meta(device)
     model_mesh = registry.model_parallel_mesh(mesh)
-    if model_mesh is not None and isinstance(opt_cfg, optim_lib.OptimSpec) \
-            and not opt_cfg.all_dense:
-        raise NotImplementedError(
-            f"the {opt_cfg.layouts_used()} optimizer layouts over a "
-            f"model-parallel mesh (row / column statistics and SVDs that "
-            f"span shards) are not ported (ROADMAP Queue A.14)")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if compress is not None and compress not in compression.MODES:
@@ -362,9 +382,13 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
     track_rank_energy = layouts and bool(opt_cfg.controller_rule_indices())
     _no_tf32()
 
-    # the whole shapes, to tell a shard from a replicated leaf (taken here,
-    # outside any cost counter: the meta parameters are whole-size)
+    # the whole shapes, to tell a shard from a replicated leaf, and the
+    # parameters' specs, which the optimizer's layouts read their split
+    # dims from (taken here, outside any cost counter: the meta
+    # parameters are whole-size)
     whole = _whole_shapes(cfg) if model_mesh is not None else None
+    p_specs = (model_param_specs(cfg, model_mesh)
+               if model_mesh is not None and layouts else None)
 
     def train_step(state, batch):
         params = state["params"]
@@ -446,7 +470,8 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
             gnorm = _model_parallel_norm(grads, sharded, model_mesh)
         if layouts:
             _, _, om, rank_energy = optim_lib.update(
-                grads, state["opt"], params, lr, opt_cfg, gnorm=gnorm)
+                grads, state["opt"], params, lr, opt_cfg, gnorm=gnorm,
+                mesh=model_mesh, param_specs=p_specs)
         else:
             _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
                                           opt_cfg, gnorm=gnorm)
@@ -773,8 +798,8 @@ def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
     encoder-decoder arch raises, as in the reference: its prefill is
     ``encdec.prime_cross_cache`` and the decode loop.  ``mesh``: a
     model-parallel mesh (``params`` this rank's shards): the states are
-    this rank's slice of the caches' sequence dim, as
-    ``launch.sharding.decode_state_shardings`` shards them."""
+    this rank's shards of the caches, on the dim
+    ``launch.sharding.kv_cache_spec`` picks (``models/lm.py``)."""
     device = resolve_or_meta(device)
     mesh = registry.model_parallel_mesh(mesh)
     _no_tf32()
@@ -782,35 +807,16 @@ def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
     def prefill_step(params, batch):
         with torch.no_grad():
             batch = _to_device(batch, device)
-            if mesh is not None:
-                _check_kv_sharding(cfg, mesh, batch["tokens"].shape)
             return registry.prefill(cfg, params, batch, policy, mesh=mesh)
 
     return prefill_step
-
-
-def _check_kv_sharding(cfg, mesh, tokens_shape) -> None:
-    """Refuse a cache that ``decode_state_shardings`` would shard on
-    another dim than its sequence (the one the model code splits); an
-    arch without attention blocks has none."""
-    if all(b in ssm_lib.RECURRENT for b in cfg.pattern):
-        return
-    b, s = tokens_shape[0], tokens_shape[-1]
-    meta = torch.empty((cfg.n_repeats, b, s, cfg.n_kv_heads,
-                        cfg.head_dim), device="meta")
-    spec = shard_lib.decode_state_shardings({"k": meta}, mesh, b)["k"]
-    if "model" not in shard_lib._names(spec[2]):
-        raise NotImplementedError(
-            f"decode_state_shardings shards a ({b}, {s}) KV cache as "
-            f"{spec}; the model code splits only its sequence dim over "
-            f"model (ROADMAP Queue A.15)")
 
 
 def make_serve_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
                     mesh=None):
     """(params, token (B,), pos, states) -> (next_token (B,) int32 greedy,
     logits (B, V), states); ``pos`` scalar or (B,).  ``mesh``: a
-    model-parallel mesh, the states each rank's sequence slice (see
+    model-parallel mesh, the states each rank's shards (see
     ``make_prefill_step``)."""
     device = resolve_or_meta(device)
     mesh = registry.model_parallel_mesh(mesh)
@@ -828,15 +834,18 @@ def make_serve_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
 
 
 def make_prefill_chunk_step(cfg: ArchConfig, policy: cm.Policy,
-                            chunk_len: int, device="cuda"):
-    """(params, tokens (B, chunk_len), start, states) -> states: the chunk
-    fed through ``decode_step`` one token at a time from position
-    ``start`` (the same steps in the same order as token-by-token decode,
-    so the chunk size never changes the caches)."""
+                            chunk_len: int, device="cuda", mesh=None):
+    """(params, tokens (B, chunk_len), start, states[, kv_positions]) ->
+    states: the chunk fed through ``decode_step`` one token at a time
+    from position ``start`` (the same steps in the same order as
+    token-by-token decode, so the chunk size never changes the caches).
+    ``mesh``: a model-parallel mesh, ``params`` and ``states`` this
+    rank's shards (``make_serve_step``)."""
     device = resolve_device(device)
+    mesh = registry.model_parallel_mesh(mesh)
     _no_tf32()
 
-    def chunk_step(params, tokens, start, states):
+    def chunk_step(params, tokens, start, states, kv_positions=None):
         tokens = _tokens(tokens, device)
         if tokens.shape[1] != chunk_len:
             raise ValueError(f"chunk of {tokens.shape[1]} tokens for a "
@@ -845,7 +854,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, policy: cm.Policy,
             for off in range(chunk_len):
                 _, states = registry.decode_step(
                     cfg, params, tokens[:, off], int(start) + off, states,
-                    policy)
+                    policy, mesh=mesh, kv_positions=kv_positions)
         return states
 
     return chunk_step
@@ -856,7 +865,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, policy: cm.Policy,
 # ---------------------------------------------------------------------------
 
 def make_slot_serve_step(cfg: ArchConfig, policy: cm.Policy, top_k: int = 0,
-                         device="cuda"):
+                         device="cuda", shards=None):
     """One batched decode step over the whole slot pool.
 
     Gathers every slot's paged KV into contiguous decode-layout caches,
@@ -868,10 +877,14 @@ def make_slot_serve_step(cfg: ArchConfig, policy: cm.Policy, top_k: int = 0,
     Signature: ``(params, pool, page_table, token, pos, active, keys,
     n_gen, temperature) -> (next_token, logits, pool)``; ``page_table``,
     ``token``, ``pos`` and ``active`` are host arrays or tensors, ``keys``
-    and ``n_gen`` host integers per row, ``temperature`` a host array."""
+    and ``n_gen`` host integers per row, ``temperature`` a host array.
+    ``shards``: the pool's split over a model-parallel mesh
+    (``serve.pool.PoolShards``; ``params`` this rank's shards); the
+    logits, and so the tokens, are whole on every rank."""
     from repro_torch.serve import pool as pool_lib
     from repro_torch.serve import sampling as sampling_lib
     device = resolve_device(device)
+    mesh = None if shards is None else shards.mesh
     _no_tf32()
 
     def slot_serve_step(params, pool, page_table, token, pos, active, keys,
@@ -882,44 +895,51 @@ def make_slot_serve_step(cfg: ArchConfig, policy: cm.Policy, top_k: int = 0,
         with torch.no_grad():
             states = pool_lib.gather_decode_states(cfg, pool, page_table)
             logits, states = registry.decode_step(
-                cfg, params, _tokens(token, device), pos, states, policy)
+                cfg, params, _tokens(token, device), pos, states, policy,
+                mesh=mesh, kv_positions=pool_lib.kv_positions(
+                    shards, page_table.shape[1], device))
             ks = sampling_lib.step_keys(keys, n_gen)
             next_token = sampling_lib.sample_logits(logits, ks, temperature,
                                                     top_k=top_k)
             pool = pool_lib.scatter_decode_update(cfg, pool, states,
-                                                  page_table, pos, active)
+                                                  page_table, pos, active,
+                                                  shards)
         return next_token, logits, pool
 
     return slot_serve_step
 
 
 def make_slot_prefill_step(cfg: ArchConfig, policy: cm.Policy,
-                           chunk_len: int, fresh: bool, device="cuda"):
+                           chunk_len: int, fresh: bool, device="cuda",
+                           shards=None):
     """Prefill ``chunk_len`` prompt tokens for ONE slot of the pool:
     gather the slot's decode-layout state (batch 1), feed the chunk
     through ``decode_step`` token by token (the numerics of token-by-token
     decode, so the chunk size never changes served tokens), scatter the
     state back into the slot's pages.  ``fresh`` marks a request's first
     chunk; attention state needs no reset (stale KV is masked beyond the
-    slot's live length)."""
+    slot's live length).  ``shards``: as ``make_slot_serve_step``'s."""
     from repro_torch.serve import pool as pool_lib
     device = resolve_device(device)
-    chunk = make_prefill_chunk_step(cfg, policy, chunk_len, device=device)
+    chunk = make_prefill_chunk_step(
+        cfg, policy, chunk_len, device=device,
+        mesh=None if shards is None else shards.mesh)
 
     def slot_prefill_step(params, pool, page_table_row, slot, tokens, start):
         page_table_row = _tokens(page_table_row, device)
         with torch.no_grad():
             states = pool_lib.gather_slot_states(cfg, pool, page_table_row,
-                                                 slot, fresh)
+                                                 slot, fresh, shards)
             states = chunk(params, _tokens(tokens, device)[None], start,
-                           states)
+                           states, pool_lib.kv_positions(
+                               shards, page_table_row.shape[0], device))
             return pool_lib.scatter_slot_states(cfg, pool, states,
                                                 page_table_row, slot)
 
     return slot_prefill_step
 
 
-def make_slot_reset_step(cfg: ArchConfig, device="cuda"):
+def make_slot_reset_step(cfg: ArchConfig, device="cuda", shards=None):
     """Reset one slot's recurrent state to the block init constants (for
     single-token prompts, which run no prefill chunk, so nothing else
     clears the evicted predecessor's conv/SSM/mLSTM/sLSTM state out of
@@ -932,7 +952,8 @@ def make_slot_reset_step(cfg: ArchConfig, device="cuda"):
         page_table_row = _tokens(page_table_row, device)
         with torch.no_grad():
             states = pool_lib.gather_slot_states(cfg, pool, page_table_row,
-                                                 slot, fresh=True)
+                                                 slot, fresh=True,
+                                                 shards=shards)
             return pool_lib.scatter_slot_states(cfg, pool, states,
                                                 page_table_row, slot)
 

@@ -139,14 +139,17 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
 
 
 def decode_attention_sharded(q1: torch.Tensor, k_cache: torch.Tensor,
-                             v_cache: torch.Tensor, cache_len, offset: int,
+                             v_cache: torch.Tensor, cache_len, key_pos,
                              mesh) -> torch.Tensor:
-    """``decode_attention`` over a cache whose sequence dim is split across
-    the ``model`` ranks: this rank holds positions [offset, offset +
-    Smax_local).  The softmax max is all-reduced first, so every rank
-    exponentiates against the global max as the one-rank version does;
-    then the sums and the P·V products (each rounded to q1's dtype, as
-    there, then f32) are all-reduced."""
+    """``decode_attention`` over a cache whose positions are split across
+    the ``model`` ranks: entry j of this rank's cache holds absolute
+    position ``key_pos[j]`` (a (Smax_local,) tensor, increasing: a
+    contiguous slice of the sequence, or each page's share of its
+    positions in the slot pool), or the positions from ``key_pos`` on
+    where it is an int.  The softmax max is all-reduced first, so every
+    rank exponentiates against the global max as the one-rank version
+    does; then the sums and the P·V products (each rounded to q1's dtype,
+    as there, then f32) are all-reduced."""
     b, _, h, dh = q1.shape
     span, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -155,8 +158,9 @@ def decode_attention_sharded(q1: torch.Tensor, k_cache: torch.Tensor,
     s = torch.einsum("bhgd,bkhd->bhgk", qr,
                      k_cache.to(torch.float32)) * scale
     cache_len = torch.as_tensor(cache_len, device=q1.device)
-    valid = (torch.arange(span, device=q1.device)[None] + offset
-             < cache_len.reshape(-1, 1))
+    if isinstance(key_pos, int):
+        key_pos = torch.arange(span, device=q1.device) + key_pos
+    valid = key_pos[None] < cache_len.reshape(-1, 1)
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     m = collectives.all_reduce(torch.amax(s, dim=-1, keepdim=True), mesh,
                                "model", op="max")
@@ -167,6 +171,39 @@ def decode_attention_sharded(q1: torch.Tensor, k_cache: torch.Tensor,
                      v_cache).to(torch.float32), mesh, "model")
     o = pv / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, 1, h, dh).to(q1.dtype)
+
+
+def decode_attention_dh(q1: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, cache_len, lo: int,
+                        mesh) -> torch.Tensor:
+    """``decode_attention`` over a cache whose ``head_dim`` is split across
+    the ``model`` ranks: this rank holds features [lo, lo + Dh_local) of
+    every position and head.  q1 (B, 1, H, Dh) is whole; each rank's
+    partial scores are all-reduced (f32) before the softmax, which every
+    rank then takes whole with ``decode_attention``'s numerics (f32
+    statistics, UNNORMALIZED probabilities rounded to q1's dtype before
+    P·V); P·V gives this rank's features, all-gathered into the whole
+    (B, 1, H, Dh) output."""
+    b, _, h, dh = q1.shape
+    smax, kvh, part = k_cache.shape[1], k_cache.shape[2], k_cache.shape[3]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qr = q1.reshape(b, kvh, g, dh)[..., lo:lo + part].to(torch.float32)
+    s = collectives.all_reduce(torch.einsum(
+        "bhgd,bkhd->bhgk", qr, k_cache.to(torch.float32)), mesh,
+        "model") * scale
+    cache_len = torch.as_tensor(cache_len, device=q1.device)
+    valid = (torch.arange(smax, device=q1.device)[None]
+             < cache_len.reshape(-1, 1))
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1)
+    pv = torch.einsum("bhgk,bkhd->bhgd", p.to(q1.dtype),
+                      v_cache).to(torch.float32)
+    o = (pv / torch.clamp(l, min=1e-30)[..., None]).to(q1.dtype)
+    o = collectives.all_gather(o.reshape(b, h, part), mesh, "model", dim=-1)
+    return o.reshape(b, 1, h, dh)
 
 
 def attention_reference(q, k, v, *, causal=True, q_offset: int = 0):

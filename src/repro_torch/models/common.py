@@ -16,7 +16,8 @@ from repro_torch.core import estimator_registry as est_registry
 from repro_torch.core.config import EstimatorKind, WTACRSConfig
 from repro_torch.core.linear import (RematStash, wtacrs_linear,
                                      wtacrs_linear_shared)
-from repro_torch.core.lora import LoRAConfig, lora_linear
+from repro_torch.core.lora import (LoRAConfig, lora_linear,
+                                   lora_linear_parallel)
 from repro_torch.core.policy import PolicyRules
 from repro_torch.core.seeds import fold_seed  # noqa: F401  (re-exported)
 from repro_torch.launch import collectives
@@ -324,7 +325,9 @@ class Ctx:
         """Estimator (+optionally LoRA) linear.  The estimator config is
         resolved per fully-prefixed tag through ``Policy.config_for``.
         ``lora``: ``{"lora_a", "lora_b"}`` adapter parameters, used when
-        ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled).
+        ``policy.lora.enabled`` (W frozen, only ``h @ A`` sampled; with
+        ``parallel``, this rank's shards of them, split as their weight
+        is: ``core.lora.lora_linear_parallel``).
         ``parallel``: ``None``, ``"column"``, ``"row"`` or
         ``"row_scatter"`` (see the class doc; ignored without a
         model-parallel mesh)."""
@@ -337,9 +340,10 @@ class Ctx:
             parallel = None
         if lora is not None and self.policy.lora.enabled:
             if parallel is not None:
-                raise NotImplementedError(
-                    "LoRA over a model-parallel weight is not ported "
-                    "(ROADMAP Queue A.16)")
+                return lora_linear_parallel(
+                    h, w, lora["lora_a"], lora["lora_b"], self.policy.lora,
+                    parallel, self.mesh, key=self._key_for(tag), znorm=zn,
+                    cfg=cfg, bias=bias)
             return lora_linear(h, w, lora["lora_a"], lora["lora_b"],
                                self.policy.lora, key=self._key_for(tag),
                                znorm=zn, cfg=cfg, bias=bias)

@@ -45,10 +45,14 @@ attends over every head and keeps its slice of the output.  The
 out-projection is row-parallel.  The embedding is vocab-parallel (a
 masked lookup, then an all-reduce), the head column-parallel, and the
 loss reduces the max and the sum-exp of the logits across ranks without
-gathering them.  Prefill and decode keep the KV cache sharded on its
-sequence dim, as ``launch.sharding.decode_state_shardings`` shards it:
-decode attends over the local positions and all-reduces the softmax max,
-its sum and the P·V product.  The recurrent blocks run their own
+gathering them.  Prefill and decode keep each KV cache split on the dim
+``launch.sharding.decode_state_shardings`` picks (``kv_cache_spec``), and
+decode reads which from the cache's shape: on its sequence, a rank
+attends over its positions and the softmax max, its sum and the P·V
+product are all-reduced; on ``head_dim``, the partial scores are
+all-reduced before the softmax and the ranks' P·V features all-gathered;
+on the kv heads, each rank attends with its kv heads and the q heads that
+read them, and the heads' outputs are all-gathered.  The recurrent blocks run their own
 model-parallel programs (``models/ssm.py``), their states split by heads
 or whole as ``launch.sharding.decode_state_specs`` says; Zamba2's shared
 block is an attention block like the others, its one parameter set read
@@ -66,6 +70,7 @@ from repro_torch.core import linear as lin
 from repro_torch.device import resolve_device, resolve_or_meta
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch import collectives
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
@@ -519,15 +524,25 @@ def _flash_prefill(q, k, v):
     return o.reshape(b, h, s, dh).permute(0, 2, 1, 3).reshape(b, s, h * dh)
 
 
-def _seq_shard(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's slice of a (B, S, ...) cache's sequence dim."""
-    n = collectives.axis_size(mesh, "model")
-    if x.shape[1] % n:
-        raise NotImplementedError(
-            f"a KV cache of {x.shape[1]} positions does not shard over "
-            f"{n} model ranks (ROADMAP Queue A.15)")
-    rows = x.shape[1] // n
-    return x.narrow(1, collectives.index(mesh, "model") * rows, rows)
+def _kv_shard(cfg, x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's shard of a whole (B, S, KVH, Dh) cache, on the dim
+    ``launch.sharding.kv_cache_spec`` picks."""
+    spec = shard_lib.kv_cache_spec(cfg, x.shape[0], x.shape[1], mesh)
+    return shard_lib.shard_leaf(x, spec, mesh)
+
+
+def kv_split(cfg, k_cache: torch.Tensor, mesh) -> Optional[str]:
+    """How a rank holds a (B, S, KVH, Dh) KV cache on a model-parallel
+    mesh, read off its shape: ``"dh"`` (a slice of ``head_dim``),
+    ``"kvh"`` (some kv heads), ``"seq"`` (a slice of the positions) or
+    None (whole: the rule splits no dim of a cache of this length)."""
+    b, s, kvh, dh = k_cache.shape
+    if dh != cfg.head_dim:
+        return "dh"
+    if kvh != cfg.n_kv_heads:
+        return "kvh"
+    whole = shard_lib.kv_cache_spec(cfg, b, s, mesh)
+    return "seq" if shard_lib.is_sharded(whole) else None
 
 
 def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy, mesh=None):
@@ -541,8 +556,8 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy, mesh=None):
     by padding the KV axis), the block's recurrent state after the prompt
     for a recurrent one.  Only the last position goes through the final
     norm and the head.  On a model-parallel ``mesh`` each rank keeps its
-    slice of the caches' sequence dim (S / M positions) and the logits
-    are whole.
+    shard of the caches (``kv_cache_spec``'s dim) and the logits are
+    whole.
     """
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype, mesh=mesh)
@@ -564,8 +579,8 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy, mesh=None):
             x = cm.apply_norm(cfg, p["norm2"], h)
             h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
             if mesh is not None:
-                k_all, v_all = _seq_shard(k_all, mesh), _seq_shard(v_all,
-                                                                   mesh)
+                k_all = _kv_shard(cfg, k_all, mesh)
+                v_all = _kv_shard(cfg, v_all, mesh)
             st = {"k": k_all.to(cfg.cdtype), "v": v_all.to(cfg.cdtype)}
         for name, x in st.items():
             caches[j].setdefault(name, []).append(x)
@@ -614,14 +629,19 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int,
 
 
 def cached_self_attention(cfg, p, ctx, x, k_cache, v_cache, pos,
-                          positions):
+                          positions, kv_positions=None):
     """The cached self-attention of one decode step, out-projected: x
     (B,1,D) normed; k_cache/v_cache: (B, Smax, KVH, Dh) views into the
     stacked states, written IN PLACE at (row, pos[row]); pos: (B,).  On a
-    model-parallel mesh the caches are this rank's (B, Smax / M, KVH, Dh)
-    slice of the sequence: the rank holding a row's position writes it, q
-    is all-gathered and ``decode_attention_sharded`` combines the ranks'
-    softmax parts."""
+    model-parallel mesh the caches are this rank's shards (``kv_split``)
+    and q is all-gathered: split on the sequence, the rank holding a
+    row's position writes it and ``decode_attention_sharded`` combines
+    the ranks' softmax parts; on ``head_dim`` every rank writes its
+    features and ``decode_attention_dh`` sums the partial scores; on the
+    kv heads every rank writes and attends with its own.
+    ``kv_positions``: the absolute position of each entry of a
+    sequence-split cache where it is not a contiguous slice (the slot
+    pool's pages, ``serve/pool.py``)."""
     b = x.shape[0]
     hh, dh = cfg.n_heads, cfg.head_dim
     rows = torch.arange(b, device=x.device)
@@ -630,30 +650,49 @@ def cached_self_attention(cfg, p, ctx, x, k_cache, v_cache, pos,
         k_cache[rows, pos] = k[:, 0].to(cfg.cdtype)
         v_cache[rows, pos] = v[:, 0].to(cfg.cdtype)
         o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
+        return _attn_out(cfg, p, ctx, o.reshape(b, 1, hh * dh))
+    mesh = ctx.mesh
+    q, _, _, (k, v) = _project_qkv(cfg, p, ctx, x, positions, want_all=True)
+    if q.shape[2] != hh:
+        q = collectives.all_gather(q.reshape(b, 1, -1), mesh,
+                                   "model").reshape(b, 1, hh, dh)
+    k, v = k[:, 0].to(cfg.cdtype), v[:, 0].to(cfg.cdtype)   # (B, KVH, Dh)
+    split = ("seq" if kv_positions is not None
+             else kv_split(cfg, k_cache, mesh))
+    m = collectives.index(mesh, "model")
+    if split is None:
+        k_cache[rows, pos], v_cache[rows, pos] = k, v
+        o = attn_lib.decode_attention(q, k_cache, v_cache, pos + 1)
+    elif split == "dh":
+        part = k_cache.shape[3]
+        lo = m * part
+        k_cache[rows, pos] = k[..., lo:lo + part]
+        v_cache[rows, pos] = v[..., lo:lo + part]
+        o = attn_lib.decode_attention_dh(q, k_cache, v_cache, pos + 1, lo,
+                                         mesh)
+    elif split == "kvh":
+        n = k_cache.shape[2]
+        k0, group = m * n, hh // cfg.n_kv_heads
+        k_cache[rows, pos] = k[:, k0:k0 + n]
+        v_cache[rows, pos] = v[:, k0:k0 + n]
+        o = attn_lib.decode_attention(q[:, :, k0 * group:(k0 + n) * group],
+                                      k_cache, v_cache, pos + 1)
+        o = collectives.all_gather(o.reshape(b, 1, -1), mesh, "model")
     else:
-        if tuple(k_cache.shape[2:]) != (cfg.n_kv_heads, cfg.head_dim):
-            raise NotImplementedError(
-                f"a ({tuple(k_cache.shape)}) KV cache shard: the model "
-                f"code splits only a cache's sequence dim over model "
-                f"(ROADMAP Queue A.15)")
-        q, _, _, (k, v) = _project_qkv(cfg, p, ctx, x, positions,
-                                       want_all=True)
         span = k_cache.shape[1]
-        lo = collectives.index(ctx.mesh, "model") * span
-        mine = ((pos >= lo) & (pos < lo + span))[:, None, None]
-        at = torch.clamp(pos - lo, 0, span - 1)
+        key_pos = (kv_positions if kv_positions is not None else
+                   torch.arange(span, device=x.device) + m * span)
+        at = torch.clamp(torch.searchsorted(key_pos, pos.contiguous()),
+                         max=span - 1)
+        mine = (key_pos[at] == pos)[:, None, None]
         for cache, new in ((k_cache, k), (v_cache, v)):
-            cache[rows, at] = torch.where(mine, new[:, 0].to(cfg.cdtype),
-                                          cache[rows, at])
-        if q.shape[2] != hh:
-            q = collectives.all_gather(q.reshape(b, 1, -1), ctx.mesh,
-                                       "model").reshape(b, 1, hh, dh)
+            cache[rows, at] = torch.where(mine, new, cache[rows, at])
         o = attn_lib.decode_attention_sharded(q, k_cache, v_cache, pos + 1,
-                                              lo, ctx.mesh)
+                                              key_pos, mesh)
     return _attn_out(cfg, p, ctx, o.reshape(b, 1, hh * dh))
 
 
-def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
+def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos, kv_positions=None):
     """One attention block of a decode step (``cached_self_attention``
     and the MLP / MoE); pos: (B,), the position of all three M-RoPE
     streams."""
@@ -663,14 +702,14 @@ def _attn_decode(cfg, p, ctx, h1, k_cache, v_cache, pos):
     if cfg.pos_mode == "mrope":
         positions = pos[None, :, None].expand(3, b, 1)
     o = cached_self_attention(cfg, p["attn"], ctx, x, k_cache, v_cache, pos,
-                              positions)
+                              positions, kv_positions)
     h1 = h1 + cfg.residual_scale * o
     x = cm.apply_norm(cfg, p["norm2"], h1)
     return h1 + cfg.residual_scale * _ffn(cfg, p, ctx, x)[0]
 
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
-                policy: cm.Policy, mesh=None):
+                policy: cm.Policy, mesh=None, kv_positions=None):
     """One serve step: token (B,) integer -> logits (B, V), states.
 
     ``pos`` is a scalar (every row at the same position) or a (B,) vector
@@ -680,8 +719,10 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
     written into ``states`` in place (no copy of the caches per step), and
     so is each recurrent block's new state (computed whole, then copied
     over the old); the returned states are that same object.  On a
-    model-parallel ``mesh`` the caches are each rank's sequence slice (see
-    ``prefill``) and the logits are whole.
+    model-parallel ``mesh`` the caches are each rank's shards (see
+    ``cached_self_attention``; ``kv_positions`` the absolute positions of
+    a sequence-split cache's entries where they are not a contiguous
+    slice) and the logits are whole.
     """
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype, mesh=mesh)
@@ -702,7 +743,7 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, pos, states,
                 t.copy_(new[name])
         else:
             h = _attn_decode(cfg, p, ctx, h, states[j]["k"][ridx],
-                             states[j]["v"][ridx], pos)
+                             states[j]["v"][ridx], pos, kv_positions)
     h = cm.apply_norm(cfg, params["final_norm"], h)
     return _whole_logits(cfg, params, h, mesh)[:, 0], states
 

@@ -140,15 +140,17 @@ def decode_state_init(cfg, batch_size: int, max_len: int, device="cuda"):
     return lm.decode_state_init(cfg, batch_size, max_len, device=device)
 
 
-def decode_step(cfg, params, token, pos, states, policy, mesh=None):
+def decode_step(cfg, params, token, pos, states, policy, mesh=None,
+                kv_positions=None):
     """``pos``: scalar (aligned batch) or (B,) per-slot positions
-    (continuous batching; decoder-only LMs only)."""
+    (continuous batching; decoder-only LMs only).  ``kv_positions``: see
+    ``lm.decode_step`` (the slot pool's paged caches)."""
     mesh = model_parallel_mesh(mesh)
     if cfg.is_encdec:
         return encdec.decode_step(cfg, params, token, pos, states, policy,
                                   mesh=mesh)
     return lm.decode_step(cfg, params, token, pos, states, policy,
-                          mesh=mesh)
+                          mesh=mesh, kv_positions=kv_positions)
 
 
 def block_decode_init(cfg, btype: str, batch_size: int, max_len: int,

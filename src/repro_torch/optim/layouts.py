@@ -52,6 +52,30 @@ dtype; the parameter computed in f32 and rounded once):
     update, ``v`` and the energy do not depend on those signs, ``proj``
     and ``m`` do.
 
+Over a model-parallel mesh (``update``'s ``mesh`` and ``param_specs``)
+each rank holds its shards of the parameters and of the slots that have
+their parameter's shape (dense m / v, CAME's momentum), and the whole
+factored vectors and low-rank ``proj`` / ``m`` / ``v`` — what
+``state_shardings`` says, as the reference's GSPMD program holds them.
+The split dim of each stacked leaf comes from its spec (``leaf_specs``),
+and every rank computes the whole statistics GSPMD computes across
+shards:
+
+  * factored — the row / column means of g² along the split dim are
+    local sums all-reduced over ``model``; along the other dim each rank
+    computes its part and the parts are all-gathered into the replicated
+    ``v_row`` / ``v_col`` (an expert stack split on E keeps its experts'
+    means local and gathers them).  The RMS clip's sum of squares is
+    reduced once a stacked leaf.  Each rank reconstructs only its own
+    shard of v̂ (and of CAME's instability estimate).
+  * lowrank — ``projᵀ g`` is summed over ``model`` for a row-split g and
+    all-gathered by columns for a column-split one; the energy's
+    denominator is summed; ``proj @ step_r`` is formed for the rank's
+    shard only.  A refresh SVDs the whole gradient, all-gathered on
+    refresh steps only: model rank 0 decomposes it and the others take
+    its singular vectors (an all-reduce against zeros), so every rank
+    holds bit-identical replicated slots.
+
 Updates run under ``no_grad`` and write parameters and slots in place,
 with at most two temporaries the size of a layer's parameter (a
 full-width embedding leaf is 6 GB in f32), except that a factored stacked
@@ -65,6 +89,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.launch import collectives
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.optim.spec import LayoutRule, OptimSpec, rank_stat_key
 from repro_torch.train import optim as adamw_lib
 from repro_torch.train.znorm import N_STATS, STATS_DECAY
@@ -229,9 +255,78 @@ def from_legacy_adamw(adamw_state, params) -> Dict:
 # update
 # ---------------------------------------------------------------------------
 
+def _stacked_spec(ref: str, spec):
+    """A layer's spec behind the stacked leaf's replicated layer dim (the
+    reference's ``layers`` axis maps to no mesh axis)."""
+    if not _is_stacked(ref):
+        return spec
+    parts = (None,) + tuple(spec)
+    if isinstance(spec, shard_lib.Segmented):
+        return shard_lib.Segmented(parts, spec.dim + 1, spec.widths,
+                                   spec.group)
+    return parts
+
+
+def leaf_specs(params, param_shardings) -> Dict[str, tuple]:
+    """{reference path: spec of the reference's leaf}, from
+    ``param_shardings`` ({port leaf path: spec}): a stacked leaf takes
+    its layers' spec behind its layer dim.  ``state_shardings`` gives a
+    slot its leaf's spec where their shapes match; ``update`` reads the
+    split dim of each leaf from it."""
+    specs = [param_shardings[path]
+             for path, _ in adamw_lib.named_leaves(params)]
+    return {ref: _stacked_spec(ref, members[0][1])
+            for ref, members in _groups(params, specs).items()}
+
+
+class _Shards:
+    """How a rank holds one matrix the layouts update (a layer of a
+    stacked leaf, a stacked vector leaf, or an unstacked leaf): its
+    ``spec`` (one entry a dim, leading dims included) and ``whole`` shape
+    on ``mesh``.  None stands for a matrix every rank holds whole."""
+
+    def __init__(self, mesh, spec, whole):
+        self.mesh, self.spec, self.whole = mesh, spec, tuple(whole)
+        nd = len(self.whole)
+        lead = list(range(nd - 2))
+        self.row_spec = shard_lib.sub_spec(spec, lead + [nd - 2])
+        self.col_spec = shard_lib.sub_spec(spec, lead + [nd - 1])
+        # (..., n, r) and (..., r, m): the low-rank projection and moments
+        self.proj_spec = shard_lib.sub_spec(spec, lead + [nd - 2, nd])
+        self.red_spec = shard_lib.sub_spec(spec, lead + [nd, nd - 1])
+        parts = tuple(spec) + (None,) * nd
+        self.rows_split = shard_lib.is_sharded(parts[nd - 2:nd - 1])
+        self.cols_split = shard_lib.is_sharded(parts[nd - 1:nd])
+
+    def gather(self, x, spec):
+        return shard_lib.gather_leaf(x, spec, self.mesh)
+
+    def local(self, x, spec):
+        return shard_lib.shard_leaf(x, spec, self.mesh)
+
+    def sum(self, x):
+        return collectives.all_reduce(x, self.mesh, "model")
+
+
+def _matrix_specs(ref, members, specs, stack_vectors: bool):
+    """The spec of each matrix ``update`` hands the layouts for one
+    reference leaf: the stacked leaf's for a stacked vector leaf (one
+    matrix), a layer's (the stacked spec without its layer dim) for a
+    stacked matrix leaf, the leaf's own otherwise; None where nothing is
+    split."""
+    spec = specs.get(ref) if specs is not None else None
+    if spec is None or not shard_lib.is_sharded(tuple(spec)):
+        return [None] * (1 if stack_vectors or not _is_stacked(ref)
+                         else len(members))
+    if stack_vectors or not _is_stacked(ref):
+        return [spec]
+    layer = shard_lib.sub_spec(spec, range(1, len(tuple(spec))))
+    return [layer] * len(members)
+
+
 @torch.no_grad()
 def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
-           gnorm=None):
+           gnorm=None, mesh=None, param_specs=None):
     """Updates ``params`` and ``state`` in place; returns (params, state,
     metrics, rank_energy).
 
@@ -241,7 +336,11 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
     leaves — what ``update_rank_stats`` folds into ``budget_stats`` for
     the scheduled step's ``RankController``.  Empty for specs without
     controller rules.  ``gnorm``: the gradient norm where the leaves are
-    shards (a model-parallel step); by default theirs."""
+    shards (a model-parallel step); by default theirs.  ``mesh`` and
+    ``param_specs`` ({port leaf path: spec}, ``launch.sharding.
+    param_shardings`` of the whole parameters): a model-parallel mesh
+    whose ranks hold ``params`` and ``state`` as ``state_shardings``
+    shards them (module doc)."""
     if gnorm is None:
         gnorm = adamw_lib.global_norm(grads)
     flat_g = adamw_lib.tree_leaves(grads)
@@ -254,6 +353,9 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
     bc1 = 1.0 - spec.b1 ** count
     bc2 = 1.0 - spec.b2 ** count
     ctrl_idx = set(spec.controller_rule_indices())
+    specs = None
+    if param_specs is not None and collectives.model_size(mesh) > 1:
+        specs = leaf_specs(params, param_specs)
 
     energies: Dict[int, list] = {}
     for ref, members in _groups(params, flat_g).items():
@@ -270,13 +372,16 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
         else:
             (p, g), = members
             layers = [(slots, p, g)]
+        mspecs = _matrix_specs(ref, members, specs, stack)
         if "proj" in slots:
             energy = _lowrank_update(layers, lr, spec, rule, bc1, bc2,
-                                     count, with_energy=idx in ctrl_idx)
+                                     count, with_energy=idx in ctrl_idx,
+                                     mesh=mesh, specs=mspecs)
             if idx in ctrl_idx:
                 energies.setdefault(idx, []).append(energy)
         elif "v_row" in slots:
-            _factored_update(layers, lr, spec, rule, bc2)
+            _factored_update(layers, lr, spec, rule, bc2, mesh=mesh,
+                             specs=mspecs)
         else:
             for s, p, g in layers:
                 adamw_lib.adamw_leaf_update(g, s["m"], s["v"], p, lr, spec,
@@ -289,12 +394,15 @@ def update(grads, state: Dict, params, lr: float, spec: OptimSpec,
     return params, state, {"grad_norm": gnorm}, rank_energy
 
 
-def _rank1(row, col, out=None):
+def _rank1(row, col, out=None, sh: Optional[_Shards] = None):
     """Outer-product second-moment estimate, normalized by the row mean
-    (Adafactor eq. 4): row (..., n), col (..., m) -> (..., n, m)."""
+    (Adafactor eq. 4): row (..., n), col (..., m) -> (..., n, m); with
+    ``sh`` the whole row and col give this rank's shard of it."""
     denom = torch.clamp(torch.mean(row, dim=-1, keepdim=True), min=_TINY)
-    return torch.mul((row / denom)[..., :, None], col[..., None, :],
-                     out=out)
+    row = row / denom
+    if sh is not None:
+        row, col = sh.local(row, sh.row_spec), sh.local(col, sh.col_spec)
+    return torch.mul(row[..., :, None], col[..., None, :], out=out)
 
 
 def _ema_(acc, decay: float, x) -> None:
@@ -302,27 +410,53 @@ def _ema_(acc, decay: float, x) -> None:
     acc.mul_(decay).add_(x.mul_(1 - decay))
 
 
-def _factored_update(layers, lr, spec: OptimSpec, rule: LayoutRule, bc2):
+def _mean_sq_stats(x, sh: Optional[_Shards]):
+    """(row means, column means) of ``x`` (..., n, m) over the whole
+    matrix, whole on every rank: along a split dim the local sums are
+    summed over ``model``, along the other the ranks' parts gathered."""
+    if sh is None:
+        return torch.mean(x, dim=-1), torch.mean(x, dim=-2)
+    row, col = torch.sum(x, dim=-1), torch.sum(x, dim=-2)
+    if sh.cols_split:
+        row = sh.sum(row)
+    if sh.rows_split:
+        col = sh.sum(col)
+    row = sh.gather(row / sh.whole[-1], sh.row_spec)
+    col = sh.gather(col / sh.whole[-2], sh.col_spec)
+    return row, col
+
+
+def _factored_update(layers, lr, spec: OptimSpec, rule: LayoutRule, bc2,
+                     mesh=None, specs=None):
     """``layers``: (slots, param, grad) of each layer of one stacked leaf
-    (or the leaf itself)."""
+    (or the leaf itself); ``specs``: each one's spec on ``mesh`` (None:
+    whole)."""
+    specs = specs or [None] * len(layers)
+    shards = [None if sp is None else
+              _Shards(mesh, sp, tuple(s["v_row"].shape)
+                      + (s["v_col"].shape[-1],))
+              for (s, _, _), sp in zip(layers, specs)]
     # pass 1: second moments and the normalized update of every layer,
     # whose RMS over the whole stacked leaf sets the clip
     us, sq, n = [], 0.0, 0
-    for s, p, g in layers:
+    for (s, p, g), sh in zip(layers, shards):
         g32 = g.to(torch.float32)
         g2 = g32 * g32
-        _ema_(s["v_row"], spec.b2, torch.mean(g2, dim=-1))
-        _ema_(s["v_col"], spec.b2, torch.mean(g2, dim=-2))
+        row, col = _mean_sq_stats(g2, sh)
         del g2
-        u = _rank1(s["v_row"] / bc2, s["v_col"] / bc2)
+        _ema_(s["v_row"], spec.b2, row)
+        _ema_(s["v_col"], spec.b2, col)
+        u = _rank1(s["v_row"] / bc2, s["v_col"] / bc2, sh=sh)
         u.sqrt_().add_(spec.eps)
         torch.div(g32, u, out=u)
         sq = sq + torch.linalg.vector_norm(u).square()
-        n += u.numel()
+        n += u.numel() if sh is None else math.prod(sh.whole)
         us.append(u)
+    if shards[0] is not None:
+        sq = shards[0].sum(sq)           # once a stacked leaf
     clip = torch.clamp(torch.sqrt(sq / n) / spec.clip_threshold, min=1.0)
     # pass 2: clip, CAME's confidence-guided momentum, the parameter
-    for i, (s, p, _) in enumerate(layers):
+    for i, ((s, p, _), sh) in enumerate(zip(layers, shards)):
         u, us[i] = us[i], None
         u.div_(clip)
         if rule.momentum:
@@ -331,9 +465,10 @@ def _factored_update(layers, lr, spec: OptimSpec, rule: LayoutRule, bc2):
             m.mul_(spec.b1).add_(t)
             instab = torch.sub(u, m, out=t).square_()
             del u
-            _ema_(s["u_row"], spec.b3, torch.mean(instab, dim=-1))
-            _ema_(s["u_col"], spec.b3, torch.mean(instab, dim=-2))
-            step = _rank1(s["u_row"], s["u_col"], out=instab)
+            row, col = _mean_sq_stats(instab, sh)
+            _ema_(s["u_row"], spec.b3, row)
+            _ema_(s["u_col"], spec.b3, col)
+            step = _rank1(s["u_row"], s["u_col"], out=instab, sh=sh)
             step.sqrt_().add_(spec.eps)
             step = torch.div(m, step, out=step)
         else:
@@ -341,43 +476,87 @@ def _factored_update(layers, lr, spec: OptimSpec, rule: LayoutRule, bc2):
         adamw_lib.apply_step(p, step, lr, spec.weight_decay)
 
 
+def _top_left(g32, r: int):
+    """The top-``r`` left singular vectors of ``g32`` (..., n, m)."""
+    return torch.linalg.svd(g32, full_matrices=False).U[..., :, :r]
+
+
+def _rotate(p_new, proj, m, v):
+    t = p_new.transpose(-1, -2) @ proj                       # (..., r, r)
+    return p_new, t @ m, (t * t) @ v
+
+
 def refresh_subspace(g32, proj, m, v):
     """One low-rank leaf's subspace refresh: the projection becomes the
     top-r left singular vectors of the gradient (``torch.linalg.svd``),
     the moments are rotated into it (``t = P_new^T P_old``, ``m <- t m``,
     ``v <- (t*t) v``).  Returns (proj, m, v), new tensors."""
-    p_new = torch.linalg.svd(g32, full_matrices=False).U[
-        ..., :, :proj.shape[-1]]
-    t = p_new.transpose(-1, -2) @ proj                       # (..., r, r)
-    return p_new, t @ m, (t * t) @ v
+    return _rotate(_top_left(g32, proj.shape[-1]), proj, m, v)
+
+
+def _refresh_sharded(g32, proj, m, v, sh: _Shards):
+    """``refresh_subspace`` of a sharded gradient: the whole gradient
+    all-gathered, model rank 0's singular vectors taken by every rank
+    (the others contribute zeros to an all-reduce), so the replicated
+    slots stay bit-identical across the ranks."""
+    whole = sh.gather(g32, sh.spec)
+    if collectives.index(sh.mesh, "model") == 0:
+        p_new = _top_left(whole, proj.shape[-1]).contiguous()
+    else:
+        p_new = torch.zeros_like(proj)
+    del whole
+    p_new = collectives.all_reduce_(p_new, sh.mesh, "model")
+    return _rotate(p_new, proj, m, v)
 
 
 def _lowrank_update(layers, lr, spec: OptimSpec, rule: LayoutRule,
-                    bc1, bc2, count: int, with_energy: bool):
+                    bc1, bc2, count: int, with_energy: bool, mesh=None,
+                    specs=None):
     """Returns the captured energy of the stacked leaf (``None`` unless
-    ``with_energy``): one ratio of sums over all its layers."""
+    ``with_energy``): one ratio of sums over all its layers.  ``specs``:
+    each layer's spec on ``mesh`` (None: whole)."""
+    specs = specs or [None] * len(layers)
     refresh_every = rule.refresh_every if rule is not None else 1
     refresh = (count - 1) % refresh_every == 0
     num = den = 0.0
-    for s, p, g in layers:
+    sharded = False
+    for (s, p, g), sp in zip(layers, specs):
         g32 = g.to(torch.float32)
         proj, m, v = s["proj"], s["m"], s["v"]
+        # the whole matrix: proj (..., n, r), m (..., r, m)
+        sh = (None if sp is None else _Shards(
+            mesh, sp, tuple(proj.shape[:-1]) + (m.shape[-1],)))
+        sharded = sharded or sh is not None
         if refresh:
-            p_new, m, v = refresh_subspace(g32, proj, m, v)
+            p_new, m, v = (refresh_subspace(g32, proj, m, v) if sh is None
+                           else _refresh_sharded(g32, proj, m, v, sh))
             proj.copy_(p_new)
             del p_new
-        g_r = proj.transpose(-1, -2) @ g32                   # (..., r, m)
+        if sh is None:
+            g_r = proj.transpose(-1, -2) @ g32               # (..., r, m)
+        else:
+            g_r = sh.local(proj, sh.proj_spec).transpose(-1, -2) @ g32
+            if sh.rows_split:
+                g_r = sh.sum(g_r)
+            g_r = sh.gather(g_r, sh.red_spec)
         if with_energy:
             num = num + torch.sum(g_r * g_r)
             den = den + torch.linalg.vector_norm(g32).square()
         m_new = spec.b1 * m + (1 - spec.b1) * g_r
         v_new = spec.b2 * v + (1 - spec.b2) * g_r * g_r
         step_r = (m_new / bc1) / (torch.sqrt(v_new / bc2) + spec.eps)
-        adamw_lib.apply_step(p, proj @ step_r, lr, spec.weight_decay)
+        if sh is None:
+            step = proj @ step_r
+        else:
+            step = (sh.local(proj, sh.proj_spec)
+                    @ sh.local(step_r, sh.red_spec))
+        adamw_lib.apply_step(p, step, lr, spec.weight_decay)
         s["m"].copy_(m_new)
         s["v"].copy_(v_new)
     if not with_energy:
         return None
+    if sharded:
+        den = collectives.all_reduce(den, mesh, "model")
     return num / torch.clamp(den, min=_TINY)
 
 
@@ -466,20 +645,17 @@ def state_shardings(state: Dict, params, param_shardings, replicated):
     """Shardings for the path-keyed state: a slot inherits its stacked
     parameter's sharding when shapes match (dense m/v, factored momentum)
     and is replicated otherwise (factored vectors, low-rank subspace
-    moments — all tiny).  ``param_shardings``: {leaf path: spec} of
-    ``params`` (``launch.sharding.param_shardings``); the stacked leaf of
-    a layer group takes its layers' spec behind a replicated layer dim, as
-    the reference's ``layers`` axis maps to no mesh axis."""
-    specs = [param_shardings[path]
-             for path, _ in adamw_lib.named_leaves(params)]
+    moments — all tiny).  ``param_shardings``: {leaf path: spec} of the
+    whole ``params`` (``launch.sharding.param_shardings``); the stacked
+    leaf of a layer group takes its layers' spec behind a replicated
+    layer dim (``leaf_specs``), as the reference's ``layers`` axis maps
+    to no mesh axis."""
+    specs = leaf_specs(params, param_shardings)
     leaves = {}
-    for ref, members in _groups(params, specs).items():
-        spec = members[0][1]
-        if _is_stacked(ref):
-            spec = (None,) + tuple(spec)
+    for ref, members in _groups(params).items():
         shape = _stacked_shape(ref, members)
         leaves[ref] = {
-            slot: (spec if tuple(arr.shape) == shape else replicated)
+            slot: (specs[ref] if tuple(arr.shape) == shape else replicated)
             for slot, arr in state["leaves"][ref].items()}
     return {"count": replicated, "leaves": leaves}
 

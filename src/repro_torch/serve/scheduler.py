@@ -19,6 +19,19 @@ admitted or evicted around it: every decode step runs at the pool's
 fixed geometry (``max_slots`` rows, ``slot_len`` cache positions), each
 row's logits depend only on its own row, and its randomness is keyed by
 (seed, uid, n_generated), never by batch composition.
+
+Over a model-parallel mesh (``mesh`` with a ``model`` axis of M ranks)
+each rank of the model group runs a Scheduler over its shard of the pool
+(``serve/pool.py``) and every rank must take the same decisions in the
+same order, or the collectives of the steps pair up wrongly.  Model rank
+0 decides the admissions of each tick and sends them (the requests
+themselves: uid, prompt, max_new, temperature, seed) to the others in
+one small all-reduce; every later decision follows from the same slots,
+so it agrees.  A rank admits a request it was sent even before its own
+``submit`` of that uid (which then returns the admitted request).  Every
+rank gets every result; ``agree`` hands every rank model rank 0's view
+of a flag (busy, stop), so ``ServeSession``'s inline loops and its async
+loop tick in lockstep.
 """
 from __future__ import annotations
 
@@ -29,7 +42,9 @@ from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.launch import collectives
 from repro_torch.launch import train_steps
 from repro_torch.serve import pool as pool_lib
 from repro_torch.serve import sampling
@@ -79,13 +94,18 @@ class Scheduler:
     queue; device state: the paged pool.  Step functions are built once
     (decode) or once per distinct (chunk_len, fresh) pair (prefill)."""
 
-    def __init__(self, spec: ServeSpec, params, policy=None):
+    def __init__(self, spec: ServeSpec, params, policy=None, mesh=None):
         self.spec = spec
         self.cfg = spec.config
         self.policy = policy if policy is not None else spec.policy
         self.params = params
+        self.mesh = mesh if collectives.model_size(mesh) > 1 else None
+        self.shards = (None if self.mesh is None else
+                       pool_lib.pool_shards(self.cfg, spec, self.mesh))
+        self._adopted: Dict[int, Request] = {}
         self.alloc = pool_lib.PageAllocator(spec.total_pages)
-        self.pool = pool_lib.init_pool(self.cfg, spec, device=spec.device)
+        self.pool = pool_lib.init_pool(self.cfg, spec, device=spec.device,
+                                       shards=self.shards)
         self.page_table = np.zeros((spec.max_slots, spec.pages_per_slot),
                                    np.int64)
         self.slots = [_Slot(i) for i in range(spec.max_slots)]
@@ -98,9 +118,10 @@ class Scheduler:
         self._uid = 0
         self._rr = 0
         self._decode_fn = train_steps.make_slot_serve_step(
-            self.cfg, self.policy, spec.top_k, device=spec.device)
+            self.cfg, self.policy, spec.top_k, device=spec.device,
+            shards=self.shards)
         self._reset_fn = train_steps.make_slot_reset_step(
-            self.cfg, device=spec.device)
+            self.cfg, device=spec.device, shards=self.shards)
         self._prefill_fns: Dict[Tuple[int, bool], object] = {}
 
     # ------------------------------------------------------------------
@@ -120,6 +141,8 @@ class Scheduler:
         if uid is None:
             uid = self._uid
         self._uid = max(self._uid, uid) + 1
+        if uid in self._adopted:          # model rank 0 admitted it already
+            return self._adopted.pop(uid)
         req = Request(uid=uid, prompt=prompt, max_new=int(max_new),
                       temperature=float(temperature), seed=int(seed),
                       t_submit=time.monotonic())
@@ -149,9 +172,22 @@ class Scheduler:
         did = self._decode_tick() or did
         return did
 
+    def agree(self, flag: bool) -> bool:
+        """Model rank 0's ``flag`` on every rank of the model group (one
+        all-reduce); ``flag`` itself without a model axis."""
+        if self.mesh is None:
+            return flag
+        x = torch.tensor([int(flag) if self._rank0 else 0],
+                         dtype=torch.int64, device=self.spec.device)
+        return bool(collectives.all_reduce_(x, self.mesh, "model")[0])
+
+    @property
+    def _rank0(self) -> bool:
+        return collectives.index(self.mesh, "model") == 0
+
     def drain(self) -> List[Request]:
         """Tick until every queued/resident request completes."""
-        while self.busy:
+        while self.agree(self.busy):
             if not self.tick():
                 raise RuntimeError(
                     "scheduler stalled with work pending: "
@@ -162,16 +198,67 @@ class Scheduler:
 
     # ------------------------------------------------------------------
 
-    def _admit(self) -> None:
-        while self.queue:
+    def _admissible(self) -> List[Request]:
+        """The queue's head requests this tick admits (FCFS while a slot
+        and the request's pages are free), popped from the queue."""
+        out = []
+        free = sum(s.req is None for s in self.slots)
+        pages = self.alloc.n_free
+        while self.queue and len(out) < free:
             req = self.queue[0]
-            slot = next((s for s in self.slots if s.req is None), None)
-            if slot is None:
-                return
             n_pages = self.spec.pages_needed(len(req.prompt), req.max_new)
-            if not self.alloc.can_alloc(n_pages):
-                return
-            self.queue.popleft()
+            if n_pages > pages:
+                break
+            pages -= n_pages
+            out.append(self.queue.popleft())
+        return out
+
+    def _agreed_admissions(self) -> List[Request]:
+        """Model rank 0's admissions, sent to every rank of the model group
+        as int64 words (uid, prompt length, max_new, seed, temperature's
+        bits, the prompt) in one all-reduce against zeros, after a header
+        all-reduce of their count and length."""
+        mine = self._admissible() if self._rank0 else []
+        words = []
+        for r in mine:
+            words += [r.uid, len(r.prompt), r.max_new, r.seed,
+                      int(np.float32(r.temperature).view(np.int32))]
+            words += [int(t) for t in r.prompt]
+        dev = self.spec.device
+        head = torch.tensor([len(mine), len(words)], dtype=torch.int64,
+                            device=dev)
+        n, size = collectives.all_reduce_(head, self.mesh, "model").tolist()
+        if n == 0:
+            return []
+        body = torch.zeros((size,), dtype=torch.int64, device=dev)
+        if self._rank0:
+            body.copy_(torch.tensor(words, dtype=torch.int64))
+        body = collectives.all_reduce_(body, self.mesh, "model").tolist()
+        if self._rank0:
+            return mine
+        out, i = [], 0
+        for _ in range(n):
+            uid, n_prompt, max_new, seed, temp = body[i:i + 5]
+            prompt = np.asarray(body[i + 5:i + 5 + n_prompt], np.int32)
+            i += 5 + n_prompt
+            req = next((r for r in self.queue if r.uid == uid), None)
+            if req is not None:
+                self.queue.remove(req)
+            else:
+                req = Request(uid=uid, prompt=prompt, max_new=max_new,
+                              temperature=float(np.int32(temp).view(
+                                  np.float32)), seed=seed,
+                              t_submit=time.monotonic())
+                self._adopted[uid] = req
+            out.append(req)
+        return out
+
+    def _admit(self) -> None:
+        admitted = (self._admissible() if self.mesh is None
+                    else self._agreed_admissions())
+        for req in admitted:
+            slot = next(s for s in self.slots if s.req is None)
+            n_pages = self.spec.pages_needed(len(req.prompt), req.max_new)
             slot.req = req
             slot.pages = self.alloc.alloc(n_pages)
             self.page_table[slot.idx] = 0
@@ -196,7 +283,7 @@ class Scheduler:
         if fn is None:
             fn = train_steps.make_slot_prefill_step(
                 self.cfg, self.policy, chunk_len, fresh,
-                device=self.spec.device)
+                device=self.spec.device, shards=self.shards)
             self._prefill_fns[(chunk_len, fresh)] = fn
         return fn
 

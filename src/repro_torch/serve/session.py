@@ -9,6 +9,12 @@ the "async host loop": callers ``submit`` from any thread and block on
 ``RequestHandle.result()`` while the loop keeps the device fed).
 
 Built from a :class:`~repro_torch.serve.spec.ServeSpec` plus parameters.
+Over a model-parallel mesh every rank of the model group builds the
+session with its shards of the parameters and submits the same requests
+(the same uids); the scheduler's admissions come from model rank 0
+(``serve/scheduler.py``), and ``run_until_idle`` and the async loop take
+rank 0's busy and stop flags, so the ranks tick in lockstep.  Stop the
+loop on every rank; results come back on every rank.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.launch import report as report_lib
 from repro_torch.serve import pool as pool_lib
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.scheduler import Request, Scheduler, Status
 from repro_torch.serve.spec import ServeSpec
 
 
@@ -57,9 +63,9 @@ class ServeSession:
             tokens = h.result(timeout=60)
     """
 
-    def __init__(self, spec: ServeSpec, params, policy=None):
+    def __init__(self, spec: ServeSpec, params, policy=None, mesh=None):
         self.spec = spec
-        self.scheduler = Scheduler(spec, params, policy=policy)
+        self.scheduler = Scheduler(spec, params, policy=policy, mesh=mesh)
         self._handles: Dict[int, RequestHandle] = {}
         self._n_completed = 0
         self._lock = threading.Lock()
@@ -79,7 +85,10 @@ class ServeSession:
                                         temperature=temperature,
                                         seed=seed, uid=uid)
             h = RequestHandle(req)
-            self._handles[req.uid] = h
+            if req.status is Status.DONE:     # served before this submit
+                h._done.set()
+            else:
+                self._handles[req.uid] = h
         self._wake.set()
         return h
 
@@ -97,7 +106,7 @@ class ServeSession:
     def run_until_idle(self) -> List[Request]:
         """Drive ticks until all submitted work completes (inline —
         do not mix with a running background loop)."""
-        while self.busy:
+        while self.scheduler.agree(self.busy):
             if not self.step():
                 raise RuntimeError("serve session stalled with work "
                                    "pending")
@@ -144,9 +153,10 @@ class ServeSession:
         return self
 
     def _loop(self) -> None:
+        agree = self.scheduler.agree
         try:
-            while not self._stop.is_set():
-                if not self.step() and not self.busy:
+            while not agree(self._stop.is_set()):
+                if not self.step() and not agree(self.busy):
                     # idle: park until the next submit (or stop) wakes us
                     self._wake.clear()
                     self._wake.wait(timeout=0.05)
@@ -163,7 +173,9 @@ class ServeSession:
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
-            self._thread.join(timeout=10.0)
+            # a model rank's loop ends when rank 0's does
+            self._thread.join(timeout=10.0 if self.scheduler.mesh is None
+                              else 120.0)
             self._thread = None
         if self.error is not None:
             raise RuntimeError("the serving loop failed") from self.error

@@ -13,12 +13,13 @@ as the reference's optimized dry run sets it), f32, two steps under the
 exact estimator and under ``det_topk``; then a prefill and four decode
 steps.  The pair also holds ``shard_params`` / ``gather_params`` as a
 bit-exact round trip, the ranks' replicated leaves bit-identical, and
-``Run(mesh="host", model_parallel=2)`` against a one-rank Run.
-Tolerances stand beside each assert."""
+``Run(mesh="host", model_parallel=2)`` against a one-rank Run.  The
+optimizer layouts, checkpoints, generation, serving and LoRA over the
+model axis are ``test_torch_tp_state.py``'s.  Tolerances stand beside
+each assert."""
 import dataclasses
 import os
 import pickle
-import re
 import subprocess
 import sys
 
@@ -32,7 +33,6 @@ import torch.multiprocessing as mp
 from repro.configs import get_config as jax_get_config
 from repro.launch import train_steps as jax_train_steps
 from repro_torch import convert
-from repro_torch import optim as optim_lib
 from repro_torch.api import DataSpec, Run, RunSpec
 from repro_torch.core import WTACRSConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -295,15 +295,6 @@ def _rank_main(rank, work):
         run.fit()
         out["run"] = {"history": run.history,
                       "params": _numpy(run.cfg, run.gathered_params())}
-        for what, call in (("serve", lambda: run.serve()),
-                           ("save", lambda: run.save()),
-                           ("generate", lambda: run.generate(
-                               np.zeros((1, 4), np.int64), 2))):
-            try:
-                call()
-                out[("refused", what)] = None
-            except (NotImplementedError, ValueError) as e:
-                out[("refused", what)] = str(e)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -464,34 +455,3 @@ def test_model_parallel_run_equals_the_one_rank_run(pair, one_rank_run):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
                                    err_msg=path)
     assert r0["run"]["history"] == r1["run"]["history"]
-
-
-@pytest.mark.parametrize("what", ["serve", "save", "generate"])
-def test_model_parallel_run_refuses_what_is_not_ported(pair, what):
-    _, ranks = pair
-    for rank in ranks:
-        msg = rank[("refused", what)]
-        assert msg is not None
-        if what != "save":     # no checkpoint_dir: refused before A.15
-            assert "A.15" in msg, msg
-
-
-# ---------------------------------------------------------------------------
-# what still raises names a ROADMAP item that exists
-# ---------------------------------------------------------------------------
-
-def _roadmap_items():
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        return set(re.findall(r"\*\*(A\.\d+)[:*]", f.read()))
-
-
-def test_sharded_optimizer_layouts_raise():
-    mesh = mesh_lib.meta_mesh(mesh_lib.make_mesh((1, 2), ("data", "model")))
-    cfg = get_config("qwen2.5-3b", reduced=True)
-    spec = optim_lib.OptimSpec.of(
-        dict(pattern="*", layout="factored", momentum=False))
-    with pytest.raises(NotImplementedError, match=r"A\.14"):
-        train_steps.make_train_step(
-            cfg, cm.Policy(), spec, optim.linear_warmup_constant(LR),
-            device="meta", mesh=mesh)
-    assert {"A.14", "A.15", "A.16"} <= _roadmap_items()

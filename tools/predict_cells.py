@@ -7,13 +7,15 @@ Prints one JSON line a cell: the train phase's cell (12-layer qwen2.5-3b,
 B=4, S=1024, WTA-CRS 0.3, AdamW, one rank) and the tp phase's steps at
 model = 2, rank 0 (qwen2.5-3b depth 4, B=2, S=1024; zamba2-2.7b depth 6,
 B=2, S=1024; xlstm-125m depth 2, B=2, S=512; whisper-base, B=4 of 1024
-frames + 1024 tokens): predicted peak bytes,
+frames + 1024 tokens; qwen2.5-3b depth 2 under the factored and low-rank
+optimizer specs): predicted peak bytes,
 flops, bytes accessed, the step's bound on an H100
 (max(flops / 989.4e12, bytes / 3.35e12)), kernel launches, collectives.
 """
 import dataclasses
 import json
 
+from repro_torch import optim as optim_lib
 from repro_torch.configs.base import InputShape
 from repro_torch.core import WTACRSConfig
 from repro_torch.launch import dryrun, mesh as mesh_lib, roofline
@@ -21,8 +23,8 @@ from repro_torch.models import common as cm
 from repro_torch.models.registry import get_config
 
 
-def predict(name, cfg, shape, mesh, policy):
-    c, _, _ = dryrun.trace_step(cfg, shape, mesh, policy)
+def predict(name, cfg, shape, mesh, policy, opt=None):
+    c, _, _ = dryrun.trace_step(cfg, shape, mesh, policy, opt=opt)
     bound = max(c.flops / roofline.PEAK_FLOPS,
                 c.bytes_accessed / roofline.HBM_BW)
     return {"cell": name, "peak_bytes": c.peak,
@@ -60,6 +62,22 @@ def main():
     ]
     for name, cfg, shape, mesh in cells:
         print(json.dumps(predict(name, cfg, shape, mesh, wta)), flush=True)
+    # the tp phase's optimizer legs: qwen2.5-3b depth 2 at model = 2 under
+    # bench_memory.py's factored and low-rank specs (the first step: a
+    # low-rank refresh)
+    specs = {"factored_came": [dict(pattern="*", layout="factored",
+                                    momentum=True)],
+             "factored": [dict(pattern="*", layout="factored",
+                               momentum=False)],
+             "mixed": [dict(pattern="unit/*", layout="lowrank", rank=8),
+                       dict(pattern="embed*", layout="factored",
+                            momentum=False)]}
+    for name, rules in specs.items():
+        print(json.dumps(predict(
+            f"tp_optim {name} (2 layers, B=2, S=1024, model 2, rank 0)",
+            dataclasses.replace(qwen, n_layers=2),
+            InputShape("tp", 1024, 2, "train"), tp, wta,
+            opt=optim_lib.OptimSpec.of(*rules))), flush=True)
 
 
 if __name__ == "__main__":
