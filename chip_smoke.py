@@ -8,6 +8,13 @@ with CUDA; it imports only ``repro_torch`` (never jax, never the JAX
 package).  Phases, each printing one JSON line; any failure exits non-zero:
 
   env      card name and power limit (nvidia-smi), torch and CUDA versions
+  analysis python -m repro_torch.analysis --format json over the port's
+           code (src/repro_torch, this script, tools, examples/torch_*.py)
+           in a subprocess: exit 0, no failing finding; then the tag and
+           parameter-path universes of every arch at published size on
+           meta, each equal to the reduced one the CLI checks against
+           (host only: run in a background process from the script's
+           start, its record read after the last phase)
   build    nvcc-builds the kernel library from src/repro_torch/kernels/csrc
            and reports ptxas registers and spills of the dW, sampled_matmul
            and flash kernels
@@ -50,7 +57,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            gather_scale launch on bulk (so too in optim, moe, moe_wide)
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side;
            then, in a child process with deterministic algorithms on, 2
-           steps of the model at depth 6 (MEMORY_DEPTH) under the
+           steps of the model at depth 3 (MEMORY_DEPTH) under the
            reference's `mixed` OptimSpec in four legs:
            exact and WTA-CRS 0.3 without remat, WTA-CRS under
            remat="wtacrs_names", exact under remat="full" — each remat
@@ -63,7 +70,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            an ESSProportional controller; cache, stats and launch counts
            checked against what the resolved policies imply
   accumulate  the fixed policy for 3 steps at microbatches=2
-  optim    nemotron-4-15b at published width, depth cut 32 -> 2, B=1,
+  optim    nemotron-4-15b at published width, depth cut 32 -> 1, B=1,
            S=2048, WTA-CRS 0.3: 4 make_train_step steps from fresh
            parameters under each of three OptimSpecs of the reference's
            memory benchmark (factored_came, factored, mixed): losses
@@ -73,7 +80,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            leg's widest leaf timed; dense AdamW's state from
            memory_report only
   run      the repro_torch.api façade at published width, depth cut 36 ->
-           12 (RUN_DEPTH): Run(RunSpec(qwen2.5-3b, reduced=False)) under
+           6 (RUN_DEPTH): Run(RunSpec(qwen2.5-3b, reduced=False)) under
            the adaptive
            policy, B=2, S=1024, 4 samples, 8 steps of Run.fit (losses
            falling, launch counts as the resolved policies imply, every
@@ -82,7 +89,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            tokens) bit-equal to its hand-wired prefill-chunk + serve-step
            loop, Run.serve (4 ragged greedy requests) each bit-equal to
            the solo route at the pool's shapes
-  resume   in a child process with deterministic algorithms on: the
+  resume   in a child process with deterministic algorithms on, in the
+           background from the run phase on (its record read here): the
            reduced qwen2.5-3b under the adaptive policy on the card, 6
            uninterrupted Run.fit steps against 3 steps, save (blocking,
            then asynchronous), Run.restore and 3 more: params, optimizer,
@@ -97,7 +105,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
   decode   64 greedy serve_steps from the prefill's (padded) caches, the
            first 8 positions against a teacher-forced forward
   pool     ServeSession (8 slots, paged KV, chunked prefill) on its
-           background loop, qwen2.5-3b at published width cut to 8 layers,
+           background loop, qwen2.5-3b at published width cut to 2 layers,
            serving 12 ragged greedy and 2 sampled requests; each greedy
            request bit-equal to itself served alone, the sampled ones
            repeatable, the solo route counted
@@ -105,8 +113,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            40 -> 4: prefill of 2 x 2048 tokens through make_prefill_step
            (the flash kernel at 64/8 heads, wgmma) and 16 decode steps,
            each held against the model's own forward as in prefill/decode
-  moe      granite-moe-1b-a400m at published width and full depth (24
-           layers, 32 experts top-8): 6 WTA-CRS 0.3 steps at B=4, S=1024
+  moe      granite-moe-1b-a400m at published width, depth cut 24 -> 6
+           (MOE_DEPTH; 32 experts top-8): 6 WTA-CRS 0.3 steps at B=4, S=1024
            (every linear sampled: the router over B*S rows, each expert
            over its capacity slots, every expert's dW in one launch a
            weight); losses falling, lb_loss part of the loss, drop_frac,
@@ -139,9 +147,10 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            forward measured (at random weights the card's bf16 GEMM
            roundings, which differ with the row count, grow through the
            54 layers far past the forward's own floor), the same in f32
-           held against the f32 forward at 5e-2; 4 pool requests each
-           bit-equal to itself alone and to the solo route
-  xlstm    xlstm-125m at published width, depth 12 -> 4: 3 WTA-CRS
+           held against the f32 forward at 5e-2; 4 pool requests at the
+           first 6 layers (one pattern unit) each bit-equal to itself
+           alone and to the solo route
+  xlstm    xlstm-125m at published width, depth 12 -> 2: 3 WTA-CRS
            steps (the last one traced) and 1 exact step at B=4, S=1024,
            the device's idle share of a step (the host's per-time-step
            loop); prefill 2 x 1024 and 16 decode steps held against the
@@ -154,7 +163,8 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            implies (113 row_norms and gather_scale, 197 dW); prefill of 4 x
            2048 (512 patches) through flash's wgmma route at group 6, 16
            M-RoPE decode steps, both held in bf16 against the forward; 4
-           pool requests as in moe; Run.generate on 2 text prompts
+           pool requests as in moe at the first 6 layers; Run.generate on
+           2 text prompts
            bit-equal to the solo route
   whisper  whisper-base at full size (6 + 6 layers, 32768-row learned
            position tables; frame embeddings a stub): 4 WTA-CRS steps
@@ -166,14 +176,14 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            in f32 and in bf16; ServeSpec, prefill and per-row positions
            refused as in the reference
   dp       data parallelism, in child processes: (a) one rank over NCCL,
-           qwen2.5-3b at published width, depth 12, B=4, S=1024, WTA-CRS
+           qwen2.5-3b at published width, depth 6, B=4, S=1024, WTA-CRS
            0.3 on every linear: 3 make_shardmap_dp_step steps under each
            gradient compression (none, bf16, int8), launches as the
            structure implies, the reduction of a gradient-sized tree timed
            with its payload, peaks; under det_topk and deterministic
            algorithms, `none` bit-equal to make_train_step; (b) two ranks
            sharing the card over gloo (CUDA tensors reduced through host
-           memory), depth 4, B=4 (2 a rank): 2 WTA-CRS steps a mode, the
+           memory), depth 2, B=4 (2 a rank): 2 WTA-CRS steps a mode, the
            ranks' parameters bit-identical (sha256), each compressed mean
            of the ranks' own gradients within its quantization bound,
            `none` against one rank on the global batch (exact linears in
@@ -183,16 +193,16 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            one-rank Run's (microbatches 2), ms a step
   tp       tensor and expert parallelism, two ranks sharing the card over
            gloo at model = 2 (one model group): qwen2.5-3b at published
-           width, depth 4, B=2, S=1024: 2 WTA-CRS bf16 steps (loss falls,
+           width, depth 2, B=2, S=1024: 2 WTA-CRS bf16 steps (loss falls,
            launches as the structure implies, the replicated leaves
            bit-identical across the ranks), 2 exact f32 steps held
            against one rank on the gathered parameters, a 2 x 2048
            prefill and 16 decode steps (the KV cache split on its
            sequence) held against one rank at the prefill phase's bf16
-           floor; granite-moe-1b-a400m at published width, depth 6, 2
+           floor; granite-moe-1b-a400m at published width, depth 3, 2
            WTA-CRS steps with 16 experts a rank; dbrx-132b at published
-           width, depth 2, prefill and decode with 8 experts a rank (the
-           distance to one rank measured); qwen2.5-3b at depth 2 under
+           width, depth 1, prefill and decode with 8 experts a rank (the
+           distance to one rank measured); qwen2.5-3b at depth 1 under
            the factored_came / factored / mixed optimizer specs (3
            WTA-CRS bf16 steps, then 3 exact f32 steps held against one
            rank: factored slots and parameters at 1e-4 relative L2;
@@ -228,6 +238,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import glob
 import hashlib
 import json
 import math
@@ -250,6 +261,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import optim as optim_lib  # noqa: E402
+from repro_torch.analysis import policy_check  # noqa: E402
 from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
                               ESSProportional, LoRAConfig, PolicyRules,
@@ -286,8 +298,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}    # f32 outside the tensor cores
 
-ALL_PHASES = ("env", "build", "kernels", "parity", "train", "memory",
-              "adaptive", "accumulate", "optim", "run", "resume",
+ALL_PHASES = ("env", "analysis", "build", "kernels", "parity", "train",
+              "memory", "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
               "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp",
               "tp", "dryrun")
@@ -362,6 +374,8 @@ SMM_EDGE = [(4, 307, 1024, 2056, 896), (2, 40, 300, 4096, 1160),
 # of command-r-35b (64/8 heads of 128) at B=2, S=2048, and the same at
 # nemotron-4-15b's heads
 OPT_STEPS, OPT_B, OPT_S = 4, 1, 2048
+# (32 -> 2 -> 1: the mixed leg's first step SVDs every transformer matrix)
+OPT_DEPTH = 1
 OPT_K = WTACRSConfig(kind="wta_crs", budget=0.3,
                      min_rows=4).budget_rows(OPT_S)
 ROW_NORM_OPTIM = [(OPT_B * OPT_S, 6144), (OPT_B * OPT_S, 24576)]
@@ -374,6 +388,9 @@ FLASH_NEMOTRON = (2, 48, 8, 2048, 2048, 128, True)
 # slots (granite 1280, k = 384; dbrx 640, k = 192), the router the B*S
 # rows (k = 1229 / 614); the prefills' flash heads
 MOE_ARCH, MOE_STEPS, MOE_B, MOE_S = "granite-moe-1b-a400m", 6, 4, 1024
+# the moe phase's depth (24 -> 6 to keep the script within half its time
+# limit; every layer is a MoE block, so the cut keeps every kind of plan)
+MOE_DEPTH = 6
 WIDE_ARCH, WIDE_STEPS, WIDE_B, WIDE_S = "dbrx-132b", 3, 1, 2048
 MOE_WTA = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=4)
 
@@ -397,6 +414,10 @@ EXPERT_RAGGED = [(3, 2, 13, 40, 24, 16), (3, 1, 65, 70, 136, 200),
 # the moe phase's pool: (prompt length, max_new) of 4 greedy requests
 # (also the ssm and xlstm phases')
 MOE_SERVE = [(9, 12), (33, 8), (17, 16), (3, 10)]
+# the ssm and vlm phases serve that pool at 6 layers (zamba2's one pattern
+# unit: five Mamba2 blocks and the shared block; qwen2-vl-2b 28 -> 6): its
+# three-way comparison is decode-bound on the host, ≈ 0.5 s a layer
+SERVE_POOL_DEPTH = 6
 # The recurrent phases, WTA-CRS 0.3 on every linear: zamba2-2.7b at
 # published width, depth cut 54 -> 12 (two pattern units) at B=2, S=2048
 # (k = 614), then at full depth under remat "full" at B=1; xlstm-125m at
@@ -411,9 +432,9 @@ SSM_DW = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
 FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 80, True)
 XLSTM_ARCH, XLSTM_STEPS, XLSTM_B, XLSTM_S = "xlstm-125m", 3, 4, 1024
 # the phase's depth: its steps, prefill and decode are a host loop over
-# time steps, ≈ 27 s a layer in all (12 -> 6 -> 4 to keep the script
-# within its time limit)
-XLSTM_DEPTH = 4
+# time steps, ≈ 20 s a layer in all (12 -> 6 -> 4 -> 2, one mLSTM and one
+# sLSTM block, to keep the script within half its time limit)
+XLSTM_DEPTH = 2
 XLSTM_K = MOE_WTA.budget_rows(XLSTM_S)
 XLSTM_ROW_D = (768, 1536)
 XLSTM_DW = [(768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 768)]
@@ -566,6 +587,103 @@ def ptxas_report(log, source):
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+# ---------------------------------------------------------------------------
+# analysis phase
+# ---------------------------------------------------------------------------
+
+ANALYSIS_PROC = []
+
+
+def start_analysis():
+    """``analysis_child`` in the background from the start (host CPU only,
+    no card, so it needs no kernel): its seconds hide behind the card's
+    phases, and ``phase_analysis`` reads its record at the end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    log = tempfile.TemporaryFile("w+", dir=os.path.join(here, "build"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    ANALYSIS_PROC.append((log, subprocess.Popen(
+        [sys.executable, "-c", CHILD, here, "analysis_child"],
+        stdout=log, stderr=subprocess.STDOUT, env=env)))
+
+
+def stop_analysis():
+    for log, proc in ANALYSIS_PROC:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def analysis_child():
+    """``python -m repro_torch.analysis --format json`` over the port's
+    code (the package, this script, the tools, the port's examples), in a
+    subprocess from the repo's root as its users run it (the live reduced
+    universes, the port's baseline, paths relative to the root as the
+    baseline's fingerprints are); then both universes reduced and at
+    published size on ``meta`` for every arch.  Prints one JSON object:
+    the CLI's exit code and output, each part's seconds, the archs whose
+    published-size universe differs from the reduced one."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    examples = sorted(glob.glob(os.path.join(here, "examples", "torch_*.py")))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json",
+         "src/repro_torch", "chip_smoke.py", "tools",
+         *(os.path.relpath(p, here) for p in examples)],
+        capture_output=True, text=True, cwd=here, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(here, "src")))
+    seconds, universes = {"cli": time.perf_counter() - t0}, {}
+    for reduced in (True, False):
+        size = "reduced" if reduced else "full"
+        for kind, build in (("tags", policy_check.tag_universe),
+                            ("paths", policy_check.param_path_universe)):
+            t0 = time.perf_counter()
+            universes[kind, size] = build(reduced=reduced)
+            seconds[f"{kind}_{size}"] = time.perf_counter() - t0
+    differ = {}
+    for kind in ("tags", "paths"):
+        small, full = universes[kind, "reduced"], universes[kind, "full"]
+        differ[kind] = sorted(a for a in set(small) | set(full)
+                              if small.get(a) != full.get(a))
+    print(json.dumps({
+        "cli_rc": done.returncode, "cli_stdout": done.stdout,
+        "cli_stderr": done.stderr[-3000:], "seconds": seconds,
+        "differ": differ, "archs": len(universes["tags", "full"]),
+        "distinct": {f"{kind}_{size}": len(set().union(*u.values()))
+                     for (kind, size), u in universes.items()}}))
+
+
+def phase_analysis():
+    """The record of ``analysis_child`` (started in the background by
+    ``start_analysis``): the CLI exited 0 with no failing finding, and
+    every arch's published-size universes equal the reduced ones the CLI
+    checks against."""
+    log, proc = ANALYSIS_PROC[0]
+    proc.wait(timeout=600)
+    log.seek(0)
+    out = log.read()
+    if proc.returncode != 0:
+        fail(f"analysis: the child exited {proc.returncode}: {out[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    if rec["cli_rc"] != 0:
+        fail(f"analysis: the CLI exited {rec['cli_rc']}: "
+             f"{rec['cli_stdout'][-3000:]} {rec['cli_stderr']}")
+    doc = json.loads(rec["cli_stdout"])
+    if doc["failing"] != 0:
+        fail(f"analysis: {doc['failing']} failing findings: {doc}")
+    if any(rec["differ"].values()):
+        fail(f"analysis: published-size universes differ from the reduced "
+             f"ones the CLI checks against: {rec['differ']}")
+    by_severity = {}
+    for f in doc["findings"]:
+        by_severity[f["severity"]] = by_severity.get(f["severity"], 0) + 1
+    emit({"phase": "analysis", "seconds": rec["seconds"],
+          "findings_by_severity": by_severity,
+          "suppressed": doc["suppressed"], "failing": doc["failing"],
+          "archs": rec["archs"], "distinct": rec["distinct"]})
 
 
 # ---------------------------------------------------------------------------
@@ -1651,14 +1769,16 @@ def phase_train(cfg, ds, n_steps):
     return launches, peak
 
 
-def mlp_policies():
+def mlp_policies(ctrl=None):
     """The fixed and adaptive policies of the reference's convergence
     benchmark: WTA-CRS on the MLP linears with the dataset gradient-norm
     cache driving the probabilities, exact attention; budget 0.3 fixed, or
-    pinned by an ESS-proportional controller."""
+    pinned by an ESS-proportional controller (``ctrl``, by default the
+    benchmark's, whose far plateau takes 7 steps)."""
     rule_cfg = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=2,
                             norm_source="cached_grad")
-    ctrl = ESSProportional(b_min=0.1, b_max=0.6, levels=6, warmup=2)
+    if ctrl is None:
+        ctrl = ESSProportional(b_min=0.1, b_max=0.6, levels=6, warmup=2)
     fixed = cm.Policy(rules=PolicyRules.of(
         Rule.of("*mlp*", rule_cfg, BudgetSchedule.constant(0.3))))
     adaptive = cm.Policy(rules=PolicyRules.of(
@@ -1746,15 +1866,16 @@ def run_cached(cfg, policy, n_steps, ds, microbatches=1):
     return out
 
 
-def phase_adaptive(cfg, n_steps=10):
-    """The fixed and the adaptive (ESSProportional) policy, 10 steps each
-    through make_scheduled_train_step with the znorm cache, on 8 samples."""
+def phase_adaptive(cfg, steps):
+    """The fixed and the adaptive (ESSProportional) policy, ``steps`` steps
+    each through make_scheduled_train_step with the znorm cache, on 8
+    samples."""
     ds = data.SyntheticLM(cfg.vocab_size, S, 8, seed=0)
     fixed_pol, adaptive_pol, ctrl = mlp_policies()
-    fixed = run_cached(cfg, fixed_pol, n_steps, ds)
-    adaptive = run_cached(cfg, adaptive_pol, n_steps, ds)
+    fixed = run_cached(cfg, fixed_pol, steps, ds)
+    adaptive = run_cached(cfg, adaptive_pol, steps, ds)
     emit({"phase": "adaptive", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "batch": B, "seq": S, "samples": ds.n_samples, "steps": n_steps,
+          "batch": B, "seq": S, "samples": ds.n_samples, "steps": steps,
           "controller": "ESSProportional(b_min=0.1, b_max=0.6, levels=6, "
                         "warmup=2)",
           "fixed": fixed, "adaptive": adaptive,
@@ -1815,8 +1936,8 @@ REMAT_LEGS = [("exact", "none"), ("wta_crs", "none"),
               ("wta_crs", "wtacrs_names"), ("exact", "full")]
 
 
-MEMORY_DEPTH = 6      # the remat legs: qwen2.5-3b, depth 36 -> 6 (12 until
-                      # the model-axis slice)
+MEMORY_DEPTH = 3      # the remat legs: qwen2.5-3b, depth 36 -> 3 (12 until
+                      # the model-axis slice, 6 until the analysis one)
 
 
 def memory_remat_child():
@@ -1884,11 +2005,12 @@ def optim_specs():
 
 
 def phase_optim():
-    """nemotron-4-15b at published width, depth cut to 2, under three
+    """nemotron-4-15b at published width, depth cut to OPT_DEPTH, under three
     OptimSpecs: 4 steps each from fresh parameters; the state's bytes on
     the card against memory_report; one subspace refresh of the widest
     leaf timed.  Returns the phase's kernel launches."""
-    cfg = dataclasses.replace(get_config("nemotron-4-15b"), n_layers=2)
+    cfg = dataclasses.replace(get_config("nemotron-4-15b"),
+                              n_layers=OPT_DEPTH)
     if (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.vocab_size, cfg.tie_embeddings) != (6144, 24576, 48, 8, 128,
                                                     256000, False):
@@ -1997,8 +2119,8 @@ class StepClock:
         return [1e3 * (b - a) for a, b in zip(self.marks, ends)]
 
 
-RUN_DEPTH = 12        # qwen2.5-3b, depth 36 -> 12 (36 until the model-axis
-                      # slice)
+RUN_DEPTH = 6         # qwen2.5-3b, depth 36 -> 6 (36 until the model-axis
+                      # slice, 12 until the analysis one)
 
 
 def phase_run():
@@ -2151,10 +2273,12 @@ def resume_child(work):
     the reduced qwen2.5-3b under the adaptive policy, 6 uninterrupted
     steps against 3 steps, a checkpoint (blocking, then asynchronous, the
     killed run going on after it), Run.restore and the last 3 steps; and
-    Run.fit against the hand-wired scheduled step."""
+    Run.fit against the hand-wired scheduled step.  The controller's
+    warmup is 1, so its far plateau lies within the 6 steps."""
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, policy, _ = mlp_policies()
+    _, policy, _ = mlp_policies(
+        ESSProportional(b_min=0.1, b_max=0.6, levels=6, warmup=1))
     base = dict(arch="qwen2.5-3b", reduced=True, policy=policy, steps=6,
                 batch_size=4, lr=1e-3, warmup=2,
                 data=DataSpec(seq_len=64, n_samples=16))
@@ -2243,17 +2367,51 @@ def run_child(fn, *args, timeout):
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
-def phase_resume():
-    """``resume_child`` in its own process, writing under a temporary
-    directory in build/."""
+RESUME_PROC = []
+
+
+def start_resume():
+    """``resume_child`` in its own process (deterministic cuBLAS), writing
+    under a temporary directory in build/, in the background from the run
+    phase on: a reduced model takes little of the card and one host core,
+    and its checks are bit-equalities within the child, which no other
+    process's work can move.  ``phase_resume`` reads its record."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(here, "build"))
-    try:
-        rec = run_child("resume_child", work, timeout=600)
-    finally:
+    out, err = (tempfile.TemporaryFile("w+", dir=work) for _ in range(2))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    RESUME_PROC.append((work, out, err, subprocess.Popen(
+        [sys.executable, "-c", CHILD, here, "resume_child", work],
+        stdout=out, stderr=err, text=True, env=env)))
+
+
+def stop_resume():
+    for work, out, err, proc in RESUME_PROC:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
         shutil.rmtree(work, ignore_errors=True)
-    emit({"phase": "resume", "arch": "qwen2.5-3b (reduced)", **rec})
+
+
+def phase_resume():
+    """The record of ``resume_child``, started by ``start_resume``."""
+    _, out, err, proc = RESUME_PROC[0]
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("resume_child: the child did not end in 600 s")
+    if proc.returncode != 0:
+        err.seek(0)
+        fail(f"resume_child: the child exited {proc.returncode}: "
+             f"{err.read().strip()[-3000:]}")
+    out.seek(0)
+    rec = json.loads(out.read().strip().splitlines()[-1])
+    emit({"phase": "resume", "arch": "qwen2.5-3b (reduced)", **rec,
+          "wait_s": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -2597,8 +2755,8 @@ POOL_GREEDY = [(1, 8), (5, 64), (17, 16), (32, 40), (33, 8), (64, 24),
 POOL_SAMPLED = [(20, 32), (90, 24)]
 # the pool phase's depth: its three-way comparison (the load, each request
 # alone, the solo route) is decode-bound on the host, ≈ 6 s a layer (36
-# -> 12 -> 8 to keep the script within its time limit)
-POOL_DEPTH = 8
+# -> 12 -> 8 -> 2 to keep the script within half its time limit)
+POOL_DEPTH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2798,10 +2956,14 @@ def decode_f32(cfg, params, prompt, n_check, name):
             "tol": {"rtol": 5e-2, "atol": 5e-2}}
 
 
-def pool_requests(cfg, params, what):
+def pool_requests(cfg, params, what, depth=None):
     """``MOE_SERVE``'s greedy requests through a 4-slot pool of ``cfg``'s
-    arch at ``cfg``'s depth: each bit-equal to itself served alone through
-    a pool of the same spec and to the solo route at the pool's shapes."""
+    arch at ``cfg``'s depth, or cut to its first ``depth`` layers: each
+    bit-equal to itself served alone through a pool of the same spec and
+    to the solo route at the pool's shapes."""
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = dict(params, layers=params["layers"][:depth])
     spec = CutServeSpec(arch=cfg.name, reduced=False, max_slots=4,
                         page_size=16, max_len=128, prefill_chunk=16,
                         device="cuda", n_layers=cfg.n_layers)
@@ -2827,7 +2989,7 @@ def pool_requests(cfg, params, what):
         if solo != toks:
             fail(f"{what}: request {i} differs from the solo route at the "
                  f"pool's shapes, first at {first_difference(solo, toks)}")
-    return {"requests": len(reqs), "wall_s": wall,
+    return {"n_layers": cfg.n_layers, "requests": len(reqs), "wall_s": wall,
             "tokens_per_s": sess.stats["tokens_generated"] / wall,
             "equal_to_alone_and_solo": len(reqs)}
 
@@ -2841,7 +3003,7 @@ def moe_remat_child():
     the remat — launches as ``launches_per_step`` implies, the peaks."""
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_DEPTH)
     ds = data.SyntheticLM(cfg.vocab_size, MOE_S, MOE_B, seed=0)
     legs = {}
     for remat in ("none", "wtacrs_names"):
@@ -2874,13 +3036,14 @@ def moe_remat_child():
 
 
 def phase_moe():
-    """granite-moe-1b-a400m at published width and full depth: train,
-    exact peak, the remat child, prefill, decode, the pool.  Returns the
+    """granite-moe-1b-a400m at published width, depth cut to MOE_DEPTH:
+    train, exact peak, the remat child, prefill, decode, the pool.  Returns the
     train steps' and the prefill's launches."""
     cfg = get_config(MOE_ARCH)
     published("moe", cfg, (1024, 16, 8, 64, 32, 8, 512, 49155, True, 1.25))
     if cfg.n_layers != 24:
         fail(f"moe: {cfg.n_layers} layers, the published model has 24")
+    cfg = dataclasses.replace(cfg, n_layers=MOE_DEPTH)
     ds = data.SyntheticLM(cfg.vocab_size, MOE_S, MOE_B, seed=0)
     policy = cm.Policy(wtacrs=MOE_WTA)
     per_step = launches_per_step(cfg, policy, MOE_S, batch=MOE_B)
@@ -3114,11 +3277,12 @@ def ssm_full_depth(cfg, n_steps=2):
             "reckoning": reckoned, "launches": launches}
 
 
-def recurrent_serve(what, cfg, params, b, s, hold_bf16):
+def recurrent_serve(what, cfg, params, b, s, hold_bf16, pool_depth=None):
     """Prefill b x s prompts in bf16 (timed), 16 greedy bf16 decode steps
     from its states (timed), each against the forward, the same prefill
     and 16 decode steps in f32 held against the f32 forward, and the
-    pool's 4 greedy requests.  ``hold_bf16=False``: the bf16 distances are
+    pool's 4 greedy requests (at ``pool_depth`` layers where given).
+    ``hold_bf16=False``: the bf16 distances are
     measured only — zamba2's are far above the forward's own floor at
     random weights (``decode_f32``).  Returns the bf16 prefill's
     launches."""
@@ -3130,8 +3294,7 @@ def recurrent_serve(what, cfg, params, b, s, hold_bf16):
     torch.cuda.empty_cache()
     emit(decode_f32(cfg, params, prompt, 16, f"{what}_decode_f32"))
     emit({"phase": f"{what}_pool", "arch": cfg.name,
-          "n_layers": cfg.n_layers,
-          **pool_requests(cfg, params, f"{what} pool")})
+          **pool_requests(cfg, params, f"{what} pool", pool_depth)})
     return launches
 
 
@@ -3139,9 +3302,9 @@ def phase_ssm():
     """zamba2-2.7b at published width: depth 12 trains (4 WTA-CRS, 2 exact
     steps at B=2, S=2048), full depth trains 2 steps under remat "full"
     at B=1, and full depth serves (prefill through the flash kernel's mma
-    route at 32/32 heads of 80, decode, the pool; the bf16 distances to
-    the forward measured, the f32 ones held).  Returns the depth-12
-    steps' and the prefill's launches."""
+    route at 32/32 heads of 80, decode; the pool at SERVE_POOL_DEPTH; the
+    bf16 distances to the forward measured, the f32 ones held).  Returns
+    the depth-12 steps' and the prefill's launches."""
     t0 = time.perf_counter()
     full = get_config(SSM_ARCH)
     published_ssm("ssm", full, (
@@ -3156,7 +3319,7 @@ def phase_ssm():
     emit({"phase": "ssm_train", **rec})
     params = registry.init_params(full, 0)
     prefill = recurrent_serve("ssm", full, params, SSM_B, SSM_S,
-                              hold_bf16=False)
+                              hold_bf16=False, pool_depth=SERVE_POOL_DEPTH)
     del params
     torch.cuda.empty_cache()
     emit({"phase": "ssm", "seconds": time.perf_counter() - t0})
@@ -3230,11 +3393,12 @@ def tensor_params(cfg):
 
 
 def phase_vlm():
-    """qwen2-vl-2b at full size (28 layers, nothing cut): 4 WTA-CRS and 1
+    """qwen2-vl-2b at full size (28 layers; the pool's cut): 4 WTA-CRS and 1
     exact step at B=4, S=1024 (256 patches, 768 text tokens; vis_proj
     sampled over the patch rows), prefill of 4 x 2048 (512 patches) on
     flash's wgmma route at 12/2 heads, 16 M-RoPE decode steps held in
-    bf16, 4 pool requests, Run.generate against the solo route.  Returns
+    bf16, 4 pool requests at SERVE_POOL_DEPTH layers, Run.generate
+    against the solo route.  Returns
     the train steps' and the prefill's launches."""
     t0 = time.perf_counter()
     cfg = get_config(VLM_ARCH)
@@ -3263,7 +3427,7 @@ def phase_vlm():
     del last, states, prompt
     torch.cuda.empty_cache()
     emit({"phase": "vlm_pool", "arch": cfg.name,
-          **pool_requests(cfg, params, "vlm pool")})
+          **pool_requests(cfg, params, "vlm pool", SERVE_POOL_DEPTH)})
     run = Run(RunSpec(arch=VLM_ARCH, reduced=False, batch_size=2,
                       data=DataSpec(seq_len=VLM_GEN[0], n_samples=2)))
     prompts = data.SyntheticLM(cfg.vocab_size, VLM_GEN[0], 2, seed=5).batch(
@@ -3408,7 +3572,8 @@ def phase_whisper():
 # ---------------------------------------------------------------------------
 
 DP_STEPS = 3            # (a): steps under each compression mode
-DP_GLOO_DEPTH = 4       # (b): qwen2.5-3b at published width, depth 36 -> 4
+DP_NCCL_DEPTH = 6       # (a): qwen2.5-3b at published width, depth 36 -> 6
+DP_GLOO_DEPTH = 2       # (b): qwen2.5-3b at published width, depth 36 -> 2
 DP_GLOO_STEPS = 2
 DP_LR = 1e-4
 
@@ -3506,7 +3671,7 @@ def dp_steps(cfg, policy, mesh, mode, ds, n_steps, what, keep_m1=False,
 
 def dp_nccl_child(port):
     """(a) One rank over NCCL (a tcp://127.0.0.1 rendezvous), qwen2.5-3b
-    at published width, depth 12, B=4, S=1024, WTA-CRS 0.3 on every
+    at published width, depth 6, B=4, S=1024, WTA-CRS 0.3 on every
     linear: 3 make_shardmap_dp_step steps under each compression mode
     (losses falling, launches as the structure implies, dW on wgmma, H' on
     bulk, peak), the reduction of a gradient-sized tree timed (CUDA
@@ -3518,7 +3683,8 @@ def dp_nccl_child(port):
                             device_id=torch.device("cuda:0"))
     try:
         mesh = mesh_lib.make_host_mesh()
-        cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=12)
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  n_layers=DP_NCCL_DEPTH)
         ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
         wta = cm.Policy(wtacrs=WTACRSConfig(kind="wta_crs", budget=0.3,
                                             min_rows=4),
@@ -3694,7 +3860,7 @@ def dp_hold_run(host, alone, world):
 
 def dp_gloo_child(rank, port):
     """(b) One of two ranks sharing the card over gloo (CUDA tensors,
-    reduced through host memory): qwen2.5-3b at published width, depth 4,
+    reduced through host memory): qwen2.5-3b at published width, depth 2,
     global B=4 (2 a rank), S=1024.  2 make_shardmap_dp_step steps under
     each mode with WTA-CRS 0.3 on every linear (launches, losses, ms a
     step, the parameters' sha256 for the ranks' bit-identity); the
@@ -3791,7 +3957,7 @@ def dp_gloo_child(rank, port):
             modes[name] = rec
             del state, m1, world1
         # Run(mesh="host") against the one-rank Run on the global batch in
-        # the ranks' shapes (microbatches 2): published width, depth 4,
+        # the ranks' shapes (microbatches 2): published width, depth 2,
         # f32 compute, B=4 of S=1024
         run_cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                                       n_layers=DP_GLOO_DEPTH,
@@ -3959,10 +4125,10 @@ def phase_dp():
 # tp: tensor and expert parallelism, two gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
-TP_DEPTH, TP_STEPS, TP_BATCH = 4, 2, 2      # qwen2.5-3b: depth 36 -> 4
+TP_DEPTH, TP_STEPS, TP_BATCH = 2, 2, 2      # qwen2.5-3b: depth 36 -> 2
 TP_PROMPT_B, TP_PROMPT, TP_GEN = 2, 2 * S, 16
-TP_GRANITE_DEPTH = 6                        # granite-moe-1b-a400m: 24 -> 6
-TP_DBRX_DEPTH = 2                           # dbrx-132b: 40 -> 2
+TP_GRANITE_DEPTH = 3                        # granite-moe-1b-a400m: 24 -> 3
+TP_DBRX_DEPTH = 1                           # dbrx-132b: 40 -> 1
 TP_LR = 1e-4
 
 
@@ -4420,12 +4586,12 @@ TP_GENERATE = ((16, 16), (112, 16))
 # positions (pages of 16: each rank 8 positions of every page)
 TP_SERVE = ((12, 8), (7, 12), (1, 10), (9, 6), (5, 9), (3, 4))
 TP_LORA_R = 16
-# the optimizer legs at depth 2 (cut from TP_DEPTH for the script's time
-# limit; mixed's first step SVDs every transformer matrix on model rank
-# 0, one rank and one rank microbatched)
-TP_OPTIM_DEPTH = 2
-# Run's configs in the tp_run leg: depth 4, bf16 parameters (each
-# checkpoint 1.24 GB to gather, write and read rather than 2.48)
+# the optimizer legs at depth 1 (cut from 4 for the script's time limit;
+# mixed's first step SVDs every transformer matrix on model rank 0, one
+# rank and one rank microbatched)
+TP_OPTIM_DEPTH = 1
+# Run's configs in the tp_run leg: depth 2, bf16 parameters (each
+# checkpoint 0.93 GB to gather, write and read rather than 1.86)
 TP_RUN_CONFIG = dict(n_layers=TP_DEPTH, param_dtype="bfloat16")
 
 
@@ -4999,13 +5165,13 @@ def tp_state_legs(rank, mesh, cfg, ds, work, out):
 def tp_child(rank, port, work):
     """One of two ranks sharing the card over gloo at model = 2
     (``make_host_mesh(model_parallel=2)``: one model group).  qwen2.5-3b
-    at published width, depth 4: 2 WTA-CRS bf16 steps (loss falls, the
+    at published width, depth 2: 2 WTA-CRS bf16 steps (loss falls, the
     replicated leaves bit-identical across the ranks, launches as the
     structure implies); 2 exact f32 steps held against one rank on the
     gathered parameters (rank 0); a 2 x 2048 prefill and 16 decode steps
     held against one rank at the bf16 floor of phase prefill.
-    granite-moe-1b-a400m at published width, depth 6, 2 WTA-CRS steps
-    with 16 experts a rank.  dbrx-132b at published width, depth 2,
+    granite-moe-1b-a400m at published width, depth 3, 2 WTA-CRS steps
+    with 16 experts a rank.  dbrx-132b at published width, depth 1,
     prefill and decode with 8 experts a rank (bf16: the distance to one
     rank measured; a router logit rounded in another order flips top-k).
     Each collective's count, bytes and ms."""
@@ -5358,10 +5524,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     dryrun_dir = start_dryrun_cells() if "dryrun" in phases else None
+    if "analysis" in phases:
+        start_analysis()
     try:
         return run_phases(phases, smi, dryrun_dir)
     finally:
         stop_dryrun_cells()
+        stop_analysis()
+        stop_resume()
 
 
 PHASE_SECONDS = {}
@@ -5434,7 +5604,7 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         if "memory" in phases:
             clocked("memory", phase_memory, cfg, ds, wta_peak)
         if "adaptive" in phases:
-            peak_m1 = clocked("adaptive", phase_adaptive, cfg)
+            peak_m1 = clocked("adaptive", phase_adaptive, cfg, steps=10)
         if "accumulate" in phases:
             clocked("accumulate", phase_accumulate, cfg, peak_m1)
         del ds
@@ -5444,6 +5614,8 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         phase_launches["optim"] = clocked("optim", phase_optim)
 
     run_launches = {}
+    if "resume" in phases:
+        start_resume()      # after optim, the phase with the largest peak
     if "run" in phases:
         run_launches, _ = clocked("run", phase_run)
     if "resume" in phases:
@@ -5494,6 +5666,8 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         phase_launches.update(tp_legs)
     if "dryrun" in phases:
         clocked("dryrun", phase_dryrun, dryrun_dir)
+    if "analysis" in phases:
+        clocked("analysis", phase_analysis)
 
     if set(phases) == set(ALL_PHASES):
         # the summary the port is judged by: the main paths' kernels at the

@@ -16,6 +16,7 @@ example's default, xlstm-125m, needs the recurrent blocks, which are not
 ported yet); ``--full-size`` trains its published config.
 """
 import argparse
+import dataclasses
 
 from repro_torch.api import DataSpec, Run, RunSpec
 from repro_torch.core import (BudgetSchedule, ESSProportional, LoRAConfig,
@@ -53,7 +54,13 @@ def main():
             "*mlp*", base,
             ESSProportional(b_min=0.1, b_max=0.6, levels=6, warmup=3)))
     elif args.warmup_exact > 0:
+        # MoE routers and experts sample flattened rows (the router all
+        # B·S rows, an expert its capacity slots): the per-sample
+        # gradient-norm cache has no column for them (PT003), so they take
+        # activation norms while everything else uses the cache.
+        rows = dataclasses.replace(base, norm_source="activation_only")
         rules = PolicyRules.of(
+            ("*moe_*", rows),
             ("*", base, BudgetSchedule.warmup_exact(
                 begin_step=args.warmup_exact, end=args.budget)))
     policy = cm.Policy(

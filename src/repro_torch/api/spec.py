@@ -84,8 +84,10 @@ class RunSpec:
     over the ranks of the initialised ``torch.distributed`` process group
     (``launch.mesh.make_host_mesh``; one rank without one), each rank on
     its slice of every ``batch_size`` batch, with ``data_axes`` (default:
-    the mesh's) carrying the batch.  ``model_parallel`` above 1 (tensor /
-    expert parallelism) is refused: it waits for ROADMAP Queue A.9.  The
+    the mesh's) carrying the batch.  ``model_parallel`` M above 1 (tensor /
+    expert parallelism; it needs ``mesh="host"``) groups the ranks into a
+    (W / M, M) mesh whose model groups each hold the shards of one copy of
+    the parameters and optimizer state; values below 1 are refused.  The
     reference's ``jit`` has no counterpart: the port's steps run eagerly.
     """
 
