@@ -261,6 +261,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import optim as optim_lib  # noqa: E402
+from repro_torch.analysis import (analyze_paths, csrc,  # noqa: E402
+                                  kernel_contracts)
 from repro_torch.analysis import policy_check  # noqa: E402
 from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
@@ -559,8 +561,9 @@ def kernel_identifier(mangled):
 
 
 def ptxas_report(log, source):
-    """{kernel instance: registers and spill bytes} of the kernels nvcc
-    built from ``source`` (a file of csrc/), read off the build log."""
+    """{kernel instance: registers, spill bytes and static shared bytes}
+    of the kernels nvcc built from ``source`` (a file of csrc/), read off
+    the build log (ptxas prints no "bytes smem" for a kernel with none)."""
     tag = source.replace(".", "_")
     out, name = {}, None
     for ln in log.splitlines():
@@ -586,7 +589,60 @@ def ptxas_report(log, source):
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(m.group(1)) if m else 0
     return out
+
+
+def smem_cross_check(log):
+    """The analyzer against the compiler: for every kernel instance ptxas
+    reports, ``csrc.static_smem_bytes`` must equal ptxas's static shared
+    bytes; at every launch site whose dynamic bytes resolve, static +
+    dynamic must fit the card's opt-in limit a block, which must be
+    PK004's default budget.  Fails on any mismatch."""
+    sources = csrc.Program.load([str(_build.CSRC)])
+    if sources.broken:
+        fail(f"build: the source model cannot read {sources.broken}")
+    checked, equal, unresolved, mismatched = 0, 0, [], []
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for inst, info in ptxas_report(log, path.name).items():
+            kernel, args = inst[:-1].split("<", 1)
+            dtype, *ints = [a.strip() for a in args.split(",")]
+            ours = csrc.static_smem_bytes(sources, kernel, dtype,
+                                          [int(i) for i in ints])
+            checked += 1
+            if ours is None:
+                unresolved.append(inst)
+            elif ours == info["smem"]:
+                equal += 1
+            else:
+                mismatched.append((inst, ours, info["smem"]))
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    launches = kernel_contracts.resolve_launches(sources)
+    resolved = [li for li in launches
+                if li.static is not None and li.dynamic is not None]
+    over = [(li.desc, li.static + li.dynamic) for li in resolved
+            if li.static + li.dynamic > optin]
+    rec = {"instances": checked, "equal": equal,
+           "unresolved": len(unresolved), "launch_instances": len(launches),
+           "launches_resolved": len(resolved),
+           "largest_launch_bytes": max(
+               (li.static + li.dynamic for li in resolved), default=0),
+           "smem_per_block_optin": optin,
+           "pk004_default_budget": kernel_contracts.DEFAULT_SMEM_BUDGET}
+    if mismatched:
+        fail(f"build: the analyzer's static shared bytes differ from "
+             f"ptxas's (instance, analyzer, ptxas): {mismatched}")
+    if checked == 0:
+        fail("build: ptxas reported no kernel instance to check")
+    if over:
+        fail(f"build: launches over the card's {optin} bytes a block: "
+             f"{over}")
+    if optin != kernel_contracts.DEFAULT_SMEM_BUDGET:
+        fail(f"build: the card's shared_memory_per_block_optin {optin} is "
+             f"not PK004's default budget "
+             f"{kernel_contracts.DEFAULT_SMEM_BUDGET}")
+    return dict(rec, unresolved_instances=unresolved)
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +692,22 @@ def analysis_child():
         capture_output=True, text=True, cwd=here, timeout=600,
         env=dict(os.environ, PYTHONPATH=os.path.join(here, "src")))
     seconds, universes = {"cli": time.perf_counter() - t0}, {}
+    # every family's raw findings (before the baseline), by family, and
+    # what the source model read of kernels/csrc
+    t0 = time.perf_counter()
+    paths = ["src/repro_torch", "chip_smoke.py", "tools",
+             *(os.path.relpath(p, here) for p in examples)]
+    cwd = os.getcwd()
+    os.chdir(here)
+    try:
+        raw = analyze_paths(paths)
+        sources = csrc.Program.load(["src/repro_torch"])
+    finally:
+        os.chdir(cwd)
+    by_family = {}
+    for f in raw:
+        by_family[f.rule[:2]] = by_family.get(f.rule[:2], 0) + 1
+    seconds["families_in_process"] = time.perf_counter() - t0
     for reduced in (True, False):
         size = "reduced" if reduced else "full"
         for kind, build in (("tags", policy_check.tag_universe),
@@ -649,6 +721,10 @@ def analysis_child():
         differ[kind] = sorted(a for a in set(small) | set(full)
                               if small.get(a) != full.get(a))
     print(json.dumps({
+        "raw_by_family": by_family,
+        "sources": sorted(os.path.basename(p) for p in sources.files),
+        "sources_broken": sorted(sources.broken),
+        "kernels": len(sources.kernels()),
         "cli_rc": done.returncode, "cli_stdout": done.stdout,
         "cli_stderr": done.stderr[-3000:], "seconds": seconds,
         "differ": differ, "archs": len(universes["tags", "full"]),
@@ -677,11 +753,21 @@ def phase_analysis():
     if any(rec["differ"].values()):
         fail(f"analysis: published-size universes differ from the reduced "
              f"ones the CLI checks against: {rec['differ']}")
-    by_severity = {}
+    want = {os.path.basename(p) for p in glob.glob(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src", "repro_torch",
+        "kernels", "csrc", "*.cu*"))}
+    if rec["sources_broken"] or set(rec["sources"]) != want:
+        fail(f"analysis: the source model read {rec['sources']} (broken "
+             f"{rec['sources_broken']}), not kernels/csrc's {sorted(want)}")
+    by_severity, by_family = {}, {}
     for f in doc["findings"]:
         by_severity[f["severity"]] = by_severity.get(f["severity"], 0) + 1
+        by_family[f["rule"][:2]] = by_family.get(f["rule"][:2], 0) + 1
     emit({"phase": "analysis", "seconds": rec["seconds"],
           "findings_by_severity": by_severity,
+          "findings_by_family": by_family,
+          "raw_findings_by_family": rec["raw_by_family"],
+          "sources": rec["sources"], "kernels": rec["kernels"],
           "suppressed": doc["suppressed"], "failing": doc["failing"],
           "archs": rec["archs"], "distinct": rec["distinct"]})
 
@@ -5563,7 +5649,11 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         _build.library()
         log = (lib.parent / "build.log").read_text()
         smm_ptxas = ptxas_report(log, "sampled_matmul.cu")
+        t1 = time.perf_counter()
+        smem_check = smem_cross_check(log)
+        smem_check["seconds"] = time.perf_counter() - t1
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "smem_cross_check": smem_check,
               "library": os.path.relpath(lib),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln],

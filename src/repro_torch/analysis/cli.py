@@ -4,12 +4,12 @@ Exit codes: 0 clean (or everything baselined / notes only), 1 gating
 findings (errors or warnings by default; tune with ``--fail-on``),
 2 usage / internal error.
 
-The JAX package's CLI (``python -m repro.analysis``) less what belongs
-to its host-sync and Pallas-contract families (``--vmem-budget-mb``),
-whose counterparts for eager torch and CUDA C++ wait for ROADMAP Queue
-A.17.  The default baseline is ``torch-analysis-baseline.json``: the
-JAX package's CLI reads ``analysis-baseline.json`` from the working
-directory and would report every entry of the port's as stale.
+The JAX package's CLI (``python -m repro.analysis``) over the port's
+Python and its CUDA C++ (``.cu`` / ``.cuh``): ``--smem-budget-kb`` is
+the counterpart of ``--vmem-budget-mb``.  The default baseline is
+``torch-analysis-baseline.json``: the JAX package's CLI reads
+``analysis-baseline.json`` from the working directory and would report
+every entry of the port's as stale.
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ import subprocess
 import sys
 from typing import List, Optional, Sequence
 
-from repro_torch.analysis import policy_check
-from repro_torch.analysis.astutil import load_modules
+from repro_torch.analysis import (csrc, dataflow, kernel_contracts,
+                                  policy_check, torch_lints)
+from repro_torch.analysis.astutil import EXCLUDED_PARTS, load_modules
 from repro_torch.analysis.findings import (ERROR, NOTE, RULES,
                                            SEVERITY_ORDER, WARNING,
                                            Baseline, Finding,
@@ -32,16 +33,26 @@ DEFAULT_BASELINE = "torch-analysis-baseline.json"
 
 def analyze_paths(paths: Sequence[str], *, policy: bool = True,
                   tag_universe: Optional[dict] = None,
-                  param_universe: Optional[dict] = None
+                  param_universe: Optional[dict] = None,
+                  smem_budget: Optional[int] = None
                   ) -> List[Finding]:
     """Run every analyzer family over ``paths`` and return raw findings
-    (no baseline filtering).  The main entry point for tests."""
+    (no baseline filtering).  The main entry point for tests.
+
+    The dataflow program (def-use chains + call/closure graph) is built
+    once over the Python modules and the source model once over the
+    CUDA files; every family that reads them shares them."""
     modules, broken = load_modules(paths)
+    sources = csrc.Program.load(paths, EXCLUDED_PARTS)
     findings: List[Finding] = [
         Finding(rule="AN001", path=p, line=1, col=1, symbol="<module>",
                 message="file does not parse; analyzers skipped it")
-        for p in broken
+        for p in broken + sorted(sources.broken)
     ]
+    program = dataflow.Program.build(modules)
+    findings.extend(torch_lints.check(modules, program=program))
+    findings.extend(kernel_contracts.check(modules, sources,
+                                           smem_budget=smem_budget))
     if policy:
         findings.extend(policy_check.check(modules,
                                            universe=tag_universe,
@@ -50,8 +61,9 @@ def analyze_paths(paths: Sequence[str], *, policy: bool = True,
 
 
 def changed_files(base: str, paths: Sequence[str]) -> Optional[List[str]]:
-    """Python files changed vs ``base`` (plus untracked ones), kept
-    only when they fall under one of ``paths``.  None on git failure."""
+    """Python and CUDA files changed vs ``base`` (plus untracked ones),
+    kept only when they fall under one of ``paths``.  None on git
+    failure."""
     try:
         diff = subprocess.run(
             ["git", "diff", "--name-only", base],
@@ -62,7 +74,7 @@ def changed_files(base: str, paths: Sequence[str]) -> Optional[List[str]]:
     except (OSError, subprocess.CalledProcessError):
         return None
     names = [n for n in (diff.stdout + untracked.stdout).splitlines()
-             if n.endswith(".py")]
+             if n.endswith((".py",) + csrc.SOURCE_SUFFIXES)]
     roots = [os.path.abspath(p) for p in paths]
     out = []
     for n in sorted(set(names)):
@@ -92,8 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="Static analysis for the PyTorch/CUDA port: "
-                    "policy/tag and optimizer-layout cross-checks and "
-                    "schedule-termination proofs (PT*).")
+                    "host-sync lints for eager torch (JL*), CUDA kernel "
+                    "contract checks (PK*), policy/tag cross-checks "
+                    "(PT*).")
     ap.add_argument("paths", nargs="*", default=None,
                     help="files or directories (default: "
                          "src/repro_torch)")
@@ -106,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="alias for --format json")
     ap.add_argument("--changed-only", nargs="?", const="HEAD",
                     default=None, metavar="BASE",
-                    help="analyze only .py files changed vs BASE "
+                    help="analyze only .py / .cu / .cuh files changed "
+                         "vs BASE "
                          "(git diff --name-only; default base: HEAD) "
                          "plus untracked ones, intersected with the "
                          "given paths — the pre-commit mode")
@@ -120,9 +134,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-policy", action="store_true",
                     help="skip the policy/tag cross-checker (avoids "
                          "importing torch)")
+    ap.add_argument("--smem-budget-kb", type=float, default=None,
+                    metavar="KB",
+                    help="shared memory a block for PK004 (default 227: "
+                         "the opt-in limit on sm_90)")
     ap.add_argument("--select", default=None, metavar="RULES",
                     help="comma-separated rule ids to keep "
-                         "(e.g. PT001,PT008)")
+                         "(e.g. JL001,PK003)")
     ap.add_argument("--fail-on", choices=[ERROR, WARNING, NOTE],
                     default=WARNING,
                     help="lowest severity that causes exit 1 "
@@ -156,7 +174,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 0
         paths = changed
 
-    findings = analyze_paths(paths, policy=not args.no_policy)
+    smem = (int(args.smem_budget_kb * 1024)
+            if args.smem_budget_kb is not None else None)
+    findings = analyze_paths(paths, policy=not args.no_policy,
+                             smem_budget=smem)
 
     if args.select:
         keep = {r.strip() for r in args.select.split(",") if r.strip()}
