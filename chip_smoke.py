@@ -47,14 +47,26 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            sampled_matmul's timed cases also time the kernel alone on
            operands planned once; flash bf16 is
            also held against the tensor-op models/attention.py
+  autotune the tile tuner (repro_torch.kernels.autotune): refresh_table
+           over DEFAULT_SWEEP into a temporary table, every candidate tile
+           of both sampled-dW kernels held against the plain version and
+           timed (time_ms); each shape's rule pick, tuned pick and times;
+           the packaged table checked whole (every sweep key, each entry
+           the fastest of its own candidates, the card named), its picks
+           re-timed against the rule's where they differ (reported, not
+           held); one train step of qwen2.5-3b at depth 1 under a
+           KernelConfig(table_path=...) whose tiles differ from the rule
+           launches the table's tiles (launches_by_tile); the CLI in
+           process
   parity   one det_topk train step of a reduced config: card (kernels)
            against CPU (plain versions), f32
   train    qwen2.5-3b at published width, depth cut to 12 layers, B=4,
            S=1024, WTA-CRS at budget 0.3: 6 steps through
            get_config -> init_train_state -> make_train_step -> train_step;
            losses finite and falling, launch counts as expected, every
-           fused_sampled_dw launch on the wgmma route and every
-           gather_scale launch on bulk (so too in optim, moe, moe_wide)
+           fused_sampled_dw launch on the wgmma route (its launches by
+           tile reported) and every gather_scale launch on bulk (so too
+           in optim, moe, moe_wide)
   memory   the same for 2 steps under EXACT_CONFIG; both peaks side by side;
            then, in a child process with deterministic algorithms on, 2
            steps of the model at depth 3 (MEMORY_DEPTH) under the
@@ -266,16 +278,19 @@ from repro_torch.analysis import (analyze_paths, csrc,  # noqa: E402
 from repro_torch.analysis import policy_check  # noqa: E402
 from repro_torch.api import DataSpec, Run, RunSpec  # noqa: E402
 from repro_torch.core import (EXACT_CONFIG, BudgetSchedule,  # noqa: E402
-                              ESSProportional, LoRAConfig, PolicyRules,
-                              RankController, Rule, WTACRSConfig, plans)
+                              ESSProportional, KernelConfig, LoRAConfig,
+                              PolicyRules, RankController, Rule,
+                              WTACRSConfig, plans)
 from repro_torch.core import lora as lora_lib  # noqa: E402
-from repro_torch.kernels import _build, costs  # noqa: E402
+from repro_torch.kernels import _build, autotune, costs  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_sampling, ops  # noqa: E402
 from repro_torch.kernels import gather_scale as gather_scale_mod  # noqa: E402
 from repro_torch.kernels import row_norms as row_norms_mod  # noqa: E402
 from repro_torch.kernels import \
     sampled_matmul as sampled_matmul_mod  # noqa: E402
+from repro_torch.kernels.autotune import (HOST_LEAD_CYCLES,  # noqa: E402
+                                          time_ms)
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.launch import collectives  # noqa: E402
 from repro_torch.launch import cost as cost_lib  # noqa: E402
@@ -300,7 +315,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}    # f32 outside the tensor cores
 
-ALL_PHASES = ("env", "analysis", "build", "kernels", "parity", "train",
+ALL_PHASES = ("env", "analysis", "build", "kernels", "autotune", "parity",
+              "train",
               "memory", "adaptive", "accumulate", "optim", "run", "resume",
               "serve_parity", "prefill", "decode", "pool", "wide_serve",
               "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp",
@@ -508,43 +524,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-# GPU clock cycles the card spins before each timed group (about 10 ms on
-# an H100): long enough for the host to enqueue the whole group behind it.
-HOST_LEAD_CYCLES = 20_000_000
 # bytes written before an L2-cold call: above the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 * 2**20
-
-
-def time_ms(fn, warmup: int = 3, reps: int = 5, inner: int = 10) -> float:
-    """Median over ``reps`` of (CUDA-event time of ``inner`` back-to-back
-    calls) / inner, after ``warmup`` calls.  Each group is enqueued behind
-    a spin of the card (``torch.cuda._sleep``), so the events time the
-    device's work and not the host's dispatch, which is slower than a
-    small kernel.  Inputs stay L2-warm between calls, as they are for the
-    real caller (dz and h come straight out of the preceding matmul)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOST_LEAD_CYCLES)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
 
 
 def kernel_identifier(mangled):
@@ -1046,10 +1027,16 @@ def dw_case(name, b, k, n, d_in, d_out, dtype, gen, timed, two_d=False,
     case["kernel_route"] = "+".join(sorted(routes))
     case["duplicate_indices"] = dup
     if name == "sampled_matmul":
-        r = sampled_matmul_mod.smm_route(d_in, d_out, dtype, True,
-                                         card_sms())
+        # the tile the wrapper took: the packaged table's, else the rule's
+        tile = autotune.tile_for(None, name, args[0], args[1])
+        r = sampled_matmul_mod.smm_route(
+            d_in, d_out, dtype, _build.aligned16(args[0], args[1]),
+            card_sms(), tile)
+        tabled = autotune.load_table().lookup(name, autotune.shape_key(
+            d_in, d_out, 1 if two_d else b, k, dtype), r.route)
         case["tile"] = {"d_in": r.tile_m, "d_out": r.tile_n,
-                        "cluster": r.cluster}
+                        "cluster": r.cluster,
+                        "from": "rule" if tabled is None else "table"}
     if timed:
         bound_s, bound_by = dw_bound(hsub, dz, idx)
         case.update({
@@ -1632,6 +1619,121 @@ def phase_kernels():
     return cases, comp_launches, comp_routes
 
 
+# The autotune phase's train step: qwen2.5-3b at published width, depth cut
+# 36 -> 1 (one step of each dW shape of the train path is all it shows)
+AUTOTUNE_DEPTH = 1
+# the CLI's in-process run: one row of the sweep
+AUTOTUNE_CLI_SHAPES = "2048,256,4,307,bfloat16"
+
+
+def checked_measure(errors):
+    """A tuner ``measure`` that holds each candidate's output against the
+    plain version on the tuner's own inputs (``autotune.sweep_inputs``) at
+    the dW tolerance, keeps the error in ``errors``, then times it
+    (``time_ms``): microseconds."""
+    def measure(kernel, tile, d_in, d_out, b, k, dtype):
+        args = autotune.sweep_inputs(d_in, d_out, b, k, dtype, "cuda")
+        out = autotune.run_candidate(kernel, tile, *args)
+        key = autotune.shape_key(d_in, d_out, b, k, dtype)
+        # as dw_case: the same factors, only the order of the f32 sums
+        errors[f"{kernel} {key} tile={tile}"] = check_close(
+            f"autotune {kernel} {key} tile={tile}", out,
+            fused_sampling.fused_sampled_dw_plain(*args), 1e-4,
+            1e-4 * math.sqrt(b * k))
+        return 1e3 * time_ms(lambda: autotune.run_candidate(kernel, tile,
+                                                            *args))
+    return measure
+
+
+def phase_autotune(smi):
+    sms = card_sms()
+    errors, rows, clock = {}, [], {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh = autotune.refresh_table(
+            autotune.DEFAULT_SWEEP, os.path.join(tmp, "fresh.json"),
+            measure=checked_measure(errors), card=smi)
+        packaged = autotune.TuningTable.load(autotune.PACKAGED_TABLE)
+        missing = [(kernel, autotune.shape_key(*row))
+                   for row in autotune.DEFAULT_SWEEP
+                   for kernel in autotune.KERNELS
+                   if packaged.lookup(kernel, autotune.shape_key(*row))
+                   is None]
+        if missing or not packaged.card:
+            fail(f"autotune: the packaged table lacks {missing} or names "
+                 f"no card ({packaged.card!r})")
+        for kernel, recs in packaged.entries.items():
+            for key, e in recs.items():
+                if (e.tile, e.us) != autotune.fastest(e.candidates_us):
+                    fail(f"autotune: packaged {kernel} {key}: tile {e.tile} "
+                         f"({e.us} us) is not the fastest of its "
+                         f"candidates {e.candidates_us}")
+        for row in autotune.DEFAULT_SWEEP:
+            d_in, d_out, b, k, dtype = row
+            key = autotune.shape_key(*row)
+            route = fused_sampling.dw_route(d_in, d_out,
+                                            autotune.torch_dtype(dtype))
+            args = autotune.sweep_inputs(d_in, d_out, b, k, dtype, "cuda")
+            for kernel in autotune.KERNELS:
+                rule = autotune.default_blocks(kernel, route, d_in, d_out,
+                                               sms=sms)
+                e = fresh.entries[kernel][key]
+                tiled = packaged.lookup(kernel, key, route)
+                rec = {"kernel": kernel, "shape": key, "route": route,
+                       "rule": rule, "tuned": e.tile,
+                       "candidates_us": dict(e.candidates_us),
+                       "packaged": tiled}
+                if tiled != rule:
+                    # the packaged pick against the rule's, re-timed here
+                    rec["retimed_us"] = {
+                        str(t): 1e3 * time_ms(
+                            lambda t=t: autotune.run_candidate(kernel, t,
+                                                               *args))
+                        for t in (tiled, rule)}
+                rows.append(rec)
+        clock["refresh_and_retime_s"] = time.perf_counter() - t0
+        # a table whose tile differs from the rule at the train path's
+        # shapes reaches the launch: 64 at every one (the rule takes 128 at
+        # three of the four)
+        forced = autotune.TuningTable(card=smi)
+        for d_in, d_out in FUSED_MAIN:
+            forced.put("fused_sampled_dw", autotune.shape_key(
+                d_in, d_out, B, K, "bfloat16"), "wgmma", 64)
+        forced_path = forced.save(os.path.join(tmp, "forced.json"))
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  n_layers=AUTOTUNE_DEPTH)
+        ds = data.SyntheticLM(cfg.vocab_size, S, B, seed=0)
+        wta = WTACRSConfig(kind="wta_crs", budget=0.3, min_rows=4)
+        reset_launches()
+        losses, *_ = run_steps(cfg, wta.with_kernel(
+            KernelConfig(table_path=forced_path)), 1, B, S, ds)
+        by_tile = dict(ops.fused_sampled_dw.launches_by_tile)
+        want = launches_per_step(cfg, cm.Policy(wtacrs=wta), S)
+        if by_tile != {128: 0, 64: want["fused_sampled_dw"]} \
+                or not math.isfinite(losses[0]):
+            fail(f"autotune: a step under {forced_path} launched "
+                 f"fused_sampled_dw by tile {by_tile} (loss {losses}), "
+                 f"expected all {want['fused_sampled_dw']} on tile 64")
+        clock["forced_step_s"] = (time.perf_counter() - t0
+                                  - clock["refresh_and_retime_s"])
+        cli_out = os.path.join(tmp, "cli.json")
+        t1 = time.perf_counter()
+        rc = autotune.main(["--out", cli_out, "--shapes",
+                            AUTOTUNE_CLI_SHAPES])
+        clock["cli_s"] = time.perf_counter() - t1
+        cli = autotune.TuningTable.load(cli_out)
+        if rc != 0 or cli.card != smi or sorted(cli.entries) != sorted(
+                autotune.KERNELS):
+            fail(f"autotune: the CLI returned {rc} and wrote {cli}")
+    agree = sum(r["tuned"] == r["packaged"] for r in rows)
+    emit({"phase": "autotune", "card": smi, "rows": rows,
+          "max_abs_err": errors, "candidates": len(errors),
+          "tuned_equal_packaged": f"{agree}/{len(rows)}",
+          "forced_table_launches_by_tile": by_tile, "seconds": clock,
+          "cli_entries": {k: {key: e.tile for key, e in v.items()}
+                          for k, v in cli.entries.items()}})
+
+
 # ---------------------------------------------------------------------------
 # model phases
 # ---------------------------------------------------------------------------
@@ -1644,8 +1746,9 @@ def reset_launches():
     for name in KERNEL_NAMES:
         fn = getattr(ops, name)
         fn.launches = 0
-        for route in getattr(fn, "launches_by_route", {}):
-            fn.launches_by_route[route] = 0
+        for counts in ("launches_by_route", "launches_by_tile"):
+            for key in getattr(fn, counts, {}):
+                getattr(fn, counts)[key] = 0
 
 
 def expect_route(what, name, route):
@@ -1832,6 +1935,7 @@ def phase_train(cfg, ds, n_steps):
         cfg, wta, n_steps, B, S, ds)
     launches = launch_counts()
     by_route = dict(ops.fused_sampled_dw.launches_by_route)
+    by_tile = dict(ops.fused_sampled_dw.launches_by_tile)
     gather_routes = dict(ops.gather_scale.launches_by_route)
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "n_params": n_params, "batch": B, "seq": S, "budget": 0.3,
@@ -1839,6 +1943,7 @@ def phase_train(cfg, ds, n_steps):
           "step_ms_median_after_first": statistics.median(times[1:]),
           "peak_bytes": peak, "launches": launches,
           "fused_sampled_dw_launches_by_route": by_route,
+          "fused_sampled_dw_launches_by_tile": by_tile,
           "gather_scale_launches_by_route": gather_routes})
     if not all(math.isfinite(x) for x in losses):
         fail(f"train: non-finite loss in {losses}")
@@ -5608,7 +5713,7 @@ def main() -> int:
     # every f32 comparison below assumes full-precision f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line()
+    smi = autotune.card_line()
     dryrun_dir = start_dryrun_cells() if "dryrun" in phases else None
     if "analysis" in phases:
         start_analysis()
@@ -5639,11 +5744,11 @@ def run_phases(phases, smi, dryrun_dir) -> int:
               "cuda": torch.version.cuda,
               "device_name": torch.cuda.get_device_name(0),
               "capability": list(torch.cuda.get_device_capability(0))})
-    if set(phases) & {"build", "kernels", "parity", "train", "memory",
-                      "adaptive", "accumulate", "optim", "run", "resume",
-                      "serve_parity", "prefill", "wide_serve", "moe",
-                      "moe_wide", "ssm", "xlstm", "vlm", "whisper", "dp",
-                      "tp", "dryrun"}:
+    if set(phases) & {"build", "kernels", "autotune", "parity", "train",
+                      "memory", "adaptive", "accumulate", "optim", "run",
+                      "resume", "serve_parity", "prefill", "wide_serve",
+                      "moe", "moe_wide", "ssm", "xlstm", "vlm", "whisper",
+                      "dp", "tp", "dryrun"}:
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -5674,6 +5779,8 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         cases, comp_launches, by_route["sampled_matmul"] = clocked(
             "kernels", phase_kernels)
         launches["sampled_matmul"] = comp_launches["sampled_matmul"]
+    if "autotune" in phases:
+        clocked("autotune", phase_autotune, smi)
     if "parity" in phases:
         clocked("parity", phase_parity)
 

@@ -74,7 +74,9 @@ class RunSpec:
 
     ``kernel``: optional :class:`~repro_torch.core.kernel_config.KernelConfig`
     applied to EVERY estimator config the policy can resolve to
-    (``Policy.with_kernel``).  ``None`` keeps whatever each config
+    (``Policy.with_kernel``): the sampled-dW tile pin (``dw_tile``) and
+    the file of the tuning table measured on the card that chooses an
+    unpinned one (``table_path``).  ``None`` keeps whatever each config
     already carries.
 
     ``optimizer``: a legacy ``AdamWConfig`` or an ``OptimSpec``

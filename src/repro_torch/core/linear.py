@@ -59,6 +59,7 @@ import torch
 from repro_torch.core import estimator_registry as registry
 from repro_torch.core import plans
 from repro_torch.core.config import WTACRSConfig
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kernel_ops
 
 Plan = Tuple[torch.Tensor, torch.Tensor]     # (idx (B,k) int32, scale (B,k))
@@ -98,10 +99,13 @@ def _rowgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):
     """dW = sum_b H'_b^T @ (dZ_b[idx_b] * scale_b): one launch of the
     fused kernel, f32 out, cast to the (compute-dtype) weight's dtype.
-    With a leading expert axis on every operand, each expert's dW in the
-    same one launch."""
-    dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale,
-                                     tile=cfg.kernel.dw_tile)
+    Its tile: ``cfg.kernel.dw_tile``, else the entry of
+    ``cfg.kernel.table_path``'s tuning table for the shape, else the shape
+    rule (``autotune.tile_for``).  With a leading expert axis on every
+    operand, each expert's dW in the same one launch, its tile pinned or
+    the shape rule's (the table's key has no expert count)."""
+    tile = autotune.tile_for(cfg.kernel, "fused_sampled_dw", h_sub, dz)
+    dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale, tile=tile)
     return dw.to(out_dtype)
 
 

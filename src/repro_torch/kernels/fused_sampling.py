@@ -16,15 +16,15 @@ kernels are in ``csrc/fused_sampled_dw.cu``: one block per (BM, BN) tile
 of dW looping over every (b, k-block) with the f32 sum in registers, the
 dz rows gathered by the block's own idx slice, scale applied in f32 and
 rounded once to the input dtype in shared memory; the gathered dZ' is
-never written to device memory.  ``dw_route`` picks one of three routes
-for a shape: ``wgmma`` (bf16/f16 with d_in and d_out multiples of 8 and
+never written to device memory.  ``dw_route`` (``kernels/autotune.py``,
+with the tile) picks one of three routes for a shape: ``wgmma`` (bf16/f16 with d_in and d_out multiples of 8 and
 16-byte-aligned hsub/dz: H' by TMA, dZ' by cp.async, a four-stage ring,
 warp-specialised wgmma), ``wmma`` (other bf16/f16) or ``fma`` (f32).
 ``fused_sampled_dw.launches`` counts launches, ``.launches_by_route``
-splits them by route.  On an H100 in bf16 it is bound by
-operations at the wide projections (``2*B*k*d_in*d_out`` flops against
-989 TFLOP/s) and by bytes at the narrow ones
-(``2*(B*k*d_in + B*k*d_out) + 4*d_in*d_out`` against 3.35 TB/s).  Any
+splits them by route, ``.launches_by_tile`` by the tile launched.  On an
+H100 in bf16 it is bound by operations at the wide projections
+(``2*B*k*d_in*d_out`` flops against 989 TFLOP/s) and by bytes at the
+narrow ones (``2*(B*k*d_in + B*k*d_out) + 4*d_in*d_out`` against 3.35 TB/s).  Any
 positive shape is taken: the k tail and the d_in/d_out edges are
 predicated in the kernel.
 
@@ -37,27 +37,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, costs
+from repro_torch.kernels import _build, autotune, costs
+from repro_torch.kernels.autotune import dw_route
 
 TILES = (64, 128)
 # the wmma and fma routes put the expert on blockIdx.z
 MAX_EXPERTS = 65535
 # C route codes are the positions (csrc/fused_sampled_dw.cu: enum Route)
 ROUTES = ("fma", "wmma", "wgmma")
-
-
-def dw_route(d_in: int, d_out: int, dtype: torch.dtype,
-             aligned: bool = True) -> str:
-    """The one kernel route a shape takes: ``fma`` for float32, ``wgmma``
-    for bfloat16/float16 when d_in and d_out are multiples of 8 and hsub
-    and dz start on a 16-byte boundary (``aligned``; TMA's strides and base
-    and the 16-byte dZ' chunks need it), ``wmma`` for the other
-    bfloat16/float16 shapes."""
-    if dtype == torch.float32:
-        return "fma"
-    if d_in % 8 == 0 and d_out % 8 == 0 and aligned:
-        return "wgmma"
-    return "wmma"
 
 
 def fused_sampled_dw_plain(hsub: torch.Tensor, dz: torch.Tensor,
@@ -86,12 +73,14 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
     idx/scale (E, B, k) — every expert's dW in one launch, (E, d_in,
     d_out); E = 1 gives the 3-D call's result bit for bit.
 
-    ``tile`` pins the bf16/f16 output tile (64 or 128); ``None`` lets the
-    kernel choose from the shape.  A CUDA tensor launches the kernel (or
-    raises); only tensors that lie on the CPU take the plain version;
-    ``meta`` tensors charge the dry run's counter (``kernels/costs.py``).  An
-    index outside [0, n) raises: on the CPU at once, on the card as a
-    device-side assert at the next synchronisation.
+    ``tile`` pins the bf16/f16 output tile (64 or 128); ``None`` takes
+    the packaged tuning table's entry for the shape, else the shape rule
+    (``autotune.tile_for``, as ``sampled_matmul``).  A CUDA
+    tensor launches the kernel (or raises); only tensors that lie on the
+    CPU take the plain version; ``meta`` tensors charge the dry run's
+    counter (``kernels/costs.py``).  An index outside [0, n) raises: on the
+    CPU at once, on the card as a device-side assert at the next
+    synchronisation.
     """
     if hsub.ndim not in (3, 4) or dz.ndim != hsub.ndim:
         raise ValueError(f"fused_sampled_dw wants hsub ([E,] B, k, d_in) and "
@@ -129,19 +118,22 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
     if not hsub.is_cuda:
         raise ValueError(f"fused_sampled_dw runs on cuda or cpu, not {dev}")
     route = dw_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz))
+    tile = autotune.tile_for(None, "fused_sampled_dw", hsub, dz, tile)
     out = torch.empty(lead + (d_in, d_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _build.library().repro_fused_sampled_dw(
             hsub.data_ptr(), dz.data_ptr(), idx.data_ptr(), scale.data_ptr(),
             out.data_ptr(), e, b, k, n, d_in, d_out,
-            _build.DTYPE_CODES[hsub.dtype], tile or 0, ROUTES.index(route),
+            _build.DTYPE_CODES[hsub.dtype], tile, ROUTES.index(route),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, f"fused_sampled_dw ({route} route)")
     fused_sampled_dw.launches += 1
     fused_sampled_dw.launches_by_route[route] += 1
+    fused_sampled_dw.launches_by_tile[tile] += 1
     return out
 
 
 fused_sampled_dw.launches = 0
 fused_sampled_dw.meta_launches = 0
 fused_sampled_dw.launches_by_route = dict.fromkeys(ROUTES, 0)
+fused_sampled_dw.launches_by_tile = dict.fromkeys(TILES, 0)

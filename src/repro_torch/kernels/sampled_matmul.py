@@ -7,22 +7,25 @@ Replaces the TPU kernel ``repro/kernels/sampled_matmul.py::sampled_matmul``
 and keeps its contract: padded plan slots are idx 0, scale 0 and
 contribute nothing (``repro/kernels/ops.py``).  The kernels are in
 ``csrc/sampled_matmul.cu``; ``smm_route`` picks one route, tile and
-cluster for a shape:
+cluster for a shape, from the tile ``autotune.tile_for`` gives (a pin,
+else the tuning table's entry, else the shape rule
+``autotune.default_blocks``):
 
 * ``wgmma`` (bf16/f16, d_in and d_out multiples of 8, hsub and dz
   16-byte aligned): the Hopper kernel.  256 x 128 dW tiles, two blocks
-  along d_out sharing one H' tile by TMA multicast, where that still gives
-  half the SMs a block; else 64 x 64 tiles without a cluster.  Nothing is
-  padded or copied: TMA reads H' past k and d_in as zeros, the kernel
-  fetches plan slots past k as idx 0, scale 0 and predicates the d_out
-  edge.
+  along d_out sharing one H' tile by TMA multicast (tile 256; the rule's
+  pick where that still gives half the SMs a block), or 64 x 64 tiles
+  without a cluster (tile 64).  Nothing is padded or copied: TMA reads H'
+  past k and d_in as zeros, the kernel fetches plan slots past k as idx
+  0, scale 0 and predicates the d_out edge.
 * ``wmma`` (other bf16/f16) and ``fma`` (f32): even tiles only; the
   wrapper pads H' (k rows, d_in columns) and dZ (d_out columns) with
   zeros to the tile (``pad_operands``) and slices the result back.
 
 ``sampled_matmul.launches`` counts launches, ``.launches_by_route`` splits
-them by route.  On an H100 in bf16 it is bound by operations at the wide
-projections (``2*B*k*d_in*d_out`` on the unpadded k against 989 TFLOP/s).
+them by route, ``.launches_by_tile`` by the tile launched.  On an H100 in bf16 it is bound by
+operations at the wide projections (``2*B*k*d_in*d_out`` on the unpadded
+k against 989 TFLOP/s).
 
 The reference keeps this kernel as the unfused baseline the fused kernel
 (``fused_sampling.py``) is measured against: ``row_norms -> plan ->
@@ -35,14 +38,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, costs, fused_sampling
+from repro_torch.kernels import _build, autotune, costs, fused_sampling
 
 # contraction slots per tile of the even-tiled routes: mma tiles of 32 for
 # bf16/f16, FMA tiles of 16 for f32 (csrc/sampled_matmul.cu)
 BK = {torch.bfloat16: 32, torch.float16: 32, torch.float32: 16}
 F32_TILE = 64
-# the SM count the host plans for where there is no card (an H100's)
-H100_SMS = 132
 # C route codes are the positions (csrc/sampled_matmul.cu: enum Route)
 ROUTES = ("fma", "wmma", "wgmma")
 
@@ -65,37 +66,44 @@ sampled_matmul_plain = fused_sampling.fused_sampled_dw_plain
 
 def choose_tile(dtype: torch.dtype, d_in: int, d_out: int,
                 sms: Optional[int]) -> int:
-    """The square output tile of the ``wmma`` / ``fma`` routes, which the
-    operands are padded to: 64 for f32; for bf16/f16 128 when that still
-    gives every SM a tile, else 64 (the same rule as
+    """The square output tile the shape rule gives the ``wmma`` / ``fma``
+    routes, which the operands are padded to: 64 for f32; for bf16/f16 128
+    when that still gives every SM a tile, else 64 (the same rule as
     ``fused_sampled_dw``).  ``sms=None`` takes 64."""
     if dtype == torch.float32:
         return F32_TILE
     if sms is None:
         return 64
-    tiles128 = -(-d_in // 128) * -(-d_out // 128)
-    return 128 if tiles128 >= sms else 64
+    return autotune.default_blocks("sampled_matmul", "wmma", d_in, d_out,
+                                   sms=sms)
 
 
 def smm_route(d_in: int, d_out: int, dtype: torch.dtype,
-              aligned: bool = True, sms: int = H100_SMS) -> SmmRoute:
+              aligned: bool = True, sms: int = autotune.H100_SMS,
+              tile: Optional[int] = None) -> SmmRoute:
     """The one kernel configuration a shape takes: ``fma`` (64 x 64) for
     float32; ``wgmma`` for bfloat16/float16 when d_in and d_out are
     multiples of 8 and hsub and dz start on a 16-byte boundary
     (``aligned``; TMA's strides and base and the 16-byte dZ' chunks need
-    it) — 256 x 128 tiles in clusters of two along d_out when that gives
-    at least half of the ``sms`` SMs a block, else 64 x 64 tiles without
-    a cluster; ``wmma`` with ``choose_tile``'s square tile for the other
-    bfloat16/float16 shapes."""
-    if dtype == torch.float32:
-        return SmmRoute("fma", F32_TILE, F32_TILE, 1)
-    if d_in % 8 or d_out % 8 or not aligned:
-        tile = choose_tile(dtype, d_in, d_out, sms)
-        return SmmRoute("wmma", tile, tile, 1)
-    blocks = 2 * -(-d_in // 256) * -(-d_out // 256)
-    if 2 * blocks >= sms:
-        return SmmRoute("wgmma", 256, 128, 2)
-    return SmmRoute("wgmma", 64, 64, 1)
+    it); ``wmma`` for the other bfloat16/float16 shapes.  ``tile`` (a
+    candidate of the route, ``autotune.candidate_blocks``, else
+    ``ValueError``) sets the tile; ``None`` takes the shape rule's
+    (``autotune.default_blocks``): on ``wgmma`` 256 x 128 tiles in
+    clusters of two along d_out when that gives at least half of the
+    ``sms`` SMs a block, else 64 x 64 tiles without a cluster; on ``wmma``
+    ``choose_tile``'s square tile."""
+    route = autotune.dw_route(d_in, d_out, dtype, aligned)
+    if tile is None:
+        tile = autotune.default_blocks("sampled_matmul", route, d_in, d_out,
+                                       sms=sms)
+    elif tile not in autotune.candidate_blocks("sampled_matmul", route):
+        raise ValueError(
+            f"sampled_matmul's {route} route takes the tiles "
+            f"{autotune.candidate_blocks('sampled_matmul', route)}, not "
+            f"{tile!r}")
+    if tile == 256:
+        return SmmRoute(route, 256, 128, 2)
+    return SmmRoute(route, tile, tile, 1)
 
 
 def pad_operands(hsub, dz, idx, scale, tile: int, bk: int):
@@ -129,7 +137,7 @@ def plan_operands(hsub, dz, idx, scale, r: SmmRoute):
 def launch(hsub, dz, idx, scale, r: SmmRoute) -> torch.Tensor:
     """Route ``r``'s kernel on ``plan_operands``' output (CUDA tensors):
     the padded (d_in', d_out') f32 result.  Raises if the launch is
-    refused; counts the launch."""
+    refused; counts the launch, by route and by tile."""
     b, k, d_in = hsub.shape
     n, d_out = dz.shape[1], dz.shape[2]
     out = torch.empty((d_in, d_out), dtype=torch.float32, device=hsub.device)
@@ -142,21 +150,28 @@ def launch(hsub, dz, idx, scale, r: SmmRoute) -> torch.Tensor:
     _build.check_launch(code, f"sampled_matmul ({r.route} route)")
     sampled_matmul.launches += 1
     sampled_matmul.launches_by_route[r.route] += 1
+    sampled_matmul.launches_by_tile[r.tile_m] += 1
     return out
 
 
 def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
-                   scale: torch.Tensor) -> torch.Tensor:
+                   scale: torch.Tensor, *,
+                   tile: Optional[int] = None) -> torch.Tensor:
     """hsub (k, d_in), dz (n, d_out), idx/scale (k,); or the batched form
     hsub (B, k, d_in), dz (B, n, d_out), idx/scale (B, k) -> (d_in, d_out)
     f32.  One float dtype for hsub and dz, idx int32 rows of dz, scale f32.
 
-    ``smm_route`` picks the kernel configuration and ``plan_operands``
-    prepares its operands on either device; then a CUDA tensor launches
-    the kernel (or raises) and only tensors that lie on the CPU take the
-    plain version; ``meta`` tensors charge the dry run's counter
-    (``kernels/costs.py``).  An index outside [0, n) raises: on the CPU at once, on
-    the card as a device-side assert at the next synchronisation.
+    ``tile`` pins the tile (a candidate of the route the operands take,
+    else ``ValueError``); ``None`` takes the packaged tuning table's entry
+    for this shape (the 2-D form as B = 1), else the shape rule
+    (``autotune.tile_for``, as ``fused_sampled_dw``).  ``smm_route`` picks the kernel
+    configuration and ``plan_operands`` prepares its operands on either
+    device (on the CPU too the tile sets the padding); then a CUDA tensor
+    launches the kernel (or raises) and only tensors that lie on the CPU
+    take the plain version; ``meta`` tensors charge the dry run's counter
+    (``kernels/costs.py``).  An index outside [0, n) raises: on the CPU at
+    once, on the card as a device-side assert at the next
+    synchronisation.
     """
     if hsub.ndim not in (2, 3) or dz.ndim != hsub.ndim:
         raise ValueError(f"sampled_matmul wants hsub (k, d_in) / dz "
@@ -186,9 +201,9 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
                            device="meta")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sampled_matmul runs on cuda or cpu, not {dev}")
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else H100_SMS)
-    r = smm_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz), sms)
+    tile = autotune.tile_for(None, "sampled_matmul", hsub, dz, tile)
+    r = smm_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz),
+                  tile=tile)
     planned = plan_operands(hsub, dz, idx, scale, r)
     if dev.type == "cpu":
         return sampled_matmul_plain(*planned)[:d_in, :d_out]
@@ -198,3 +213,4 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
 sampled_matmul.launches = 0
 sampled_matmul.meta_launches = 0
 sampled_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+sampled_matmul.launches_by_tile = dict.fromkeys((256, 128, 64), 0)

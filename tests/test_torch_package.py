@@ -189,7 +189,8 @@ def test_kernel_sources_are_packaged_and_hashed():
     assert len(_build._source_hash()) == 16
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     pyproject = (ROOT / "pyproject.toml").read_text()
-    assert '"repro_torch.kernels" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
+    assert ('"repro_torch.kernels" = ["csrc/*.cu", "csrc/*.cuh", '
+            '"tuning_table.json"]') in pyproject
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored and "*.so" in ignored
 
