@@ -154,7 +154,7 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            plans) and 2 exact ones at B=2, S=2048, checked as in moe;
            the whole model (54 layers, 2.06 B parameters) trains 2 steps
            at B=1 under remat "full", its peak beside the reckoned one;
-           at full depth a prefill of 2 x 2048 tokens (flash on its mma
+           at full depth a prefill of 2 x 2048 tokens (flash on its wgmma
            route at Dh 80) and 16 decode steps, their bf16 distance to the
            forward measured (at random weights the card's bf16 GEMM
            roundings, which differ with the row count, grow through the
@@ -355,6 +355,15 @@ FLASH_RAGGED = [(3, 2, 1, 50, 50, 16, True), (1, 4, 4, 33, 70, 64, False),
 FLASH_EDGE = [(1, 8, 1, 200, 333, 128, True), (1, 8, 1, 333, 200, 64, True),
               (2, 8, 1, 130, 130, 128, False), (1, 16, 2, 257, 129, 64, False),
               (1, 12, 2, 200, 333, 128, True), (2, 6, 1, 130, 130, 64, False)]
+# ... and at the head dims it holds in a wider tile, whose columns past Dh
+# arrive as zeros: zamba2's 80 (capacity 128) at Sq != Skv, group 1 and 8,
+# causal and not; 72 and 88 (multiples of 8, not of 16: the last Q K^T
+# k-step half zeros); 16 (the reduced configs'), 40 and 8 (capacity 64)
+FLASH_PADDED = [(1, 8, 1, 200, 333, 80, True), (2, 4, 4, 333, 200, 80, False),
+                (1, 32, 32, 130, 257, 80, True),
+                (1, 12, 2, 257, 129, 72, False), (2, 4, 4, 200, 200, 88, True),
+                (1, 8, 2, 200, 333, 16, True), (1, 4, 4, 130, 130, 40, False),
+                (1, 2, 1, 33, 70, 8, True)]
 # gather_scale: H' of the train path (B=4, n=1024, k=307) at both input
 # widths; the reference sweep's 2-D (n, d, k) shapes; a batched
 # (B, n, d, k) shape with repeated rows
@@ -441,7 +450,7 @@ SERVE_POOL_DEPTH = 6
 # (k = 614), then at full depth under remat "full" at B=1; xlstm-125m at
 # full size at B=4, S=1024 (k = 307).  Their sampled linears' (d_in,
 # d_out), the row widths their plans and H' read, zamba2's prefill heads
-# (32/32 of 80: the flash kernel's mma route)
+# (32/32 of 80: the flash kernel's wgmma route at its 128-column capacity)
 SSM_ARCH, SSM_DEPTH, SSM_STEPS, SSM_B, SSM_S = "zamba2-2.7b", 12, 4, 2, 2048
 SSM_K = MOE_WTA.budget_rows(SSM_S)
 SSM_ROW_D = (2560, 5120, 10240)
@@ -1413,10 +1422,13 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float16):
         for shape in FLASH_EDGE:
             cases.append(flash_case(*shape, dtype, gen, timed=False))
+        for shape in FLASH_PADDED:
+            cases.append(flash_case(*shape, dtype, gen, timed=False))
         # a wgmma shape whose operands start off a 16-byte boundary takes
-        # the mma route
-        cases.append(flash_case(*FLASH_EDGE[0], dtype, gen, timed=False,
-                                misaligned=True))
+        # the mma route, at a full and at a padded capacity
+        for shape in (FLASH_EDGE[0], FLASH_PADDED[0]):
+            cases.append(flash_case(*shape, dtype, gen, timed=False,
+                                    misaligned=True))
     for dtype in (torch.bfloat16, torch.float32):
         for n, d in ROW_NORM_MAIN:
             cases.append(row_norms_case(n, d, dtype, gen, timed=True))
@@ -1526,7 +1538,7 @@ def phase_kernels():
     # the recurrent phases' shapes, bf16, timed: row norms and H' at every
     # width a plan reads, every sampled dW (zamba2's mamba_in d_out 10448 is
     # a multiple of 8, not of 64; xlstm's mlstm_if has d_out 8), zamba2's
-    # prefill flash heads on the mma route (Dh 80)
+    # prefill flash heads on the wgmma route (Dh 80)
     for phase, b, s, k, row_d, dws in (
             ("ssm", SSM_B, SSM_S, SSM_K, SSM_ROW_D, SSM_DW),
             ("xlstm", XLSTM_B, XLSTM_S, XLSTM_K, XLSTM_ROW_D, XLSTM_DW)):
@@ -3492,7 +3504,7 @@ def recurrent_serve(what, cfg, params, b, s, hold_bf16, pool_depth=None):
 def phase_ssm():
     """zamba2-2.7b at published width: depth 12 trains (4 WTA-CRS, 2 exact
     steps at B=2, S=2048), full depth trains 2 steps under remat "full"
-    at B=1, and full depth serves (prefill through the flash kernel's mma
+    at B=1, and full depth serves (prefill through the flash kernel's wgmma
     route at 32/32 heads of 80, decode; the pool at SERVE_POOL_DEPTH; the
     bf16 distances to the forward measured, the f32 ones held).  Returns
     the depth-12 steps' and the prefill's launches."""
@@ -4624,7 +4636,7 @@ def tp_blocks(rank, mesh, out):
         zcfg.vocab_size, S + TP_BLOCKS_GEN, TP_PROMPT_B, seed=0).batch_at(
             0, TP_PROMPT_B)["tokens"]).cuda().to(torch.int64)
     prompt, feed = {"tokens": toks[:, :S]}, toks[:, S:]
-    # bf16 prefill on flash's mma route (16 heads of 80 a rank) and decode,
+    # bf16 prefill on flash's wgmma route (16 heads of 80 a rank) and decode,
     # and the same in f32: the f32 logits held against one rank's; the
     # bf16 ones (the ranks' all-reduced partial sums round in bf16 in
     # another order) against one rank's f32 ones at twice one rank's own
@@ -4636,9 +4648,10 @@ def tp_blocks(rank, mesh, out):
     reset_launches()
     last, steps, zserve = tp_serve(zcfg, local, mesh, prompt, feed,
                                    TP_BLOCKS_GEN)
-    flash = expect_route("tp zamba2 prefill", "flash_attention_fwd", "mma")
+    route = flash_mod.flash_route(zcfg.head_dim, zcfg.cdtype, True)
+    flash = expect_route("tp zamba2 prefill", "flash_attention_fwd", route)
     zserve["flash_launches_by_route"] = flash
-    legs["tp_zamba2"]["flash_attention_fwd"] = flash["mma"]
+    legs["tp_zamba2"]["flash_attention_fwd"] = flash[route]
     zserve["logits_digest"] = hashlib.sha256(
         torch.cat([last[None], steps]).cpu().numpy()).hexdigest()
     del local

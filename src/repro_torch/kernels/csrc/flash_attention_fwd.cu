@@ -24,25 +24,31 @@
 //
 // Three routes, chosen by the caller (kernels/flash_attention.py::
 // flash_route) and passed in; a route the shape does not fit returns -2:
-//  * wgmma (bf16/f16, Dh 64 or 128, 16-byte-aligned q/k/v): the Hopper
+//  * wgmma (bf16/f16, Dh up to 128, 16-byte-aligned q/k/v): the Hopper
 //    kernel below.  One block owns one (bh, 128-row q tile): two consumer
 //    warpgroups of 64 q rows and one producer warpgroup (setmaxnreg moves
 //    its registers to the consumers).  The producer loads Q once and each
 //    128-row K and V tile through a two-stage shared-memory ring by TMA,
 //    from 3-D tensor maps (Dh, S, heads), so rows past Sq / Skv arrive as
-//    zeros inside their own head.  S = Q K^T is one wgmma chain with both
-//    operands in shared memory; the online softmax runs on the f32
+//    zeros inside their own head.  Shared memory holds a tile at a
+//    capacity of 64 columns (Dh <= 64) or 128 (64 < Dh <= 128), whole
+//    64-column atoms of the 128-byte swizzle; the maps span the true Dh,
+//    so the columns past it arrive as zeros too (Dh 80: 48 zero columns
+//    at capacity 128).  S = Q K^T is one wgmma chain of max(4, ceil(Dh /
+//    16)) k-steps, fixed at compile time (an instance a step count), with
+//    both operands in shared memory; the online softmax runs on the f32
 //    accumulator in registers (exp2f with scale * log2(e) folded in), and
 //    only the tiles that cross the diagonal or Skv are masked.  p is
 //    rounded once to the input dtype and fed as the register A operand of
-//    P V, whose B operand is the V tile read MN-major.  K and V have
-//    separate barriers, so Q K^T starts before V has landed.  The tensor
-//    maps are encoded on the host at each call (a few microseconds).
-//  * mma (bf16/f16, any other Dh, or a misaligned base): mma.sync
+//    P V, whose B operand is the V tile read MN-major at the full capacity
+//    (the zero columns give zero sums, which are not stored).  K and V
+//    have separate barriers, so Q K^T starts before V has landed.  The tensor maps are encoded on the host at each call (a
+//    few microseconds).
+//  * mma (bf16/f16, Dh over 128, or a misaligned base): mma.sync
 //    m16n8k16, 64-row q tiles, single-buffered, K/V through registers.
 //  * fma (f32): a separate FMA kernel (32x32 tiles, four threads a q row):
 //    TF32 would cost the three decimal digits the f32 callers are promised.
-//
+
 // Numerics (the TPU kernel upcasts q/k/v to f32 before BOTH products):
 // Q K^T multiplies bf16/f16 values exactly into f32 sums, so it is the
 // reference's f32 dot up to summation order.  Every bf16/f16 route rounds
@@ -286,7 +292,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16, the wgmma route: Dh 64 or 128, TMA ring, warp-specialised
+// bf16 / f16, the wgmma route: Dh up to 128, TMA ring, warp-specialised
 // ---------------------------------------------------------------------------
 constexpr int kWgBQ = 128;          // q rows a block (64 a consumer warpgroup)
 constexpr int kWgBK = 128;          // kv rows a tile
@@ -295,29 +301,35 @@ constexpr int kWgThreads = 3 * 128; // consumers 0 and 1, producer 2
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// Shared memory: Q (Dh/64 atom columns of 128 rows x 128 bytes), then
-// kWgStages K tiles and kWgStages V tiles of the same shape, then the
-// barriers; the base is rounded up to 1024 bytes for the swizzle.
-template <int kDh>
+// kSteps: Q K^T's k16 steps, max(4, ceil(Dh / 16)), a compile-time chain
+// (a branch between the wgmmas of one chain makes ptxas fence each one).
+// A tile's column capacity kCap is 64 at 4 steps, else 128.  Shared
+// memory: Q (kCap/64 atom columns of 128 rows x 128 bytes), then kWgStages
+// K tiles and kWgStages V tiles of the same shape, then the barriers; the
+// base is rounded up to 1024 bytes for the swizzle.
+template <int kSteps>
 struct WgLayout {
+  static constexpr int kCap = kSteps > 4 ? 128 : 64;
   static constexpr int kColBytes = kWgBQ * 128;  // a 64-column atom column
-  static constexpr int kTileBytes = kColBytes * (kDh / 64);
+  static constexpr int kTileBytes = kColBytes * (kCap / 64);
   static constexpr int kK = kTileBytes;                // offset of K stage 0
   static constexpr int kV = kK + kWgStages * kTileBytes;
   static constexpr int kBars = kV + kWgStages * kTileBytes;
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kWgStages) + 1024;
 };
 
-template <typename T, int kDh>
+template <typename T, int kSteps>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        T* __restrict__ out, int n_bh, int group, int sq,
-                       int skv, int causal, float scale_log2, int n_qtiles) {
+                       int skv, int dh, int causal, float scale_log2,
+                       int n_qtiles) {
   using namespace repro::hopper;
-  using L = WgLayout<kDh>;
-  constexpr int kCols = kDh / 64;
+  using L = WgLayout<kSteps>;
+  constexpr int kCap = L::kCap;
+  constexpr int kCols = kCap / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -386,9 +398,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row_b = row_a + 8;           // query of acc[i], (i >> 1) odd
     const unsigned char* q_wg = sm + wg * 64 * 128;
 
-    float o[kDh / 2];
+    float o[kCap / 2];
 #pragma unroll
-    for (int i = 0; i < kDh / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kCap / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
@@ -406,7 +418,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         const int off = (kk >> 2) * L::kColBytes + (kk & 3) * 32;
         wgmma_ss<T, kWgBK, 0, 0>(sc, desc_sw128(q_wg + off, 16, 1024),
                                  desc_sw128(k_st + off, 16, 1024), kk > 0);
@@ -451,7 +463,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l[0] = l[0] * corr[0] + ls[0];
       l[1] = l[1] * corr[1] + ls[1];
 #pragma unroll
-      for (int i = 0; i < kDh / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < kCap / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // p rounded once to T, in the register A layout of m64k16: the
       // accumulator of kv columns [16 kk, 16 kk + 16) is A's k-slice kk
@@ -471,9 +483,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        wgmma_rs<T, kDh, 1>(o, pa[kk],
-                            desc_sw128(v_st + kk * 2048, L::kColBytes, 1024),
-                            1);
+        wgmma_rs<T, kCap, 1>(o, pa[kk],
+                             desc_sw128(v_st + kk * 2048, L::kColBytes, 1024),
+                             1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -488,17 +500,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-30f);
     }
-    T* ob = out + (long long)bh * sq * kDh;
+    // the dh / 8 column groups of the true Dh; the padded ones are 0
+    T* ob = out + (long long)bh * sq * dh;
+    const int dh8 = dh / 8;
 #pragma unroll
-    for (int nb = 0; nb < kDh / 8; ++nb) {
+    for (int nb = 0; nb < kCap / 8; ++nb) {
+      if (nb >= dh8) break;
       const int col = nb * 8 + 2 * t;
       if (row_a < sq) {
-        *reinterpret_cast<uint32_t*>(ob + (long long)row_a * kDh + col) =
+        *reinterpret_cast<uint32_t*>(ob + (long long)row_a * dh + col) =
             pack2(from_f32<T>(o[4 * nb] / l[0]),
                   from_f32<T>(o[4 * nb + 1] / l[0]));
       }
       if (row_b < sq) {
-        *reinterpret_cast<uint32_t*>(ob + (long long)row_b * kDh + col) =
+        *reinterpret_cast<uint32_t*>(ob + (long long)row_b * dh + col) =
             pack2(from_f32<T>(o[4 * nb + 2] / l[1]),
                   from_f32<T>(o[4 * nb + 3] / l[1]));
       }
@@ -646,27 +661,30 @@ inline float scale_log2(const Args& a) {
   return (float)((double)a.scale * 1.4426950408889634);
 }
 
-template <typename T, int kDh>
+// The maps span the true Dh, so a box's columns past it arrive as zeros;
+// each box still lands whole, so every stage's transaction count is its
+// full tile bytes.
+template <typename T, int kSteps>
 int launch_wgmma(const Args& a) {
-  using L = WgLayout<kDh>;
+  using L = WgLayout<kSteps>;
   const int bkvh = a.bh / a.group;
   CUtensorMap mq, mk, mv;
-  if (!hopper::make_map_3d(&mq, a.q, kDh, a.sq, a.bh, kWgBQ) ||
-      !hopper::make_map_3d(&mk, a.k, kDh, a.skv, bkvh, kWgBK) ||
-      !hopper::make_map_3d(&mv, a.v, kDh, a.skv, bkvh, kWgBK)) {
+  if (!hopper::make_map_3d(&mq, a.q, a.dh, a.sq, a.bh, kWgBQ) ||
+      !hopper::make_map_3d(&mk, a.k, a.dh, a.skv, bkvh, kWgBK) ||
+      !hopper::make_map_3d(&mv, a.v, a.dh, a.skv, bkvh, kWgBK)) {
     return -4;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<T, kDh>,
+      flash_fwd_wgmma_kernel<T, kSteps>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return (int)e;
   const int n_qtiles = (int)cdiv(a.sq, kWgBQ);
   const long long blocks = (long long)a.bh * n_qtiles;
   if (blocks > 0x7fffffffLL) return -3;
-  flash_fwd_wgmma_kernel<T, kDh>
+  flash_fwd_wgmma_kernel<T, kSteps>
       <<<(unsigned)blocks, kWgThreads, L::kBytes, a.stream>>>(
           mq, mk, mv, static_cast<T*>(a.out), a.bh, a.group, a.sq, a.skv,
-          a.causal, scale_log2(a), n_qtiles);
+          a.dh, a.causal, scale_log2(a), n_qtiles);
   return (int)cudaGetLastError();
 }
 
@@ -727,11 +745,17 @@ int dispatch_f32(const Args& a) {
 // Routes of the C interface (kept in step with kernels/flash_attention.py).
 enum Route : int { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
 
+// Q K^T's k-steps for dh (a multiple of 8 from 8 up): every Dh up to 64
+// runs the 64-column tile's four (no published config has Dh < 64), the
+// rest ceil(dh / 16) of the 128-column tile's eight
 template <typename T>
 int dispatch_wgmma(const Args& a) {
   if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v))) return -2;
-  if (a.dh == 64) return launch_wgmma<T, 64>(a);
-  if (a.dh == 128) return launch_wgmma<T, 128>(a);
+  if (a.dh <= 64) return launch_wgmma<T, 4>(a);
+  if (a.dh <= 80) return launch_wgmma<T, 5>(a);
+  if (a.dh <= 96) return launch_wgmma<T, 6>(a);
+  if (a.dh <= 112) return launch_wgmma<T, 7>(a);
+  if (a.dh <= 128) return launch_wgmma<T, 8>(a);
   return -2;
 }
 

@@ -10,13 +10,14 @@ in ``csrc/flash_attention_fwd.cu``: one block per (bh, q tile) walking the
 kv tiles up to the causal bound with the online-softmax state
 ``(m, l, acc)`` in f32 registers; kv head ``h // group`` is read in place,
 no repeated K/V copy is made.  ``flash_route`` picks one of three routes
-for a shape: ``wgmma`` (bf16/f16 at Dh 64 or 128 with 16-byte-aligned
-q/k/v: TMA ring, warp-specialised wgmma), ``mma`` (other bf16/f16:
-mma.sync) or ``fma`` (f32).  Every bf16/f16 route rounds p once to the
-input dtype before P V with f32 statistics, as ``models/attention.py``
-does; the f32 route keeps p in f32.  ``flash_attention_fwd.launches``
-counts launches, ``.launches_by_route`` splits them by route.  On an H100
-it is bound by
+for a shape: ``wgmma`` (bf16/f16 at any Dh up to 128 with 16-byte-aligned
+q/k/v: TMA ring, warp-specialised wgmma over a 64- or 128-column tile
+whose columns past Dh are zeros), ``mma`` (other bf16/f16: Dh over 128
+or a misaligned base; mma.sync) or ``fma`` (f32).  Every bf16/f16 route
+rounds p once to the input dtype before P V with f32 statistics, as
+``models/attention.py`` does; the f32 route keeps p in f32.
+``flash_attention_fwd.launches`` counts launches, ``.launches_by_route``
+splits them by route.  On an H100 it is bound by
 operations: ``4 * BH * Dh * sum_i(#visible keys)`` flops against
 989 TFLOP/s (bf16/f16) or 67 TFLOP/s (f32), with bytes
 ``(2 * BH * Sq + 2 * BKVH * Skv) * Dh * itemsize`` far below at the
@@ -37,17 +38,18 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 # C route codes are the positions (csrc/flash_attention_fwd.cu: enum Route)
 ROUTES = ("fma", "mma", "wgmma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_MAX_HEAD_DIM = 128
 
 
 def flash_route(dh: int, dtype: torch.dtype, aligned: bool = True) -> str:
     """The one kernel route a shape takes: ``fma`` for float32, ``wgmma``
-    for bfloat16/float16 at a head dim of 64 or 128 with every operand
-    starting on a 16-byte boundary (``aligned``), ``mma`` for the other
-    bfloat16/float16 shapes."""
+    for bfloat16/float16 at a head dim (a multiple of 8) up to
+    ``WGMMA_MAX_HEAD_DIM`` with every operand starting on a 16-byte
+    boundary (``aligned``), ``mma`` for the other bfloat16/float16 shapes:
+    a head dim over 128 or a misaligned operand."""
     if dtype == torch.float32:
         return "fma"
-    if dh in WGMMA_HEAD_DIMS and aligned:
+    if dh <= WGMMA_MAX_HEAD_DIM and aligned:
         return "wgmma"
     return "mma"
 

@@ -45,9 +45,11 @@ def _np(x):
 
 # (BH, Sq, Skv, Dh, bq, bk): the reference sweep's shape, Sq != Skv (the
 # causal mask aligned at position 0) and an odd length, each with Pallas
-# blocks that tile it
+# blocks that tile it; zamba2's head dim 80 and 72 (a multiple of 8, not
+# of 16), which the card's wgmma route holds in a 128-column tile
 SHAPES = [(4, 64, 64, 16, 16, 16), (4, 32, 64, 16, 16, 16),
-          (4, 50, 50, 16, 50, 50)]
+          (4, 50, 50, 16, 50, 50), (4, 64, 64, 80, 16, 16),
+          (4, 50, 50, 72, 50, 50)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -64,16 +64,57 @@ def test_flash_route_maps_every_head_dim_to_one_route(dtype, aligned):
         assert route in flash_mod.ROUTES
         if dtype == torch.float32:
             assert route == "fma"
-        elif aligned and dh in (64, 128):
+        elif aligned and dh <= 128:
             assert route == "wgmma"
         else:
             assert route == "mma"
 
 
 @pytest.mark.parametrize("dtype", HALF)
-@pytest.mark.parametrize("dh", [64, 128])   # minicpm-2b, qwen2.5-3b
+@pytest.mark.parametrize("dh", [64, 128, 80])  # minicpm-2b, qwen2.5-3b, zamba2
 def test_flash_main_shapes_take_the_wgmma_route(dh, dtype):
     assert flash_mod.flash_route(dh, dtype) == "wgmma"
+
+
+def _c_flash_wgmma_head_dims():
+    """The head dims the C entry point lets through to a wgmma launch: its
+    own check of dh, then ``dispatch_wgmma``'s clauses (each instance's
+    Q K^T k-steps and tile capacity hold every dh it takes)."""
+    text = (_build.CSRC / "flash_attention_fwd.cu").read_text()
+    lo, hi, step = map(int, re.search(
+        r"dh < (\d+) \|\|\s*dh > (\d+) \|\| dh % (\d+) != 0", text).groups())
+    body = re.search(r"int dispatch_wgmma\(const Args& a\) \{\n(.*?)\n\}",
+                     text, re.S).group(1).splitlines()
+    assert re.fullmatch(r"\s*if \(!\(aligned16\(a\.q\) && "
+                        r"aligned16\(a\.k\) && aligned16\(a\.v\)\)\) "
+                        r"return -2;", body[0])
+    assert body[-1].strip() == "return -2;"
+    clauses = [re.fullmatch(r"\s*if \(a\.dh <= (\d+)\) return "
+                            r"launch_wgmma<T, (\d+)>\(a\);", ln)
+               for ln in body[1:-1]]
+    assert clauses and all(clauses), body
+    bounds = [tuple(map(int, m.groups())) for m in clauses]
+    cap = re.search(r"kCap = kSteps > (\d+) \? (\d+) : (\d+);", text)
+    split, wide, narrow = map(int, cap.groups())
+    for bound, steps in bounds:
+        # Q K^T's k16 steps span the clause's head dims, inside a capacity
+        # of whole 64-column atoms
+        capacity = wide if steps > split else narrow
+        assert bound <= 16 * steps <= capacity and capacity % 64 == 0, (
+            bound, steps, capacity)
+    return {dh for dh in range(lo, hi + 1, step)
+            if any(dh <= bound for bound, _ in bounds)}
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_c_dispatch_takes_exactly_the_wgmma_head_dims(dtype):
+    """``dispatch_wgmma`` (csrc/flash_attention_fwd.cu) accepts exactly the
+    aligned head dims ``flash_route`` sends to ``wgmma``: one it refused
+    would raise at launch, one it took beyond them would never be asked."""
+    want = {dh for dh in range(8, flash_mod.MAX_HEAD_DIM + 1, 8)
+            if flash_mod.flash_route(dh, dtype, True) == "wgmma"}
+    assert _c_flash_wgmma_head_dims() == want
+    assert max(want) == flash_mod.WGMMA_MAX_HEAD_DIM
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
