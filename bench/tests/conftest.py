@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: ``pytest bench/tests`` from the repo root.
+They need no card; nothing here decides at import whether there is one."""
+import sys
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parents[1]
+for p in (BENCH, BENCH.parent / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
