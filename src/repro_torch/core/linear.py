@@ -56,6 +56,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import estimator_registry as registry
 from repro_torch.core import plans
 from repro_torch.core.config import WTACRSConfig
@@ -105,7 +106,8 @@ def _sampled_dw(h_sub, dz, idx, scale, cfg: WTACRSConfig, out_dtype):
     operand, each expert's dW in the same one launch, its tile pinned or
     the shape rule's (the table's key has no expert count)."""
     tile = autotune.tile_for(cfg.kernel, "fused_sampled_dw", h_sub, dz)
-    dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale, tile=tile)
+    with tracing.span("dw"):
+        dw = kernel_ops.fused_sampled_dw(h_sub, dz, idx, scale, tile=tile)
     return dw.to(out_dtype)
 
 
@@ -141,9 +143,12 @@ def _kept(h, znorm, cfg, gen, plan, stash, norm_reduce=None):
     if stash is not None and stash.replay:
         return stash.take()
     k = cfg.budget_rows(h.shape[1])
-    idx, scale = plan if plan is not None else _make_plans(
-        h, znorm, gen, cfg, k, norm_reduce)
-    h_sub = _rowgather(h, idx)
+    if plan is None:
+        with tracing.span("plan"):
+            plan = _make_plans(h, znorm, gen, cfg, k, norm_reduce)
+    idx, scale = plan
+    with tracing.span("gather"):
+        h_sub = _rowgather(h, idx)
     if stash is not None:
         stash.keep(h_sub, idx, scale)
     return h_sub, idx, scale
@@ -163,16 +168,21 @@ class _SampledLinear(torch.autograd.Function):
         z = torch.matmul(h, w)
         ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash,
                                      norm_reduce), w)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.span = cfg, tracing.current()
         return z
 
     @staticmethod
     def backward(ctx, dz):
         h_sub, idx, scale, w = ctx.saved_tensors
-        dz = dz.contiguous()
-        dh = torch.matmul(dz, w.t()).to(h_sub.dtype)
-        dw = _sampled_dw(h_sub, dz, idx, scale, ctx.cfg, w.dtype)
-        tap = _sq_norm_tap(dz) if ctx.needs_input_grad[2] else None
+        tap = None
+        with tracing.span("linear.bwd", ctx.span):
+            dz = dz.contiguous()
+            with tracing.span("dx"):
+                dh = torch.matmul(dz, w.t()).to(h_sub.dtype)
+            dw = _sampled_dw(h_sub, dz, idx, scale, ctx.cfg, w.dtype)
+            if ctx.needs_input_grad[2]:
+                with tracing.span("tap"):
+                    tap = _sq_norm_tap(dz)
         return dh, dw, tap, None, None, None, None, None
 
 
@@ -188,7 +198,7 @@ class _SampledLinearShared(torch.autograd.Function):
     def forward(ctx, h, znorm, cfg, gen, plan, stash, *ws):
         zs = tuple(torch.matmul(h, w) for w in ws)
         ctx.save_for_backward(*_kept(h, znorm, cfg, gen, plan, stash), *ws)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.span = cfg, tracing.current()
         return zs
 
     @staticmethod
@@ -197,16 +207,20 @@ class _SampledLinearShared(torch.autograd.Function):
         dh = None
         tap = None
         dws = []
-        for dz, w in zip(dzs, ws):
-            dz = dz.contiguous()
-            d = torch.matmul(dz, w.t())
-            dh = d if dh is None else dh + d
-            dws.append(_sampled_dw(h_sub, dz, idx, scale, ctx.cfg,
-                                   ws[0].dtype))
-            if ctx.needs_input_grad[1]:
-                t = _sq_norm_tap(dz)
-                tap = t if tap is None else tap + t
-        return (dh.to(h_sub.dtype), tap, None, None, None, None, *dws)
+        with tracing.span("linear.bwd", ctx.span):
+            for dz, w in zip(dzs, ws):
+                dz = dz.contiguous()
+                with tracing.span("dx"):
+                    d = torch.matmul(dz, w.t())
+                    dh = d if dh is None else dh + d
+                dws.append(_sampled_dw(h_sub, dz, idx, scale, ctx.cfg,
+                                       ws[0].dtype))
+                if ctx.needs_input_grad[1]:
+                    with tracing.span("tap"):
+                        t = _sq_norm_tap(dz)
+                        tap = t if tap is None else tap + t
+            dh = dh.to(h_sub.dtype)
+        return (dh, tap, None, None, None, None, *dws)
 
 
 # ---------------------------------------------------------------------------
@@ -240,51 +254,55 @@ def _dispatch_sampled_dense(h: torch.Tensor, ws: Sequence[torch.Tensor],
     ``stash``: see :class:`RematStash`; ``norm_reduce``: see
     ``plans.batched_row_weights``.
     """
-    lead = h.shape[:-1]
-    squeeze = h.ndim == 2
-    h3 = h[None] if squeeze else h.reshape((-1,) + h.shape[-2:])
-    b, s = h3.shape[0], h3.shape[1]
+    with tracing.span("linear"):
+        lead = h.shape[:-1]
+        squeeze = h.ndim == 2
+        h3 = h[None] if squeeze else h.reshape((-1,) + h.shape[-2:])
+        b, s = h3.shape[0], h3.shape[1]
 
-    if cfg.is_exact or cfg.budget_rows(s) >= s:
-        zs = tuple(torch.matmul(h, w) for w in ws)
-    else:
-        spec = registry.get_estimator(cfg.kind)
-        gen = None
-        if plan is None and spec.needs_key:
-            if key is None:
-                raise ValueError(
-                    f"estimator {cfg.kind_name!r} requires a key")
-            gen = generator(h.device, key)
-        if plan is not None:
-            k = cfg.budget_rows(s)
-            idx, scale = plan
-            if tuple(idx.shape) != (b, k) or tuple(scale.shape) != (b, k):
-                raise ValueError(f"injected plan must be ({b}, {k}), got "
-                                 f"{tuple(idx.shape)} / {tuple(scale.shape)}")
-            plan = (idx.to(torch.int32).contiguous(),
-                    scale.to(torch.float32).contiguous())
-        # Without a caller's znorm there is nobody to read the tap: the
-        # placeholder carries no grad and the backward skips the tap.
-        zn = (torch.ones((b, s), dtype=torch.float32, device=h.device)
-              if znorm is None else znorm.reshape(b, s).to(torch.float32))
-        if shared and len(ws) > 1:
-            if not spec.supports_shared:
-                raise ValueError(f"estimator {cfg.kind_name!r} does not "
-                                 f"support shared plans")
-            if norm_reduce is not None:
-                raise ValueError("a shared plan is column-parallel: its "
-                                 "H is replicated")
-            z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, stash,
-                                             *ws)
+        if cfg.is_exact or cfg.budget_rows(s) >= s:
+            zs = tuple(torch.matmul(h, w) for w in ws)
         else:
-            z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan,
-                                             stash, norm_reduce) for w in ws)
-        zs = tuple(z[0] if squeeze else z.reshape(lead + (z.shape[-1],))
-                   for z in z3s)
+            spec = registry.get_estimator(cfg.kind)
+            gen = None
+            if plan is None and spec.needs_key:
+                if key is None:
+                    raise ValueError(
+                        f"estimator {cfg.kind_name!r} requires a key")
+                gen = generator(h.device, key)
+            if plan is not None:
+                k = cfg.budget_rows(s)
+                idx, scale = plan
+                if tuple(idx.shape) != (b, k) or tuple(scale.shape) != (b, k):
+                    raise ValueError(
+                        f"injected plan must be ({b}, {k}), got "
+                        f"{tuple(idx.shape)} / {tuple(scale.shape)}")
+                plan = (idx.to(torch.int32).contiguous(),
+                        scale.to(torch.float32).contiguous())
+            # Without a caller's znorm there is nobody to read the tap: the
+            # placeholder carries no grad and the backward skips the tap.
+            zn = (torch.ones((b, s), dtype=torch.float32, device=h.device)
+                  if znorm is None
+                  else znorm.reshape(b, s).to(torch.float32))
+            if shared and len(ws) > 1:
+                if not spec.supports_shared:
+                    raise ValueError(f"estimator {cfg.kind_name!r} does not "
+                                     f"support shared plans")
+                if norm_reduce is not None:
+                    raise ValueError("a shared plan is column-parallel: its "
+                                     "H is replicated")
+                z3s = _SampledLinearShared.apply(h3, zn, cfg, gen, plan, stash,
+                                                 *ws)
+            else:
+                z3s = tuple(_SampledLinear.apply(h3, w, zn, cfg, gen, plan,
+                                                 stash, norm_reduce)
+                            for w in ws)
+            zs = tuple(z[0] if squeeze else z.reshape(lead + (z.shape[-1],))
+                       for z in z3s)
 
-    if biases is not None:
-        zs = tuple(z if bias is None else z + bias
-                   for z, bias in zip(zs, biases))
+        if biases is not None:
+            zs = tuple(z if bias is None else z + bias
+                       for z, bias in zip(zs, biases))
     return zs
 
 

@@ -297,14 +297,15 @@ def load_table(path: Optional[str] = None) -> TuningTable:
 @functools.lru_cache(maxsize=None)
 def _tabled_or_rule(path: Optional[str], kernel: str, d_in: int, d_out: int,
                     b: int, k: int, dtype, aligned: bool, e: int,
-                    sms: int) -> int:
+                    sms: int) -> Tuple[int, str]:
+    """(tile, ``"table"`` or ``"rule"``: where it came from)."""
     route = dw_route(d_in, d_out, torch_dtype(dtype), aligned)
     if e == 1:
         hit = load_table(path).lookup(
             kernel, shape_key(d_in, d_out, b, k, dtype), route)
         if hit is not None:
-            return hit
-    return default_blocks(kernel, route, d_in, d_out, e, sms)
+            return hit, "table"
+    return default_blocks(kernel, route, d_in, d_out, e, sms), "rule"
 
 
 def cache_clear() -> None:
@@ -323,13 +324,21 @@ def resolve_blocks(cfg, kernel: str, d_in: int, d_out: int, b: int, k: int,
     16-byte boundaries), unless ``e`` > 1 experts share the launch; else
     the shape rule (:func:`default_blocks` for ``sms`` SMs).  ``cfg=None``
     is the default ``KernelConfig``.  Worked out once per table path and
-    shape."""
+    shape; ``resolve_blocks.tile_sources`` counts the calls by where the
+    tile came from (``"pinned"``, ``"table"``, ``"rule"``)."""
     if tile is None and kernel == "fused_sampled_dw" and cfg is not None:
         tile = cfg.dw_tile
     if tile is not None:
+        resolve_blocks.tile_sources["pinned"] += 1
         return tile
-    return _tabled_or_rule(None if cfg is None else cfg.table_path, kernel,
-                           d_in, d_out, b, k, dtype, aligned, e, sms)
+    tile, source = _tabled_or_rule(
+        None if cfg is None else cfg.table_path, kernel, d_in, d_out, b, k,
+        dtype, aligned, e, sms)
+    resolve_blocks.tile_sources[source] += 1
+    return tile
+
+
+resolve_blocks.tile_sources = dict.fromkeys(("pinned", "table", "rule"), 0)
 
 
 @functools.lru_cache(maxsize=None)

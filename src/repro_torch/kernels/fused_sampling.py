@@ -118,7 +118,8 @@ def fused_sampled_dw(hsub: torch.Tensor, dz: torch.Tensor,
     if not hsub.is_cuda:
         raise ValueError(f"fused_sampled_dw runs on cuda or cpu, not {dev}")
     route = dw_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz))
-    tile = autotune.tile_for(None, "fused_sampled_dw", hsub, dz, tile)
+    if tile is None:
+        tile = autotune.tile_for(None, "fused_sampled_dw", hsub, dz)
     out = torch.empty(lead + (d_in, d_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _build.library().repro_fused_sampled_dw(

@@ -201,7 +201,8 @@ def sampled_matmul(hsub: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
                            device="meta")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sampled_matmul runs on cuda or cpu, not {dev}")
-    tile = autotune.tile_for(None, "sampled_matmul", hsub, dz, tile)
+    if tile is None:
+        tile = autotune.tile_for(None, "sampled_matmul", hsub, dz)
     r = smm_route(d_in, d_out, hsub.dtype, _build.aligned16(hsub, dz),
                   tile=tile)
     planned = plan_operands(hsub, dz, idx, scale, r)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim as optim_lib
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import controller as controller_lib
 from repro_torch.device import resolve_device, resolve_or_meta
@@ -272,10 +273,12 @@ def _grads_of(cfg, policy, params, leaves, zn, batch, key, mesh=None):
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
-                                   znorms=zn, mesh=mesh)
-        grads = torch.autograd.grad(loss, leaves + zn_leaves,
-                                    allow_unused=True)
+        with tracing.span("forward"):
+            loss, _ = registry.loss_fn(cfg, params, batch, policy, key=key,
+                                       znorms=zn, mesh=mesh)
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(loss, leaves + zn_leaves,
+                                        allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -391,6 +394,10 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                if model_mesh is not None and layouts else None)
 
     def train_step(state, batch):
+        with tracing.span("train_step"):
+            return step_body(state, batch)
+
+    def step_body(state, batch):
         params = state["params"]
         step = int(state["step"])
         key = cm.fold_seed(state["base_seed"], step)
@@ -452,8 +459,10 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
                 taps = {t: torch.cat([p[t] for p in tap_parts], dim=1)
                         for t in tap_parts[0]}
         if reduce:
-            grads = reduce_gradients(grads, params, mesh, compress or "none")
-            loss = compression.pmean_tree(loss, mesh)
+            with tracing.span("grad_reduce"):
+                grads = reduce_gradients(grads, params, mesh,
+                                         compress or "none")
+                loss = compression.pmean_tree(loss, mesh)
             if use_znorm_cache and taps:
                 names = list(taps)
                 local = torch.stack([taps[t] for t in names]) / (world * world)
@@ -468,13 +477,14 @@ def make_train_step(cfg: ArchConfig, policy: cm.Policy, opt_cfg,
         if model_mesh is not None:
             sharded = [tuple(p.shape) != w for p, w in zip(leaves, whole)]
             gnorm = _model_parallel_norm(grads, sharded, model_mesh)
-        if layouts:
-            _, _, om, rank_energy = optim_lib.update(
-                grads, state["opt"], params, lr, opt_cfg, gnorm=gnorm,
-                mesh=model_mesh, param_specs=p_specs)
-        else:
-            _, _, om = optim.adamw_update(grads, state["opt"], leaves, lr,
-                                          opt_cfg, gnorm=gnorm)
+        with tracing.span("optimizer"):
+            if layouts:
+                _, _, om, rank_energy = optim_lib.update(
+                    grads, state["opt"], params, lr, opt_cfg, gnorm=gnorm,
+                    mesh=model_mesh, param_specs=p_specs)
+            else:
+                _, _, om = optim.adamw_update(grads, state["opt"], leaves,
+                                              lr, opt_cfg, gnorm=gnorm)
         state["step"] = step + 1
         if use_znorm_cache:
             state["znorm"] = cache
@@ -805,7 +815,7 @@ def make_prefill_step(cfg: ArchConfig, policy: cm.Policy, device="cuda",
     _no_tf32()
 
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("prefill_step"):
             batch = _to_device(batch, device)
             return registry.prefill(cfg, params, batch, policy, mesh=mesh)
 

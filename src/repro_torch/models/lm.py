@@ -65,6 +65,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear as lin
 from repro_torch.device import resolve_device, resolve_or_meta
@@ -245,19 +246,22 @@ def apply_block(cfg, btype: str, p, ctx: cm.Ctx, h, positions,
     rs = cfg.residual_scale
     if btype == "shared_attn":
         p = shared
-    x = cm.apply_norm(cfg, p["norm1"], h)
-    if btype in _APPLY:
-        return h + rs * _APPLY[btype](cfg, p[btype], ctx, x), {}
-    q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
-    o = attn_lib.flash_attention(
-        q, k, v, causal=True, q_block=ctx.policy.flash_block,
-        kv_block=ctx.policy.flash_block, mode=ctx.policy.flash_mode)
-    o = _attn_out(cfg, p["attn"], ctx,
-                  o.reshape(h.shape[0], h.shape[1], -1))
-    h = h + rs * o
-    x = cm.apply_norm(cfg, p["norm2"], h)
-    m, aux = _ffn(cfg, p, ctx, x)
-    return h + rs * m, aux
+    with tracing.span("block"):
+        x = cm.apply_norm(cfg, p["norm1"], h)
+        if btype in _APPLY:
+            return h + rs * _APPLY[btype](cfg, p[btype], ctx, x), {}
+        q, k, v = _project_qkv(cfg, p["attn"], ctx, x, positions)
+        with tracing.span("attention"):
+            o = attn_lib.flash_attention(
+                q, k, v, causal=True, q_block=ctx.policy.flash_block,
+                kv_block=ctx.policy.flash_block, mode=ctx.policy.flash_mode)
+            tracing.span_backward("attention.bwd", o, (q, k, v))
+        o = _attn_out(cfg, p["attn"], ctx,
+                      o.reshape(h.shape[0], h.shape[1], -1))
+        h = h + rs * o
+        x = cm.apply_norm(cfg, p["norm2"], h)
+        m, aux = _ffn(cfg, p, ctx, x)
+        return h + rs * m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +470,8 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
                          f"{REMAT_MODES}")
     ctx = cm.Ctx(policy=policy, key=key, znorms=None, recorder=recorder,
                  compute_dtype=cfg.cdtype, mesh=mesh)
-    h, positions = embed_inputs(cfg, params, batch, ctx)
+    with tracing.span("embed"):
+        h, positions = embed_inputs(cfg, params, batch, ctx)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         ridx, j, btype, layer = _layer(cfg, params, i)
@@ -482,8 +487,10 @@ def forward(cfg: ArchConfig, params, batch, policy: cm.Policy,
             h, aux = _remat_layer(cfg, btype, layer, sub, h, positions)
         if "lb_loss" in aux:
             lb = lb + aux["lb_loss"]
-    h = cm.apply_norm(cfg, params["final_norm"], h)
-    return _logits(cfg, params, h, mesh), {"lb_loss": lb}
+    with tracing.span("head"):
+        h = cm.apply_norm(cfg, params["final_norm"], h)
+        logits = _logits(cfg, params, h, mesh)
+    return logits, {"lb_loss": lb}
 
 
 def _logits(cfg, params, h, mesh=None):
@@ -561,33 +568,39 @@ def prefill(cfg: ArchConfig, params, batch, policy: cm.Policy, mesh=None):
     """
     ctx = cm.Ctx(policy=policy, key=None, znorms=None,
                  compute_dtype=cfg.cdtype, mesh=mesh)
-    h, positions = embed_inputs(cfg, params, batch, ctx)
+    with tracing.span("embed"):
+        h, positions = embed_inputs(cfg, params, batch, ctx)
     caches = [{} for _ in cfg.pattern]
     for i in range(cfg.n_layers):
         ridx, j, btype, p = _layer(cfg, params, i)
         ctx_r = ctx.fold(ridx)
-        x = cm.apply_norm(cfg, p["norm1"], h)
-        if btype in _APPLY:
-            o, st = _APPLY[btype](cfg, p[btype], ctx_r, x,
-                                  return_state=True)
-            h = h + cfg.residual_scale * o
-        else:
-            q, k, v, (k_all, v_all) = _project_qkv(
-                cfg, p["attn"], ctx_r, x, positions, want_all=True)
-            o = _attn_out(cfg, p["attn"], ctx_r, _flash_prefill(q, k, v))
-            h = h + cfg.residual_scale * o
-            x = cm.apply_norm(cfg, p["norm2"], h)
-            h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
-            if mesh is not None:
-                k_all = _kv_shard(cfg, k_all, mesh)
-                v_all = _kv_shard(cfg, v_all, mesh)
-            st = {"k": k_all.to(cfg.cdtype), "v": v_all.to(cfg.cdtype)}
-        for name, x in st.items():
-            caches[j].setdefault(name, []).append(x)
+        with tracing.span("block"):
+            x = cm.apply_norm(cfg, p["norm1"], h)
+            if btype in _APPLY:
+                o, st = _APPLY[btype](cfg, p[btype], ctx_r, x,
+                                      return_state=True)
+                h = h + cfg.residual_scale * o
+            else:
+                q, k, v, (k_all, v_all) = _project_qkv(
+                    cfg, p["attn"], ctx_r, x, positions, want_all=True)
+                with tracing.span("attention"):
+                    o = _flash_prefill(q, k, v)
+                o = _attn_out(cfg, p["attn"], ctx_r, o)
+                h = h + cfg.residual_scale * o
+                x = cm.apply_norm(cfg, p["norm2"], h)
+                h = h + cfg.residual_scale * _ffn(cfg, p, ctx_r, x)[0]
+                if mesh is not None:
+                    k_all = _kv_shard(cfg, k_all, mesh)
+                    v_all = _kv_shard(cfg, v_all, mesh)
+                st = {"k": k_all.to(cfg.cdtype), "v": v_all.to(cfg.cdtype)}
+            for name, x in st.items():
+                caches[j].setdefault(name, []).append(x)
     states = tuple({name: torch.stack(xs) for name, xs in c.items()}
                    for c in caches)
-    h = cm.apply_norm(cfg, params["final_norm"], h[:, -1:])
-    return _whole_logits(cfg, params, h, mesh)[:, 0], states
+    with tracing.span("head"):
+        h = cm.apply_norm(cfg, params["final_norm"], h[:, -1:])
+        logits = _whole_logits(cfg, params, h, mesh)[:, 0]
+    return logits, states
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +811,8 @@ def lm_loss(cfg: ArchConfig, params, batch, policy: cm.Policy,
     if cfg.family == "vlm":
         # only text positions carry labels; the vision prefix has none
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    loss = masked_nll(cfg, logits, labels, mesh)
+    with tracing.span("loss"):
+        loss = masked_nll(cfg, logits, labels, mesh)
     if cfg.n_experts:
         loss = loss + 0.01 * aux["lb_loss"] / cfg.n_layers
     aux["ce_loss"] = loss

@@ -302,6 +302,36 @@ def test_pin_beats_table_beats_rule(tmp_path):
                              torch.bfloat16) == 64
 
 
+def test_tile_sources_count_every_resolution(tmp_path):
+    """``resolve_blocks.tile_sources`` counts each call by where its tile
+    came from, a cached resolution included."""
+    p = write_table(tmp_path / "t.json", "fused_sampled_dw",
+                    at.shape_key(*SHAPE), "wgmma", 128)
+    args = ("fused_sampled_dw", 256, 256, 8, 77, torch.bfloat16)
+    before = dict(at.resolve_blocks.tile_sources)
+    assert at.resolve_blocks(KernelConfig(table_path=p, dw_tile=64),
+                             *args) == 64
+    for _ in range(2):
+        assert at.resolve_blocks(KernelConfig(table_path=p), *args) == 128
+    for k in (78, 79, 80):
+        assert at.resolve_blocks(KernelConfig(table_path=p),
+                                 "fused_sampled_dw", 256, 256, 8, k,
+                                 torch.bfloat16) == 64
+    got = {s: n - before[s]
+           for s, n in at.resolve_blocks.tile_sources.items()}
+    assert got == {"pinned": 1, "table": 2, "rule": 3}
+    # a wrapper handed its tile (the sampled linear's) resolves none
+    h = torch.zeros((1, 4, 16), dtype=torch.bfloat16)
+    z = torch.zeros((1, 8, 16), dtype=torch.bfloat16)
+    i, s = torch.zeros((1, 4), dtype=torch.int32), torch.zeros((1, 4))
+    before = dict(at.resolve_blocks.tile_sources)
+    ops.sampled_matmul(h, z, i, s, tile=64)
+    assert at.resolve_blocks.tile_sources == before
+    ops.sampled_matmul(h, z, i, s)
+    assert sum(at.resolve_blocks.tile_sources.values()) == sum(
+        before.values()) + 1
+
+
 def test_resolution_is_worked_out_once_per_shape(tmp_path, monkeypatch):
     """The backward of every sampled linear resolves its tile: after the
     first call the table is neither read nor looked into again."""
