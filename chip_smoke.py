@@ -46,7 +46,12 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
            torch.gather;
            sampled_matmul's timed cases also time the kernel alone on
            operands planned once; flash bf16 is
-           also held against the tensor-op models/attention.py
+           also held against the tensor-op models/attention.py;
+           flash_attention_bwd against its plain version (bf16/f16,
+           causal or not, G 1 / 6, ragged, Dh 16-128), the same bits on a
+           second call, f32 refused, and timed at the train shape and
+           nemotron-4-15b's (B=16, 48/8 heads of 128, S=2048) beside
+           the backward of scaled_dot_product_attention
   autotune the tile tuner (repro_torch.kernels.autotune): refresh_table
            over DEFAULT_SWEEP into a temporary table, every candidate tile
            of both sampled-dW kernels held against the plain version and
@@ -63,7 +68,9 @@ package).  Phases, each printing one JSON line; any failure exits non-zero:
   train    qwen2.5-3b at published width, depth cut to 12 layers, B=4,
            S=1024, WTA-CRS at budget 0.3: 6 steps through
            get_config -> init_train_state -> make_train_step -> train_step;
-           losses finite and falling, launch counts as expected, every
+           losses finite and falling, launch counts as expected (the
+           training attention's flash_attention_fwd / _bwd once a layer
+           each, read off a meta trace of the step), every
            fused_sampled_dw launch on the wgmma route (its launches by
            tile reported) and every gather_scale launch on bulk (so too
            in optim, moe, moe_wide)
@@ -410,6 +417,15 @@ GATHER_OPTIM_D = (6144, 24576)
 FUSED_OPTIM = [(6144, 24576), (24576, 6144), (6144, 6144), (6144, 1024)]
 FLASH_COMMAND_R = (2, 64, 8, 2048, 2048, 128, True)
 FLASH_NEMOTRON = (2, 48, 8, 2048, 2048, 128, True)
+# flash_attention_bwd as (B, H, KVH, S, Dh): the table's train shape and
+# nemotron-4-15b's train cell (B=16 S=2048), causal; then ragged and odd
+# shapes as (B, H, KVH, Sq, Skv, Dh, causal)
+FLASH_BWD_TIMED = [(4, 16, 2, 2048, 128), (16, 48, 8, 2048, 128)]
+FLASH_BWD_RAGGED = [(2, 4, 4, 32, 32, 16, True), (1, 6, 1, 200, 333, 80, True),
+                    (1, 6, 1, 333, 200, 128, True),
+                    (2, 4, 4, 130, 77, 64, False),
+                    (1, 12, 2, 257, 129, 72, False),
+                    (1, 3, 3, 65, 1500, 64, False)]
 # The MoE phases: granite-moe-1b-a400m at B=4, S=1024 and dbrx-132b at B=1,
 # S=2048, WTA-CRS 0.3 on every linear.  Each expert samples its capacity
 # slots (granite 1280, k = 384; dbrx 640, k = 192), the router the B*S
@@ -1380,7 +1396,7 @@ def flash_case(b, h, kvh, sq, skv, dh, causal, dtype, gen, timed,
         # the same 1e-2
         def bshd(x):
             return x.view(b, -1, x.shape[1], dh).transpose(1, 2)
-        with torch.no_grad():
+        with torch.no_grad(), eager_attention():
             tensor_op = attention_mod.flash_attention(
                 bshd(q), bshd(k), bshd(v), causal=causal)
         case["max_abs_err_vs_tensor_op"] = check_close(
@@ -1403,6 +1419,88 @@ def flash_case(b, h, kvh, sq, skv, dh, causal, dtype, gen, timed,
             "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
             "in_summary": in_summary,
         })
+    return case
+
+
+def flash_bwd_plain_by_heads(q, k, v, do, group, causal, kv_chunk=16):
+    """The plain version a chunk of kv heads (and their query heads) at a
+    time: its f32 scores of every head at once would not fit the card at
+    the timed shapes."""
+    out = [[], [], []]
+    for h0 in range(0, k.shape[0], kv_chunk):
+        h1 = min(h0 + kv_chunk, k.shape[0])
+        for acc, part in zip(out, flash_mod.flash_attention_bwd_plain(
+                q[h0 * group:h1 * group], k[h0:h1], v[h0:h1],
+                do[h0 * group:h1 * group], group=group, causal=causal)):
+            acc.append(part)
+    return [torch.cat(parts) for parts in out]
+
+
+def flash_bwd_case(b, h, kvh, sq, skv, dh, causal, dtype, gen, timed,
+                   ptxas=None):
+    """flash_attention_bwd against its plain version; the same bits on a
+    second call (no sum crosses blocks); ``timed``: ms beside the counted
+    bound (twice the forward's products) and the kernels' own (their 22
+    products against the counted 8, over the visible keys), the plain
+    version and the backward of scaled_dot_product_attention."""
+    bh, bkvh, group = b * h, b * kvh, h // kvh
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    q, do = rnd((bh, sq, dh)), rnd((bh, sq, dh))
+    k, v = rnd((bkvh, skv, dh)), rnd((bkvh, skv, dh))
+    got = ops.flash_attention_bwd(q, k, v, do, group=group, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, do, group=group, causal=causal)
+    torch.cuda.synchronize()
+    what = (f"flash_attention_bwd BH={bh} BKVH={bkvh} Sq={sq} Skv={skv} "
+            f"Dh={dh} causal={causal} {dtype}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"{what}: two calls differ")
+    want = flash_bwd_plain_by_heads(q, k, v, do, group, causal)
+    # the plain version's products in another order (the tensor cores' f32
+    # sums, the tiles'), one rounding to the dtype each: within two ulps of
+    # the gradient's largest value (a dropped tile or a wrong mask shows
+    # as a whole gradient's worth)
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        tol = 2 ** -6 * max(1.0, float(w.abs().max()))
+        errs[name] = check_close(f"{what} {name}", a, w, 0.0, tol)
+    case = {"name": "flash_attention_bwd", "route": "cuda",
+            "kernel_route": "wgmma",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": None,
+            "shape": {"BH": bh, "BKVH": bkvh, "Sq": sq, "Skv": skv, "Dh": dh,
+                      "causal": causal},
+            "dtype": DTYPE_NAMES[dtype], "max_abs_err": max(errs.values()),
+            "max_abs_err_by_gradient": errs, "bit_equal_repeat": True}
+    if timed:
+        flops, nbytes = costs.flash_bwd(bh, bkvh, sq, skv, dh, causal,
+                                        torch.finfo(dtype).bits // 8)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+        q4, k4, v4 = (t.view(b, -1, t.shape[1], dh).requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, enable_gqa=True)
+        do4 = do.view(b, h, sq, dh)
+        case.update({
+            "ms": time_ms(lambda: ops.flash_attention_bwd(
+                q, k, v, do, group=group, causal=causal)),
+            "plain_ms": time_ms(lambda: flash_bwd_plain_by_heads(
+                q, k, v, do, group, causal), warmup=1, reps=3, inner=1),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                lib_out, (q4, k4, v4), do4, retain_graph=True)),
+            "library": "the backward of torch.nn.functional."
+                       "scaled_dot_product_attention(is_causal, enable_gqa) "
+                       "on (B, H, S, Dh)",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "own_bound_ms": 1e3 * max(t_ops * 22 / 8, t_bytes),
+            "fwd_ms": time_ms(lambda: ops.flash_attention_fwd(
+                q, k, v, group=group, causal=causal)),
+            "ptxas": ptxas or {},
+        })
+        del lib_out
     return case
 
 
@@ -1429,6 +1527,21 @@ def phase_kernels():
         for shape in (FLASH_EDGE[0], FLASH_PADDED[0]):
             cases.append(flash_case(*shape, dtype, gen, timed=False,
                                     misaligned=True))
+        for shape in FLASH_BWD_RAGGED:
+            cases.append(flash_bwd_case(*shape, dtype, gen, timed=False))
+    bwd_ptxas = ptxas_report((_build.build().parent / "build.log")
+                             .read_text(), "flash_attention_bwd.cu")
+    for b, h, kvh, s, dh in FLASH_BWD_TIMED:
+        cases.append(flash_bwd_case(b, h, kvh, s, s, dh, True, torch.bfloat16,
+                                    gen, timed=True, ptxas=bwd_ptxas))
+        torch.cuda.empty_cache()
+    f32 = torch.zeros((2, 64, 64), device="cuda")
+    try:
+        ops.flash_attention_bwd(f32, f32[:1], f32[:1], f32, group=2)
+    except ValueError:
+        pass
+    else:
+        fail("flash_attention_bwd took float32 on the card")
     for dtype in (torch.bfloat16, torch.float32):
         for n, d in ROW_NORM_MAIN:
             cases.append(row_norms_case(n, d, dtype, gen, timed=True))
@@ -1615,6 +1728,8 @@ def phase_kernels():
         sh = c["shape"]
         if c["name"] == "flash_attention_fwd":
             want = flash_mod.flash_route(sh["Dh"], dtype, aligned)
+        elif c["name"] == "flash_attention_bwd":
+            want = "wgmma"
         elif c["name"] == "fused_sampled_dw":
             want = fused_sampling.dw_route(sh["d_in"], sh["d_out"], dtype,
                                            aligned)
@@ -1751,7 +1866,8 @@ def phase_autotune(smi):
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("row_norms", "gather_scale", "sampled_matmul",
-                "fused_sampled_dw", "flash_attention_fwd")
+                "fused_sampled_dw", "flash_attention_fwd",
+                "flash_attention_bwd")
 
 
 def reset_launches():
@@ -1840,6 +1956,55 @@ def phase_parity():
 trace_linears = functools.lru_cache(maxsize=None)(znorm.trace_linears)
 
 
+def attention_structure(cfg, remat):
+    """(flash_attention_fwd, flash_attention_bwd) launches of one
+    microbatch's loss and gradient by the model's structure: where the
+    compute dtype and head dim take the kernels (``flash_route`` gives
+    ``wgmma``), one of each an attention call, the forward again under a
+    remat's recompute.  A decoder attends once a layer that runs attention
+    (``attention_layers``); an encoder-decoder once an encoder layer and
+    twice a decoder layer (self- and cross-attention), and takes no
+    remat."""
+    if cfg.head_dim % 8 or flash_mod.flash_route(
+            cfg.head_dim, cfg.cdtype, True) != "wgmma":
+        return 0, 0
+    if cfg.encoder_layers:
+        calls = cfg.encoder_layers + 2 * cfg.n_layers
+        return calls, calls
+    calls = attention_layers(cfg)
+    return calls * (1 if remat == "none" else 2), calls
+
+
+@functools.lru_cache(maxsize=None)
+def attention_launches(cfg, remat):
+    """(flash_attention_fwd, flash_attention_bwd) launches of one
+    microbatch's loss and gradient under ``remat``: the training
+    attention's Function charges a meta launch of each kernel wherever it
+    would launch on the card, so they are read off a trace of the step on
+    ``meta`` (the batch of ``znorm.trace_linears``; the count does not
+    depend on the shapes), and held to ``attention_structure``: a call
+    that left the kernels reads 0 on the card and on ``meta`` alike."""
+    params = registry.init_params(cfg, 0, device="meta")
+    leaves = [p.requires_grad_(True) for p in optim.tree_leaves(params)
+              if p.is_floating_point()]
+    batch = {name: torch.empty(shape, dtype=dtype, device="meta")
+             for name, (shape, dtype) in registry.train_batch_specs(
+                 cfg, 2, 2 * len(cfg.pattern) * 4).items()}
+    fwd, bwd = (ops.flash_attention_fwd.meta_launches,
+                ops.flash_attention_bwd.meta_launches)
+    loss, _ = registry.loss_fn(cfg, params, batch, cm.Policy(
+        wtacrs=WTACRSConfig(kind="exact"), remat=remat))
+    torch.autograd.grad(loss, leaves, allow_unused=True)
+    got = (ops.flash_attention_fwd.meta_launches - fwd,
+           ops.flash_attention_bwd.meta_launches - bwd)
+    want = attention_structure(cfg, remat)
+    if got != want:
+        fail(f"{cfg.name} remat={remat}: the meta trace charges {got} "
+             f"training attention launches a microbatch, the structure "
+             f"{want}")
+    return got
+
+
 def launches_per_step(cfg, policy, seq, microbatches=1, batch=None):
     """Kernel launches one train step implies under a resolved ``policy``,
     read off the model's own linear calls (``znorm.trace_linears``) split
@@ -1852,7 +2017,8 @@ def launches_per_step(cfg, policy, seq, microbatches=1, batch=None):
     fused_sampled_dw once per weight; an exact one launches nothing.  Each
     MoE expert FFN (``rec.expert_calls``) samples when its tag does at its
     capacity slots a sampling group (``models/mlp.py``): its plans launch
-    the same, and its dW once a weight for all the experts."""
+    the same, and its dW once a weight for all the experts.  The training
+    attention launches ``attention_launches``."""
     rec = trace_linears(cfg)
     by_rows = [t for t in rec.tags if rec.dims[t] == cm.SAMPLED_DIM_ROWS]
     active = znorm.sampling_active_tags(
@@ -1876,6 +2042,8 @@ def launches_per_step(cfg, policy, seq, microbatches=1, batch=None):
         for group in cm.plan_groups(policy, call):
             if group[0] in active:
                 plan(len(group))
+    out["flash_attention_fwd"], out["flash_attention_bwd"] = \
+        attention_launches(cfg, policy.remat)
     for tag, weights_per_plan in rec.expert_calls:
         g = policy.moe_groups if tokens % policy.moe_groups == 0 else 1
         cap = g * mlp_mod.moe_capacity(cfg, tokens // g)
@@ -2672,11 +2840,31 @@ def prompt_len(prompt):
     return prompt["tokens"].shape[1]
 
 
+@contextlib.contextmanager
+def eager_attention():
+    """The model's attention through its eager blockwise path on the card
+    (``flash_attention.train_route`` refusing every call), whatever the
+    dtype: the kernels' Function tiles by 128 keys whatever the block size,
+    so a floor of bf16 roundings needs the eager path's block sizes, and
+    the tensor-op reference of the kernels phase needs the eager path.
+    ``models/attention.py::flash_attention`` looks ``train_route`` up on
+    the module at every call (held by ``tests/test_torch_flash_train.py``'s
+    ``test_flash_attention_reads_train_route_at_call``)."""
+    route = flash_mod.train_route
+    flash_mod.train_route = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        flash_mod.train_route = route
+
+
 def forward_logits(cfg, params, batch, positions, flash_block,
                    per_row=False):
     """The model's own forward (tensor-op flash, p rounded to bf16) of
     ``batch`` (a prompt on the card) at ``positions``, with the given
-    attention block size; ``per_row``: each sequence through the forward
+    attention block size (``eager_attention``: on the card too, the
+    attention runs the eager blockwise path, whose block size sets its
+    order of roundings); ``per_row``: each sequence through the forward
     alone (batch 1), so every product runs at other shapes and rounds in
     another order."""
     if per_row:
@@ -2684,7 +2872,7 @@ def forward_logits(cfg, params, batch, positions, flash_block,
                                          prompt_rows(batch, slice(i, i + 1)),
                                          positions, flash_block)
                           for i in range(batch["tokens"].shape[0])])
-    with torch.no_grad():
+    with torch.no_grad(), eager_attention():
         full, _ = registry.forward(cfg, params, batch,
                                    cm.Policy(flash_block=flash_block))
         out = full[:, positions].clone()
@@ -3611,9 +3799,11 @@ def phase_vlm():
     if n_params != 1_546_073_600 or cfg.n_params() != 1_543_569_408:
         fail(f"vlm: {n_params} parameters in the tensors, "
              f"{cfg.n_params()} from n_params()")
-    # 28 layers of 4 plans and 7 dW, vis_proj's one plan and one dW
+    # 28 layers of 4 plans and 7 dW, vis_proj's one plan and one dW; the
+    # training attention's forward and backward once a layer
     expect_per_step("vlm", cfg, VLM_S, VLM_B, {
-        "row_norms": 113, "gather_scale": 113, "fused_sampled_dw": 197})
+        "row_norms": 113, "gather_scale": 113, "fused_sampled_dw": 197,
+        "flash_attention_fwd": 28, "flash_attention_bwd": 28})
     rec, launches = full_size_train("vlm", cfg, VLM_B, VLM_S, VLM_STEPS, 1,
                                     ds=FixedBatch(cfg, VLM_B, VLM_S))
     rec.update(vis_tokens=VLM_VIS, vis_k=VLM_VIS_K,
@@ -3729,9 +3919,12 @@ def phase_whisper():
     if n_params != 104_182_272 or cfg.n_params() != 104_149_504:
         fail(f"whisper: {n_params} parameters in the tensors, "
              f"{cfg.n_params()} from n_params()")
-    # an encoder layer's 4 plans and 6 dW, a decoder layer's 8 and 10
+    # an encoder layer's 4 plans and 6 dW, a decoder layer's 8 and 10; the
+    # training attention once an encoder layer, twice a decoder layer (its
+    # self- and cross-attention), forward and backward
     expect_per_step("whisper", cfg, WHISPER_S // 2, WHISPER_B, {
-        "row_norms": 72, "gather_scale": 72, "fused_sampled_dw": 96})
+        "row_norms": 72, "gather_scale": 72, "fused_sampled_dw": 96,
+        "flash_attention_fwd": 18, "flash_attention_bwd": 18})
     rec, launches = full_size_train(
         "whisper", cfg, WHISPER_B, WHISPER_S // 2, WHISPER_STEPS, 1,
         ds=FixedBatch(cfg, WHISPER_B, WHISPER_S))
@@ -5807,7 +6000,8 @@ def run_phases(phases, smi, dryrun_dir) -> int:
         if "train" in phases:
             train_launches, wta_peak = clocked("train", phase_train, cfg,
                                                ds, n_steps=6)
-            for name in ("row_norms", "gather_scale", "fused_sampled_dw"):
+            for name in ("row_norms", "gather_scale", "fused_sampled_dw",
+                         "flash_attention_bwd"):
                 launches[name] = train_launches[name]
             for name in ("gather_scale", "fused_sampled_dw"):
                 by_route[name] = dict(getattr(ops, name).launches_by_route)

@@ -74,3 +74,14 @@ def flash(bh: int, bkvh: int, sq: int, skv: int, dh: int, causal: bool,
     flops = 4.0 * bh * dh * flash_visible(sq, skv, causal)
     nbytes = (2 * bh * sq + 2 * bkvh * skv) * dh * itemsize
     return flops, float(nbytes)
+
+
+def flash_bwd(bh: int, bkvh: int, sq: int, skv: int, dh: int, causal: bool,
+              itemsize: int) -> Tuple[float, float]:
+    """(flops, bytes) of the attention backward: twice the forward's
+    products (dV, dP, dK, dQ over the visible keys; the kernels' own
+    recomputes of S and dP and the second half of dS are not counted);
+    q, k, v, dO read once, dQ, dK, dV written once."""
+    flops = 8.0 * bh * dh * flash_visible(sq, skv, causal)
+    nbytes = (3 * bh * sq + 4 * bkvh * skv) * dh * itemsize
+    return flops, float(nbytes)

@@ -160,8 +160,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     its own, reduced or not).
 
     ``optimized=True`` applies the beyond-paper §Perf settings: MoE
-    capacity split over the data axes with group-local dispatch, and
-    triangular (lower-triangle-only) flash attention.
+    capacity split over the data axes with group-local dispatch.  The
+    reference's other one, triangular (lower-triangle-only) flash
+    attention, is what the training attention's kernels do for every
+    bf16/f16 config; ``flash_block`` acts only on the eager attention
+    (``Policy``'s docstring), which no config's bf16 trace takes.
     """
     cfg = get_config(arch) if cfg is None else cfg
     shape = SHAPES[shape_name]
@@ -178,8 +181,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         dp = mesh_lib.data_axes(mesh)
         policy = dataclasses.replace(
             policy, moe_pspec=("model", dp),
-            moe_groups=mesh_lib.mesh_size(mesh, dp),
-            flash_mode="triangular")
+            moe_groups=mesh_lib.mesh_size(mesh, dp))
     if shape.kind != "train":
         # estimator only affects training; serve path is exact, and
         # serving streams bf16 weights (decode is weight-bound — §Perf)

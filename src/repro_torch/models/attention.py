@@ -1,6 +1,14 @@
-"""GQA attention: the flash-style training path and the cached decode
-path, in tensor ops (the prefill of the serving path runs the
-``flash_attention_fwd`` kernel instead, see ``models/lm.py::prefill``).
+"""GQA attention: the training path and the cached decode path (the
+prefill of the serving path runs the ``flash_attention_fwd`` kernel, see
+``models/lm.py::prefill``).
+
+``flash_attention`` takes the hand-written kernels'
+``autograd.Function`` (``kernels/flash_attention.py::FlashAttention``:
+the prefill's ``flash_attention_fwd`` kernel forward, a wgmma backward
+that recomputes the softmax statistics) where ``train_route`` accepts the
+call: CUDA (or meta) bf16/f16 tensors, a head dim a multiple of 8 up to
+128, no ``q_offset``.  Everything else (CPU tensors, float32, a head dim
+over 128) runs the eager blockwise version below, the plain one.
 
 Online softmax over KV blocks with the reference's block numerics:
 scores and softmax statistics in f32 (q and k upcast before the score
@@ -22,6 +30,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attention as flash_kernels
 from repro_torch.launch import collectives
 
 NEG_INF = -1e30
@@ -55,10 +64,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh).  Returns (B, Sq, H, Dh).
 
-    ``q_offset``: absolute position of q[0] (for chunked prefill).
+    ``q_offset``: absolute position of q[0] (for chunked prefill).  The
+    kernels' Function takes any Sq, Skv and ignores the blocks and the
+    mode; the eager path needs the lengths to tile by the blocks.
     """
     if mode not in ("full", "triangular"):
         raise ValueError(f"unknown flash mode {mode!r}")
+    if flash_kernels.train_route(q, k, q_offset):
+        return flash_kernels.FlashAttention.apply(q, k, v, causal)
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh

@@ -145,9 +145,13 @@ class Policy:
     stores every activation, ``"full"`` only the layer's input (the
     recompute rebuilds the plans), ``"wtacrs_names"`` the layer's input
     and the sampled linears' kept tensors (H', idx, scale), which the
-    recompute reuses.  ``flash_block`` / ``flash_mode`` set the attention
-    block size and whether the causal upper triangle of block pairs is
-    skipped (``triangular``) or masked (``full``).  ``moe_groups`` splits
+    recompute reuses.  ``flash_block`` / ``flash_mode`` set the eager
+    attention's block size and whether the causal upper triangle of block
+    pairs is skipped (``triangular``) or masked (``full``); they act only
+    where ``models/attention.py::flash_attention`` keeps its eager path
+    (CPU tensors, float32, a head dim over 128), since the kernels'
+    Function that the card's (and the dry run's) bf16/f16 calls take
+    tiles by its own blocks and skips the masked ones.  ``moe_groups`` splits
     an MoE layer's tokens into dispatch groups and each expert's capacity
     slots into as many sampling plans (``models/mlp.py``).
     """

@@ -45,8 +45,8 @@ The spans, by module:
   and the logits), ``loss`` (``masked_nll``), ``attention`` (the
   training attention call of a block; the flash kernel in prefill) and
   ``attention.bwd`` (from the gradient of the attention's output to the
-  gradients of q, k and v: its backward, the checkpointed recompute
-  included).
+  gradients of q, k and v: its backward, ``flash_attention_bwd`` on the
+  card, the checkpointed recompute included on the eager path).
 * ``core/linear.py``: ``linear`` (a dense sampled linear's forward, the
   exact short-circuit included) holding ``plan`` (the plans) and
   ``gather`` (H'); ``linear.bwd`` (its backward) holding ``dx``,

@@ -691,7 +691,7 @@ def kernels():
 
 def test_sources_parse(kernels):
     assert kernels.broken == {}
-    assert len(kernels.kernels()) == 12
+    assert len(kernels.kernels()) == 14
 
 
 @pytest.mark.parametrize("kernel,targs,threads", [

@@ -172,17 +172,19 @@ def test_row_norms_wrapper_refuses_what_the_kernel_does_not_take(x, error):
 
 def test_kernel_sources_are_packaged_and_hashed():
     names = sorted(p.name for p in _build.CSRC.iterdir())
-    assert names == ["common.cuh", "flash_attention_fwd.cu",
-                     "fused_sampled_dw.cu", "gather_scale.cu", "hopper.cuh",
-                     "row_norms.cu", "sampled_matmul.cu"]
+    assert names == ["common.cuh", "flash_attention_bwd.cu",
+                     "flash_attention_fwd.cu", "fused_sampled_dw.cu",
+                     "gather_scale.cu", "hopper.cuh", "row_norms.cu",
+                     "sampled_matmul.cu"]
     assert set(_build._SIGNATURES) == {"repro_row_norms",
                                        "repro_gather_scale",
                                        "repro_sampled_matmul",
                                        "repro_fused_sampled_dw",
-                                       "repro_flash_attention_fwd"}
+                                       "repro_flash_attention_fwd",
+                                       "repro_flash_attention_bwd"}
     assert set(ops.__all__) == {"row_norms", "gather_scale",
                                 "sampled_matmul", "fused_sampled_dw",
-                                "flash_attention_fwd"}
+                                "flash_attention_fwd", "flash_attention_bwd"}
     for name in _build._SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in _build.CSRC.glob("*.cu"))
